@@ -1,0 +1,4 @@
+"""Data substrate: the synthetic image dataset and the ξ-skew partitioner."""
+
+from repro_torch.data.partition import skewness_partition
+from repro_torch.data.synthetic import SyntheticImageDataset, make_image_dataset

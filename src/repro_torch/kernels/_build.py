@@ -1,0 +1,140 @@
+"""Builds the hand-written CUDA kernels and loads them with ctypes.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
+its own shared library with a plain C interface, under ``build/
+repro_torch_kernels/`` at the root of the checkout (git-ignored).  The
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded.  All missing
+libraries are compiled together, one ``nvcc`` process per source.
+
+Nothing here runs at import time: the CPU tests import every module, on
+machines that may have no ``nvcc``.  The first CUDA launch builds what it
+needs.
+
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["LAUNCHES", "SOURCES", "build_all", "check", "library", "reset_launches"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+)
+SOURCES = ("pairwise_l2", "gram")
+
+# C signatures: name -> (restype, argtypes).  Pointers and the stream are
+# c_void_p so that ctypes does not cut them to 32 bits.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "pairwise_l2": {
+        "pairwise_l2_tiles": (_I, [_I]),
+        "pairwise_l2_dists_stats": (_I, [_P, _I, _I, _I, _P, _P, _P, _P]),
+        "pairwise_l2_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "gram": {
+        "gram_normalized": (_I, [_P, _I, _I, _P, _P, _I, _P, _P]),
+        "gram_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+LAUNCHES: Dict[str, int] = {"pairwise_dists_stats": 0, "normalized_gram": 0}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source whose library is missing, all ``nvcc`` processes
+    started together.  Returns each compiled source's compiler output
+    (``-Xptxas=-v`` register and shared-memory report); raises with the
+    output of every failed compile."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = [n for n in SOURCES if not _target(n).exists()]
+    if not pending:
+        return {}
+    nvcc = _nvcc()
+    procs = []
+    for name in pending:
+        out = _target(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append(
+            (name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        )
+    logs, failed = {}, []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a library
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not _target(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, (restype, argtypes) in _SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _LIBS[name] = lib
+    return lib
+
+
+def check(name: str, err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (refused launches never run,
+    and a later synchronise would not report them)."""
+    if err != 0:
+        msg = getattr(library(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")

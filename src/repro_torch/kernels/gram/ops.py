@@ -1,0 +1,95 @@
+"""K2 wrapper and the two-launch profiles -> DPP-kernel pipeline.
+
+``repro_torch.core.similarity`` routes through :func:`kernel_from_profiles`
+when ``use_kernel=True``.  On a CUDA device the pipeline is two kernel
+launches (K1, then K2) with a few tiny reductions between them on the
+device; on the CPU each wrapper runs its plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels.gram.ref import normalized_gram_ref
+from repro_torch.kernels.pairwise_l2.ops import pairwise_dists_stats
+
+__all__ = ["normalized_gram", "kernel_from_profiles", "candidate_kernel_from_profiles"]
+
+
+def _scalar(x: torch.Tensor, name: str, device: torch.device) -> torch.Tensor:
+    if x.numel() != 1 or x.dtype != torch.float32 or x.device != device:
+        raise ValueError(f"{name} must be one fp32 value on {device}")
+    return x.reshape(())
+
+
+def normalized_gram(
+    s0: torch.Tensor,
+    lo: torch.Tensor,
+    rng: torch.Tensor,
+    c: int,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Distances S0 (P, P), P >= c, plus device scalars lo and rng -> the DPP
+    kernel L (c, c) fp32.  ``compute_dtype`` (fp32 or bf16) is the type S is
+    rounded to before the product; the sum is fp32 either way."""
+    if s0.ndim != 2 or s0.shape[0] != s0.shape[1] or s0.dtype != torch.float32:
+        raise ValueError(f"s0 must be a square fp32 matrix, got {tuple(s0.shape)} {s0.dtype}")
+    if not 1 <= c <= s0.shape[0]:
+        raise ValueError(f"c={c} must be in [1, {s0.shape[0]}]")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    lo = _scalar(lo, "lo", s0.device)
+    rng = _scalar(rng, "rng", s0.device)
+    if s0.device.type == "cpu":
+        return normalized_gram_ref(s0, lo, rng, c, compute_dtype)
+    if s0.device.type != "cuda":
+        raise ValueError(f"no kernel for device {s0.device}")
+    if not (s0.is_contiguous() and lo.is_contiguous() and rng.is_contiguous()):
+        raise ValueError("s0, lo and rng must be contiguous")
+    lib = _build.library("gram")
+    out = torch.empty((c, c), dtype=torch.float32, device=s0.device)
+    with torch.cuda.device(s0.device):
+        err = lib.gram_normalized(
+            s0.data_ptr(), s0.shape[1], c, lo.data_ptr(), rng.data_ptr(),
+            int(compute_dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(s0.device).cuda_stream,
+        )
+    _build.check("gram", err, "normalized_gram")
+    _build.LAUNCHES["normalized_gram"] += 1
+    return out
+
+
+def kernel_from_profiles(
+    f: torch.Tensor, device: Optional[Union[str, torch.device]] = None
+) -> torch.Tensor:
+    """Profiles (C, Q) -> PSD DPP kernel (C, C) fp32 in two kernel launches.
+
+    Runs on ``device`` (default ``cuda``; raises when there is no CUDA
+    device, unless ``device="cpu"``), moving ``f`` there first.  Launch 1
+    (K1) gives the distances and the min/max; ``rng = max(hi − lo, 1e-30)``
+    is formed on the device; launch 2 (K2) normalises and forms ``SᵀS``.
+    bf16 profiles give bf16 products with fp32 sums.
+    """
+    f = f.to(resolve_device(device))
+    s0, lo, hi = pairwise_dists_stats(f)
+    rng = torch.clamp_min(hi - lo, 1e-30)
+    compute_dtype = torch.bfloat16 if f.dtype == torch.bfloat16 else torch.float32
+    return normalized_gram(s0, lo, rng, f.shape[0], compute_dtype)
+
+
+def candidate_kernel_from_profiles(
+    fq: torch.Tensor, device: Optional[Union[str, torch.device]] = None
+) -> torch.Tensor:
+    """Funnel candidate block (Q, F) -> PSD DPP kernel (Q, Q).
+
+    The ragged-Q twin of :func:`kernel_from_profiles`: the same kernels with
+    the same tiling, so a block of all C clients gives exactly the
+    unfunneled kernel.
+    """
+    if fq.ndim != 2:
+        raise ValueError(f"candidate profiles must be (Q, F), got {tuple(fq.shape)}")
+    return kernel_from_profiles(fq, device=device)

@@ -1,0 +1,1 @@
+"""K1: pairwise L2 distances with the eq.-(14) sqrt epilogue and min/max stats."""
