@@ -8,15 +8,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 1. Card and build: prints the card's name and power limit, turns TF32 off
    for matmuls and cuDNN, and builds every CUDA kernel from the sources in
    this checkout (``nvcc`` for ``sm_90a``).
-2. Kernels against their plain PyTorch versions on the card, at the
+2. K1 and K2 against their plain PyTorch versions on the card, at the
    main-path shape and three larger ones, with the tolerances stated below;
-   prints errors and the kernel, plain and library times.
-3. The main path: five rounds of FL-DP³S at the paper's scale (C=100
+   prints errors and the kernel, plain and library times.  Then K5
+   (flash-decode) the same way, at the serving path's shape, two long
+   shapes and the JAX test's three fp32 shapes.
+3. The FL main path: five rounds of FL-DP³S at the paper's scale (C=100
    clients, 10 per round, 600 samples each, CNN (16, 32) with Q=128) through
    ``FLTrainer`` on ``cuda`` with the paper's config as it stands; checks
    that K1 and K2 ran on that path, that each cohort is 10 distinct clients and
    that losses, accuracy and GEMD are finite and in range.
-4. Prints one JSON line describing every kernel, then the device line
+4. The serving main path: smollm-360m at full width (32 layers, bf16,
+   random weights from seed 0) with ``use_flash=True``, in scan mode
+   (batch 16, prompt 128, 64 tokens) and through ``ServeEngine`` (16 slots,
+   48 requests, budgets in [32, 128]); checks that K5 ran once per layer and
+   decode step and never at admission, that every request finishes once
+   with its budget, that both engine entry points kept one shape signature,
+   that the continuous run's tokens agree with a reference run of the same
+   prompts without the engine or K5, that greedy scan tokens without K5
+   equal the legacy loop's bit for bit, and holds K5's teacher-forced
+   logits against the plain attention's.
+5. Prints one JSON line describing every kernel, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and imports nothing of JAX.
@@ -43,6 +55,20 @@ SHAPES = [  # (C, Q, dtype name): the main-path shape first
     (4096, 128, "fp32"),
     (513, 257, "bf16"),
 ]
+# K5: (B, S, H, Hk, hd, dtype name, lengths); None = ragged with an empty
+# and a full slot; "full" = every slot at S.  The serving path's shape first.
+DECODE_SHAPES = [
+    (16, 256, 15, 5, 64, "bf16", None),
+    (16, 4096, 15, 5, 64, "bf16", "full"),
+    (1, 32768, 15, 5, 64, "bf16", "full"),
+    (5, 40, 4, 2, 32, "fp32", [0, 1, 7, 33, 40]),  # the JAX test's shapes
+    (2, 64, 4, 4, 16, "fp32", [64, 50]),
+    (3, 16, 4, 1, 64, "fp32", [16, 3, 9]),
+]
+# the serving main path (smollm-360m at full width)
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "smollm-360m", 16, 128, 64
+SERVE_REQUESTS, SERVE_BUDGETS, SERVE_CHUNK = 48, (32, 128), 8
+FL_KERNELS = ("pairwise_dists_stats", "normalized_gram")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -78,6 +104,233 @@ def bound(nbytes: float, flops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def serve_phase(torch, dev) -> int:
+    """The serving main path at full width; returns K5's launches on it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, params = serve_launch.build_model(SERVE_ARCH, 0, full_width=True, device=dev)
+    check((cfg.num_layers, cfg.d_model, cfg.dtype) == (32, 960, "bfloat16"), f"not full width: {cfg}")
+    layers = cfg.num_layers
+    print(
+        f"serving: {SERVE_ARCH} at full width, {T.param_count(params) / 1e6:.1f} M parameters "
+        f"in {cfg.param_dtype}, activations and caches in {cfg.dtype}"
+    )
+    rng = np.random.default_rng(0)
+    b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p), dtype=np.int32), device=dev)
+    # warm-up (cuBLAS handles, allocator pools), outside the counted runs
+    serve_launch.run_scan_mode(cfg, params, prompts[:, :8], 4, use_flash=True)
+
+    # scan mode through K5
+    _build.reset_launches()
+    toks, t = serve_launch.run_scan_mode(cfg, params, prompts, g, use_flash=True)
+    scan_launches = dict(_build.LAUNCHES)
+    print(
+        f"scan B={b} P={p} G={g}: prefill {t['t_prefill'] * 1e3:.3f} ms, decode "
+        f"{t['t_decode'] * 1e3:.3f} ms = {b * (g - 1) / t['t_decode']:.1f} tok/s; "
+        f"launches {scan_launches}"
+    )
+    # (a) K5 once per layer and decode step; prefill launches none
+    check(scan_launches["flash_decode"] == layers * (g - 1), f"K5 launches {scan_launches}")
+    check(all(scan_launches[n] == 0 for n in FL_KERNELS), "K1/K2 ran on the serving path")
+    check(toks.shape == (b, g) and bool(((toks >= 0) & (toks < T.vocab_padded(cfg))).all()), "scan tokens")
+
+    # continuous batching through ServeEngine
+    class TimedEngine(ServeEngine):
+        """Records each request's time to first token: from submission to
+        the end of its own admission on the device (prefill and first
+        sample), read by a synchronise after each admission.  The next
+        admission's slot choice reads the occupancy mask on the host and
+        waits for the device anyway, so the synchronise costs next to
+        nothing."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ttft, admit = {}, self._admit.fn
+
+            def timed_admit(params, state, prompt, gen_target, seq_id, generator):
+                state = admit(params, state, prompt, gen_target, seq_id, generator)
+                torch.cuda.synchronize()
+                self.ttft[seq_id] = time.perf_counter() - self.t_submit
+                return state
+
+            self._admit.fn = timed_admit
+
+    budgets = rng.integers(SERVE_BUDGETS[0], SERVE_BUDGETS[1] + 1, size=SERVE_REQUESTS)
+    requests = rng.integers(0, cfg.vocab_size, size=(SERVE_REQUESTS, p), dtype=np.int32)
+    gmax = int(budgets.max())
+    scfg = ServeConfig(batch=b, cache_len=p + gmax, max_new=gmax, decode_chunk=SERVE_CHUNK, use_flash=True)
+    eng = TimedEngine(cfg, scfg, params, prompt_len=p, seed=0)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    eng.t_submit = t0 = time.perf_counter()
+    for i in range(SERVE_REQUESTS):
+        eng.submit(requests[i], int(budgets[i]))
+    finished = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cont_launches = dict(_build.LAUNCHES)
+    steps = eng.state.step
+    tokens = sum(len(f.tokens) for f in finished)
+    ttft = np.asarray(sorted(eng.ttft.values())) * 1e3
+    print(
+        f"continuous: {SERVE_REQUESTS} requests through {b} slots, budgets in "
+        f"[{budgets.min()}, {budgets.max()}], cache_len {scfg.cache_len}: {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tok/s aggregate over {steps} decode steps; "
+        f"TTFT ms p50 {np.percentile(ttft, 50):.2f} p95 {np.percentile(ttft, 95):.2f} "
+        f"max {ttft.max():.2f} (first {ttft.min():.2f}); launches {cont_launches}; "
+        f"shape signatures {eng.compile_counts()}"
+    )
+    # (a) again: every K5 launch belongs to a decode step, so admissions launched none
+    check(cont_launches["flash_decode"] == layers * steps, f"K5 {cont_launches} vs {steps} steps")
+    check(all(cont_launches[n] == 0 for n in FL_KERNELS), "K1/K2 ran on the serving path")
+    # (b) every request finishes once, with exactly its budget
+    ids = sorted(f.seq_id for f in finished)
+    check(ids == list(range(SERVE_REQUESTS)), f"finished ids {ids}")
+    check(all(len(f.tokens) == budgets[f.seq_id] for f in finished), "a request missed its budget")
+    check(len(ttft) == SERVE_REQUESTS, "not one TTFT per request")
+    # (c) one shape signature per entry point
+    check(eng.compile_counts() == {"decode_chunk": 1, "admit": 1}, f"{eng.compile_counts()}")
+
+    # (f) the engine's tokens against a reference without the engine and
+    # without K5: all requests prefilled together at the same depth, plain
+    # attention, the engine's tokens teacher-forced.  Where the engine's
+    # logits lie within d of the reference's, its greedy token t has
+    # ref[t] >= max(ref) - 2d; d is check (e)'s bound, 0.05 * max|logits|.
+    # A control feeds each request the previous request's prompt (what a
+    # scatter into the wrong row would do) and must break the bound.
+    out = np.zeros((SERVE_REQUESTS, gmax), np.int32)
+    for f in finished:
+        out[f.seq_id, : len(f.tokens)] = f.tokens
+    out_d = torch.as_tensor(out, device=dev)
+    valid = torch.as_tensor(np.arange(gmax)[None, :] < budgets[:, None], device=dev)
+
+    def reference_gaps(prompts_np):
+        """max(ref logits) - ref logit of the engine's token, (n, gmax),
+        greedy agreement, and max|ref logits|."""
+        caches = T.init_caches(cfg, SERVE_REQUESTS, scfg.cache_len, per_slot=True, device=dev)
+        logits, caches = serve_launch.prefill(cfg, params, torch.as_tensor(prompts_np, device=dev), caches)
+        gaps, hits, top = [], [], torch.zeros((), device=dev)
+        for j in range(gmax):
+            if j:
+                logits, caches = T.decode_step(cfg, params, out_d[:, j - 1 : j], caches)
+            lj = logits[:, 0].float()
+            gaps.append(lj.max(-1).values - lj.gather(-1, out_d[:, j : j + 1].long())[:, 0])
+            hits.append(lj.argmax(-1) == out_d[:, j])
+            top = torch.maximum(top, lj.abs().max())
+        return torch.stack(gaps, 1), torch.stack(hits, 1), float(top)
+
+    gaps, hits, top = reference_gaps(requests)
+    worst = float(gaps[valid].max())
+    agree_c = float(hits[valid].float().mean())
+    cgaps, _, ctop = reference_gaps(np.roll(requests, 1, axis=0))
+    flagged = int(((cgaps > 0.1 * ctop) & valid).any(1).sum())
+    print(
+        f"continuous tokens vs a batch-{SERVE_REQUESTS} reference without the engine or K5 over "
+        f"{int(valid.sum())} tokens: worst gap {worst:.4g} (bound 0.1 * max|logits| = "
+        f"{0.1 * top:.4g}), greedy agreement {agree_c:.4f}; control with shifted prompts "
+        f"breaks the bound in {flagged} of {SERVE_REQUESTS} requests"
+    )
+    check(worst <= 0.1 * top, f"continuous tokens off the reference: gap {worst} > 0.1 * {top}")
+    check(flagged >= SERVE_REQUESTS // 2, f"the control flagged only {flagged} requests")
+
+    # (d) greedy scan without K5 equals the legacy loop bit for bit
+    plain, _ = serve_launch.run_scan_mode(cfg, params, prompts, g, use_flash=False)
+    legacy, _ = serve_launch.run_legacy(cfg, params, prompts, g)
+    check(bool((plain == legacy).all()), "scan tokens != legacy tokens")
+    print(f"parity OK: scan tokens without K5 bit-identical to the legacy loop ({b}x{g})")
+
+    # (e) teacher-forced logits over the K5 scan's tokens: K5, the plain
+    # attention, and the plain attention in an fp32 copy of the model
+    def teacher(c, prm, use_flash):
+        caches = T.init_caches(c, b, p + g, per_slot=True, device=dev)
+        logits, caches = serve_launch.prefill(c, prm, prompts, caches)
+        out = [logits.float()]
+        toks_d = torch.as_tensor(toks, device=dev)
+        for i in range(g - 1):
+            logits, caches = T.decode_step(c, prm, toks_d[:, i : i + 1], caches, use_flash=use_flash)
+            out.append(logits.float())
+        return torch.cat(out, dim=1)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = _to_float(torch, params)
+    l_k5, l_plain = teacher(cfg, params, True), teacher(cfg, params, False)
+    l_32 = teacher(cfg32, params32, False)
+    scale = float(l_plain.abs().max())
+    d = float((l_k5 - l_plain).abs().max())
+    e_k5 = float((l_k5 - l_32).abs().max())
+    e_plain = float((l_plain - l_32).abs().max())
+    agree = float((l_k5.argmax(-1) == l_plain.argmax(-1)).float().mean())
+    agree32 = float((l_k5.argmax(-1) == l_32.argmax(-1)).float().mean())
+    print(
+        f"teacher-forced logits over {b}x{g} steps (max|logits| {scale:.4g}): |K5 - plain| "
+        f"{d:.4g}; vs the fp32 model: K5 {e_k5:.4g}, plain {e_plain:.4g}; greedy tokens "
+        f"agree K5/plain {agree:.4f}, K5/fp32 {agree32:.4f}"
+    )
+    check(bool(torch.isfinite(l_k5).all()), "non-finite logits through K5")
+    # the bf16 bound: the plain path rounds scores and probabilities to bf16
+    # in every one of the 32 layers and K5 rounds its output once, so the
+    # two bf16 paths part by a few percent of max|logits|; a wrong head
+    # mapping, mask or length would part them by the logits' own size.  K5
+    # must also stay (within a quarter) no further from the fp32 model than
+    # the plain bf16 attention is.
+    check(d <= 0.05 * scale, f"K5 logits off the plain path by {d} > 0.05 * {scale}")
+    check(e_k5 <= 1.25 * e_plain, f"K5 {e_k5} further from fp32 than the plain path {e_plain}")
+
+    # where a decode step's time goes: three steps under torch.profiler,
+    # after the counted runs (the device's busy share is its kernel time over
+    # the scan run's unprofiled wall time per step)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    caches = T.init_caches(cfg, b, p + 4, per_slot=True, device=dev)
+    logits, caches = serve_launch.prefill(cfg, params, prompts, caches)
+    tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+    logits, caches = T.decode_step(cfg, params, tok, caches, use_flash=True)
+    torch.cuda.synchronize()
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            logits, caches = T.decode_step(cfg, params, tok, caches, use_flash=True)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+           and e.name.startswith("aten::")]
+    step_ms = t["t_decode"] / (g - 1) * 1e3
+    print(f"decode step at full width: {len(ops) / n_prof:.0f} top-level aten ops and "
+          f"{len(kernels) / n_prof:.0f} device kernels per step; wall {step_ms:.3f} ms per step "
+          f"(scan run, unprofiled)")
+    if kernels:
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_prof
+        dev_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  device kernel time {dev_ms:.3f} ms per step: busy share {dev_ms / step_ms:.4f}, "
+              f"idle share {1 - dev_ms / step_ms:.4f}")
+        for name, ms in top:
+            print(f"  {ms:.4f} ms/step  {name[:110]}")
+    else:
+        print("  device kernel time: not measured (the profiler recorded no device events)")
+    return scan_launches["flash_decode"] + cont_launches["flash_decode"]
+
+
+def _to_float(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.float()
+    if isinstance(tree, dict):
+        return {k: _to_float(torch, v) for k, v in tree.items()}
+    return [_to_float(torch, v) for v in tree]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -95,6 +348,8 @@ def main() -> int:
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.gram import ref as gram_ref
     from repro_torch.kernels.pairwise_l2 import ops as pw_ops
+    from repro_torch.kernels.flash_attention import ops as fd_ops
+    from repro_torch.kernels.flash_attention import ref as fd_ref
     from repro_torch.kernels.pairwise_l2 import ref as pw_ref
     from repro_torch.models import cnn
 
@@ -212,6 +467,64 @@ def main() -> int:
             f"pipeline err={errp:.3e} (max|L|={lmax:.4g}) ms={pipe_ms:.5f}"
         )
 
+    # K5 on its own against its plain version, with SDPA as the yardstick
+    import torch.nn.functional as F
+
+    decode_rows = {}
+    for b, s, h, hk, hd, kind, lengths in DECODE_SHAPES:
+        gen = torch.Generator().manual_seed(b * 7919 + s)
+        q, k, v = (
+            torch.randn(shape, generator=gen).to(dtypes[kind]).to(dev)
+            for shape in ((b, 1, h, hd), (b, s, hk, hd), (b, s, hk, hd))
+        )
+        if lengths is None:
+            lengths = [0, s] + torch.randint(1, s, (b - 2,), generator=gen).tolist()
+        elif lengths == "full":
+            lengths = [s] * b
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = fd_ops.flash_decode(q, k, v, ln)
+        torch.cuda.synchronize()
+        want = fd_ref.decode_attention_ref(q, k, v, ln)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if kind == "fp32":
+            tol = 1e-5  # the JAX flash-decode test's bound
+            check(err <= tol, f"K5 off at {(b, s, h, hk, hd, kind)}: {err} > {tol}")
+        else:
+            # both compute in fp32 from the same bf16 inputs and round once
+            # to bf16 at the end, so they part by at most one bf16 step of
+            # the output element (<= 2^-7 of |out|) plus the fp32 sums'
+            # order, which the absolute term 2^-8 * max|out of the slot|
+            # covers near 0 (per slot: a slot of length 1 returns v itself,
+            # a long slot outputs far smaller values)
+            wf = want.float()
+            atol = 2.0**-8 * wf.abs().amax(dim=(1, 2, 3), keepdim=True)
+            tol = float(atol.max())
+            bad = int((diff > 2.0**-7 * wf.abs() + atol).sum())
+            check(bad == 0, f"K5 off at {(b, s, h, hk, hd, kind)}: {bad} elements, max {err}")
+        check(bool(torch.all(got[ln == 0] == 0)), f"K5 empty slot not zero at {(b, s)}")
+        mask = (torch.arange(s, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        k5_ms = time_ms(torch, lambda: fd_ops.flash_decode(q, k, v, ln))
+        k5_plain = time_ms(torch, lambda: fd_ref.decode_attention_ref(q, k, v, ln))
+        k5_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        # least work: the valid K/V prefix read once, q read and out written
+        # once; 4 FLOPs per valid entry, query head and dimension, in fp32
+        valid = sum(min(x, s) for x in lengths)
+        esize = q.element_size()
+        b5 = bound(valid * hk * hd * 2 * esize + 2 * b * h * hd * esize + 4 * b,
+                   4.0 * valid * h * hd, "fp32")
+        decode_rows[(b, s, kind)] = dict(
+            max_abs_err=err, ms=k5_ms, plain_ms=k5_plain, library_ms=k5_lib,
+            bound_ms=b5[0], bound_by=b5[1],
+        )
+        print(
+            f"K5 B={b} S={s} H={h} Hk={hk} hd={hd} {kind} valid={valid}: err={err:.3e} "
+            f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k5_ms:.5f} plain={k5_plain:.5f} sdpa={k5_lib:.5f} "
+            f"bound={b5[0]:.6f} ({b5[1]})"
+        )
+
     # --------------------------------------------------------- 3. main path
     exp = paper_cnn.paper_scale()
     c, cp = exp.num_clients, exp.clients_per_round
@@ -270,8 +583,9 @@ def main() -> int:
     print(f"launches on the main path: {launches}")
 
     check(trainer.device.type == "cuda", "the trainer did not run on the card")
-    for name in launches:
+    for name in FL_KERNELS:
         check(init_launches[name] >= 1, f"{name} did not run during _init_profiles")
+    check(launches["flash_decode"] == 0, "K5 ran on the FL path")
     check(len(strategy.cohorts) == ROUNDS, "not one cohort per round")
     for cohort in strategy.cohorts:
         check(
@@ -326,24 +640,34 @@ def main() -> int:
         f"{cp} clients {t_local:.4f} s, accuracy over {xs_all.shape[0]} samples {t_eval:.4f} s"
     )
 
-    # ---------------------------------------------------------- 4. results
+    # ------------------------------------------- 4. the serving main path
+    serve_launches = serve_phase(torch, dev)
+
+    # ---------------------------------------------------------- 5. results
     main_shape = SHAPES[0]
     sources = {
         "pairwise_dists_stats": (
             "src/repro_torch/kernels/csrc/pairwise_l2.cu",
             "src/repro/kernels/pairwise_l2/pairwise_l2.py:127",
+            rows["pairwise_dists_stats"][main_shape], launches["pairwise_dists_stats"],
         ),
         "normalized_gram": (
             "src/repro_torch/kernels/csrc/gram.cu",
             "src/repro/kernels/gram/gram.py:104",
+            rows["normalized_gram"][main_shape], launches["normalized_gram"],
+        ),
+        "flash_decode": (
+            "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_attention/decode.py:78",
+            decode_rows[DECODE_SHAPES[0][0], DECODE_SHAPES[0][1], DECODE_SHAPES[0][5]],
+            serve_launches,
         ),
     }
     table = []
-    for name, (source, replaces) in sources.items():
-        r = rows[name][main_shape]
+    for name, (source, replaces, r, n) in sources.items():
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))

@@ -38,11 +38,11 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
-SOURCES = ("pairwise_l2", "gram")
+SOURCES = ("pairwise_l2", "gram", "flash_decode")
 
 # C signatures: name -> (restype, argtypes).  Pointers and the stream are
 # c_void_p so that ctypes does not cut them to 32 bits.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pairwise_l2": {
         "pairwise_l2_tiles": (_I, [_I]),
@@ -53,9 +53,13 @@ _SIGNATURES = {
         "gram_normalized": (_I, [_P, _I, _I, _P, _P, _I, _P, _P]),
         "gram_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_decode": {
+        "flash_decode": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        "flash_decode_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
-LAUNCHES: Dict[str, int] = {"pairwise_dists_stats": 0, "normalized_gram": 0}
+LAUNCHES: Dict[str, int] = {"pairwise_dists_stats": 0, "normalized_gram": 0, "flash_decode": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

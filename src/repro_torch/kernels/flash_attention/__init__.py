@@ -1,0 +1,2 @@
+"""K5: single-query GQA decode attention against a KV cache with per-slot
+valid lengths (the serving path's flash-decode)."""

@@ -1,0 +1,65 @@
+"""K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU
+tensors.  ``repro_torch.models.attention.apply_attention`` calls it on
+every decode step with ``use_flash=True``."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+
+__all__ = ["flash_decode"]
+
+MAX_HEAD_DIM = 256
+
+
+def flash_decode(
+    q: torch.Tensor,  # (B, 1, H, hd)
+    k: torch.Tensor,  # (B, S, Hk, hd) cached keys
+    v: torch.Tensor,  # (B, S, Hk, hd) cached values
+    lengths: torch.Tensor,  # (B,) int32 valid prefix per slot
+) -> torch.Tensor:
+    """Single-query GQA attention of each slot against its first
+    ``lengths[b]`` cache entries -> (B, 1, H, hd) in q's dtype.  fp32 math;
+    a slot of length 0 gives zeros."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q/k/v must be (B, 1|S, H|Hk, head_dim)")
+    if q.shape[1] != 1:
+        raise ValueError(f"flash_decode takes one query per slot, got S={q.shape[1]}")
+    b, _, h, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be (B, S, Hk, {hd})")
+    if h % k.shape[2]:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {k.shape[2]}")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be (B,)=({b},), got {tuple(lengths.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must all be float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim={hd} must be in [1, {MAX_HEAD_DIM}]")
+    if min(b, k.shape[1]) < 1:
+        raise ValueError("q/k/v must be non-empty")
+    devices = {t.device for t in (q, k, v, lengths)}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v and lengths must share one device, got {devices}")
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be int32 on the card, got {lengths.dtype}")
+    if not all(t.is_contiguous() for t in (q, k, v, lengths)):
+        raise ValueError("q, k, v and lengths must be contiguous")
+    s, hk = k.shape[1], k.shape[2]
+    lib = _build.library("flash_decode")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, s, h, hk, hd, hd**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check("flash_decode", err, "flash_decode")
+    _build.LAUNCHES["flash_decode"] += 1
+    return out

@@ -1,0 +1,180 @@
+"""GQA attention (full and sliding-window) with KV-cache decode.
+
+Conventions, the JAX package's:
+* activations (B, S, D); q/k/v (B, S, H|Hk, head_dim);
+* KV cache ``{"k","v": (B, slots, Hk, hd), "pos": () | (B,)}``: a ring
+  buffer of ``slots`` entries (slot = pos % slots).  ``pos: (B,)`` tracks
+  one position per batch row, so decode slots at different depths share
+  one batch (the serving engine's layout);
+* GQA grouping: q heads fold to (Hk, G), so k/v are used ungrouped.
+
+With a cache, ``apply_attention`` writes the new k/v into the cache's
+tensors **in place** (the port saves a copy of every layer's cache per
+step that way) and returns the cache dict with the advanced position; the
+position tensor itself is never written in place.
+
+``use_flash`` routes a decode step (S == 1, no window) through K5
+(``kernels.flash_attention.ops.flash_decode``).  The no-cache flash route
+(K6) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import layers as L
+
+__all__ = ["init_attention", "init_cache", "apply_attention"]
+
+NEG_INF = -2.0e38
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    dtype = L.torch_dtype(cfg.param_dtype)
+    return {
+        "wq": L.init_dense(generator, cfg.d_model, cfg.q_dim, dtype, device),
+        "wk": L.init_dense(generator, cfg.d_model, cfg.kv_dim, dtype, device),
+        "wv": L.init_dense(generator, cfg.d_model, cfg.kv_dim, dtype, device),
+        "wo": L.init_dense(generator, cfg.q_dim, cfg.d_model, dtype, device),
+    }
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, cache_len: int, window: Optional[int],
+    per_slot: bool = False, device=None,
+) -> Dict:
+    """Zeroed KV cache; a ring of ``window`` slots for SWA.  ``per_slot``
+    gives ``pos: (B,)`` (one position per row) instead of ``pos: ()``."""
+    slots = min(cache_len, window) if window else cache_len
+    dtype = L.torch_dtype(cfg.dtype)
+    shape = (batch, slots, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((batch,) if per_slot else (), dtype=torch.int32, device=device),
+    }
+
+
+def _positions_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.pos_style == "rope":
+        return L.apply_rope(x, positions, cfg.rope_theta)
+    if cfg.pos_style == "none":
+        return x
+    raise NotImplementedError(
+        f"pos_style={cfg.pos_style!r} is not ported yet (ROADMAP Queue 1, Slice 2 item 8)"
+    )
+
+
+def _attend(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, Hk, hd)
+    v: torch.Tensor,  # (B, Skv, Hk, hd)
+    q_pos: torch.Tensor,  # (B, Sq)
+    kv_pos: torch.Tensor,  # (B, Skv)
+    kv_valid: torch.Tensor,  # (B | 1, Skv) bool
+    window: Optional[int],
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Exact masked GQA attention, queries in blocks of ``chunk`` so the
+    live scores are (B, Hk, G, chunk, Skv).  Scores are formed in the
+    inputs' dtype and softmaxed in fp32; the probabilities are cast to
+    ``v.dtype`` before the PV product, as in the JAX package."""
+    b, sq, h, hd = q.shape
+    hk = k.shape[2]
+    g = h // hk
+
+    def block(q_blk, qpos_blk):
+        qg = q_blk.reshape(b, q_blk.shape[1], hk, g, hd)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+        scores = scores * (hd**-0.5)
+        mask = kv_pos[:, None, :] <= qpos_blk[:, :, None]
+        if window is not None:
+            mask &= kv_pos[:, None, :] > qpos_blk[:, :, None] - window
+        mask &= kv_valid[:, None, :]
+        scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+        return out.reshape(b, q_blk.shape[1], h, hd)
+
+    if chunk is None or chunk >= sq:
+        return block(q, q_pos)
+    outs = [block(q[:, i : i + chunk], q_pos[:, i : i + chunk]) for i in range(0, sq, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def apply_attention(
+    cfg: ModelConfig,
+    p: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Dict] = None,
+    window: Optional[int] = None,
+    use_flash: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Attention block body.  ``cache=None`` is the no-cache (training)
+    path; with a cache, S is the write length (prefill) or 1 (decode)."""
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if positions.ndim != 2:
+        raise NotImplementedError("M-RoPE position streams are not ported yet")
+    q_pos = positions
+    q = _positions_rope(cfg, q, positions)
+    k = _positions_rope(cfg, k, positions)
+
+    if cache is None:
+        if use_flash and window is None:
+            raise NotImplementedError(
+                "the no-cache flash route needs K6 (flash_attention_kernel), "
+                "which is not ported yet (ROADMAP Queue 2)"
+            )
+        valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+        out = _attend(q, k, v, q_pos, q_pos, valid, window, chunk=cfg.attention_chunk)
+        new_cache = None
+    else:
+        ck, cv = cache["k"], cache["v"]
+        slots = ck.shape[1]
+        pos0 = cache["pos"]
+        per_slot = pos0.ndim == 1  # (B,) positions, one per row
+        ar = torch.arange(s, device=x.device)
+        if not per_slot and s == slots and window is None:
+            # prefill writing the whole cache
+            ck.copy_(k)
+            cv.copy_(v)
+        elif per_slot:
+            # each row writes at its own ring offset
+            idx = (pos0[:, None] + ar[None, :]) % slots  # (B, s)
+            bidx = torch.arange(b, device=x.device)[:, None]
+            ck[bidx, idx] = k.to(ck.dtype)
+            cv[bidx, idx] = v.to(cv.dtype)
+        else:
+            idx = (pos0 + ar) % slots
+            ck[:, idx] = k.to(ck.dtype)
+            cv[:, idx] = v.to(cv.dtype)
+        new_pos = pos0 + s
+        if use_flash and s == 1 and window is None:
+            lengths = new_pos.clamp(max=slots).expand(b).contiguous()
+            out = flash_ops.flash_decode(q, ck, cv, lengths)
+        else:
+            # absolute positions held in each slot (ring-aware)
+            slot_ids = torch.arange(slots, device=x.device)
+            np_b = new_pos[:, None] if per_slot else new_pos  # (B, 1) | ()
+            if window is None:
+                kv_pos = slot_ids[None, :].expand(b, slots)
+                kv_valid = slot_ids[None, :] < np_b
+            else:
+                # slot holds the latest absolute position congruent mod `slots`
+                last = np_b - 1
+                kv_pos = last - torch.remainder(last - slot_ids[None, :], slots)
+                kv_pos = kv_pos.expand(b, slots)
+                kv_valid = (kv_pos >= 0) & (kv_pos < np_b)
+            out = _attend(q, ck, cv, q_pos, kv_pos, kv_valid, window, chunk=cfg.attention_chunk)
+        new_cache = {"k": ck, "v": cv, "pos": new_pos}
+
+    y = L.dense(p["wo"], out.reshape(b, s, cfg.q_dim))
+    return y, new_cache

@@ -1,0 +1,134 @@
+"""Shared decoder-LM layers: dense, norms, RoPE, MLP variants.
+
+Plain init/apply pairs over dicts of tensors, as in the JAX package, with
+its layouts: activations (B, S, D), a dense weight (d_in, d_out) applied as
+``x @ w``.  The dtype points are the JAX package's: norms compute in fp32
+and cast back, RoPE rotates in fp32 and casts back, MLPs stay in the
+activation dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = [
+    "rms_norm",
+    "layer_norm",
+    "init_norm",
+    "apply_norm",
+    "rope_freqs",
+    "apply_rope",
+    "init_mlp",
+    "apply_mlp",
+    "init_dense",
+    "dense",
+]
+
+Params = Dict[str, torch.Tensor]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name ("float32", "bfloat16") as a torch dtype."""
+    return getattr(torch, name)
+
+
+def init_dense(
+    generator: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype, device
+) -> Params:
+    """Normal weights of std ``d_in ** -0.5``, drawn in fp32 and cast."""
+    w = torch.randn(d_in, d_out, generator=generator, device=device) * d_in**-0.5
+    return {"w": w.to(dtype)}
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"]
+
+
+# ----------------------------------------------------------------- norms
+
+
+def init_norm(cfg: ModelConfig, device) -> Params:
+    d = cfg.d_model
+    dtype = torch_dtype(cfg.param_dtype)
+    p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+# ----------------------------------------------------------------- RoPE
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponents)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs, half-split convention: (x1, x2) are the two halves of
+    the head dim.  Computes in fp32 (``angles`` is fp32) and casts back."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Standard RoPE.  x: (B, S, H, hd); positions: (B, S) int."""
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)  # (hd/2,)
+    ang = positions.float()[..., None] * inv  # (B, S, hd/2)
+    return _rotate(x, ang[:, :, None, :])
+
+
+# ----------------------------------------------------------------- MLPs
+
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Params]:
+    dtype = torch_dtype(cfg.param_dtype)
+    ff = cfg.d_ff
+    p = {"wi": init_dense(generator, cfg.d_model, ff, dtype, device)}
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        p["wg"] = init_dense(generator, cfg.d_model, ff, dtype, device)
+    p["wo"] = init_dense(generator, ff, cfg.d_model, dtype, device)
+    return p
+
+
+def apply_mlp(cfg: ModelConfig, p: Dict[str, Params], x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_variant == "swiglu":
+        h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+    elif cfg.mlp_variant == "geglu":
+        h = F.gelu(dense(p["wg"], x), approximate="tanh") * dense(p["wi"], x)
+    elif cfg.mlp_variant == "gelu":
+        h = F.gelu(dense(p["wi"], x), approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp_variant {cfg.mlp_variant!r}")
+    return dense(p["wo"], h)
+

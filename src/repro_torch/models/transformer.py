@@ -1,0 +1,291 @@
+"""Composable decoder transformer: the dense ``attn+mlp`` family.
+
+A model is a ``block_pattern``, a repeating unit of "mixer+ffn" layer specs
+(``cfg.layer_types()``).  The port runs the attention mixers (``attn``,
+``swa``, ``local``) and the ``mlp`` FFN; ``moe``, ``rglru``, ``rwkv`` and
+``cmix`` raise ``NotImplementedError`` until their slice lands.
+
+Parameters are a plain dict: ``embed.w`` (V_pad, D), ``final_norm``,
+``lm_head.w`` (D, V_pad) when the embeddings are untied, and ``blocks``,
+one dict per layer in layer order.  ``params_from_jax`` turns the JAX
+package's layer-stacked tree into this layout.
+
+Caches keep the JAX package's layer-stacked layout (``init_caches``):
+``{"unit": ({"k","v": (reps, B, slots, Hk, hd), "pos": (reps,) |
+(reps, B)}, ...), "rem": (per-layer caches, ...)}``.  ``forward`` hands
+each layer a view of its row and the layers write k/v in place; the
+returned caches share those tensors and carry new positions.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+
+__all__ = [
+    "init_params",
+    "init_caches",
+    "forward",
+    "logits_from_hidden",
+    "decode_step",
+    "param_count",
+    "params_from_jax",
+    "vocab_padded",
+    "lm_loss",
+    "features",
+]
+
+ATTN_MIXERS = ("attn", "swa", "local")
+
+
+def _parse(btype: str) -> Tuple[str, str]:
+    mixer, ffn = btype.split("+")
+    if mixer not in ATTN_MIXERS or ffn != "mlp":
+        raise NotImplementedError(
+            f"block {btype!r}: the port runs attn/swa/local mixers with mlp FFNs; "
+            "moe, rglru, rwkv and cmix come later (ROADMAP Queue 1, Slice 2 item 8)"
+        )
+    return mixer, ffn
+
+
+def _mixer_window(cfg: ModelConfig, mixer: str) -> Optional[int]:
+    return {"attn": None, "swa": cfg.window, "local": cfg.local_window}[mixer]
+
+
+def vocab_padded(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab_size // 128) * 128
+
+
+# ------------------------------------------------------------------ init
+
+
+def _init_block(generator: torch.Generator, cfg: ModelConfig, btype: str, device) -> Dict:
+    _parse(btype)
+    return {
+        "norm1": L.init_norm(cfg, device),
+        "norm2": L.init_norm(cfg, device),
+        "mixer": attn_mod.init_attention(generator, cfg, device),
+        "ffn": L.init_mlp(generator, cfg, device),
+    }
+
+
+def init_params(
+    generator: torch.Generator, cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None
+) -> Dict:
+    """Random parameters from ``generator`` (which must live on ``device``):
+    embeddings N(0, 0.02²), dense weights N(0, 1/d_in), norms 1."""
+    device = resolve_device(device)
+    dtype = L.torch_dtype(cfg.param_dtype)
+    v = vocab_padded(cfg)
+    embed = torch.randn(v, cfg.d_model, generator=generator, device=device) * 0.02
+    params: Dict[str, Any] = {"embed": {"w": embed.to(dtype)}, "final_norm": L.init_norm(cfg, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_dense(generator, cfg.d_model, v, dtype, device)
+    params["blocks"] = [_init_block(generator, cfg, bt, device) for bt in cfg.layer_types()]
+    return params
+
+
+def params_from_jax(np_params: Mapping, cfg: ModelConfig, device=None) -> Dict:
+    """The JAX package's parameter tree (numpy leaves, as
+    ``jax.tree_util.tree_map(np.asarray, params)`` gives) -> the port's.
+
+    Layer ``r * len(pattern) + j`` of the unit part is
+    ``np_params["unit"][j][...][r]``; the ``rem`` blocks follow.  Dense
+    weights keep JAX's (d_in, d_out) layout."""
+    device = resolve_device(device)
+    dtype = L.torch_dtype(cfg.param_dtype)
+
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        return torch.tensor(np.ascontiguousarray(np.asarray(tree, np.float32)), device=device).to(dtype)
+
+    pattern = cfg.block_pattern
+    reps = cfg.num_layers // len(pattern)
+    blocks: List[Dict] = []
+    for r in range(reps):
+        for j in range(len(pattern)):
+            blocks.append(conv(_index(np_params["unit"][j], r)))
+    blocks.extend(conv(p) for p in np_params["rem"])
+    out = {"embed": conv(np_params["embed"]), "final_norm": conv(np_params["final_norm"]), "blocks": blocks}
+    if "lm_head" in np_params:
+        out["lm_head"] = conv(np_params["lm_head"])
+    return out
+
+
+def _index(tree, r: int):
+    if isinstance(tree, Mapping):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def init_caches(
+    cfg: ModelConfig, batch: int, cache_len: int, per_slot: bool = False,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict:
+    """Zeroed, layer-stacked caches.  ``per_slot=True`` carries one position
+    per batch row (``pos: (B,)`` in each layer), the serving engine's
+    layout; otherwise one shared scalar position."""
+    device = resolve_device(device)
+    pattern = cfg.block_pattern
+    reps, rem = divmod(cfg.num_layers, len(pattern))
+
+    def one(btype: str) -> Dict:
+        mixer, _ = _parse(btype)
+        return attn_mod.init_cache(
+            cfg, batch, cache_len, _mixer_window(cfg, mixer), per_slot=per_slot, device=device
+        )
+
+    unit = tuple(
+        {name: x.expand((reps,) + x.shape).contiguous() for name, x in one(bt).items()} for bt in pattern
+    )
+    return {"unit": unit, "rem": tuple(one(pattern[j]) for j in range(rem))}
+
+
+# ------------------------------------------------------------------ forward
+
+
+def _apply_block(
+    cfg: ModelConfig, p: Dict, btype: str, x: torch.Tensor, positions: torch.Tensor,
+    cache: Optional[Dict], use_flash: bool,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    mixer, _ = _parse(btype)
+    h = L.apply_norm(cfg, p["norm1"], x)
+    y, new_cache = attn_mod.apply_attention(
+        cfg, p["mixer"], h, positions, cache, _mixer_window(cfg, mixer), use_flash
+    )
+    x = x + y
+    h = L.apply_norm(cfg, p["norm2"], x)
+    return x + L.apply_mlp(cfg, p["ffn"], h), new_cache
+
+
+def _embed_in(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    if cfg.pos_style not in ("rope", "none"):
+        raise NotImplementedError(
+            f"pos_style={cfg.pos_style!r} is not ported yet (ROADMAP Queue 1, Slice 2 item 8)"
+        )
+    dtype = L.torch_dtype(cfg.dtype)
+    x = params["embed"]["w"][tokens].to(dtype)
+    if cfg.embed_scale:
+        # the factor is rounded to the activation dtype first, as in JAX
+        x = x * float(torch.tensor(cfg.d_model**0.5, dtype=dtype))
+    return x
+
+
+def _layer_cache(caches: Dict, cfg: ModelConfig, layer: int) -> Dict:
+    n = len(cfg.block_pattern)
+    reps = cfg.num_layers // n
+    r, j = divmod(layer, n)
+    if r < reps:
+        return {name: x[r] for name, x in caches["unit"][j].items()}
+    return caches["rem"][j]
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Dict,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    caches: Optional[Dict] = None,
+    use_flash: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """-> (final hidden (B, S, D), new caches, total aux loss (0 for the
+    dense family)).  With caches, k/v are written in place (module
+    docstring)."""
+    x = _embed_in(cfg, params, tokens)
+    layer_types = cfg.layer_types()
+    new_pos: List[torch.Tensor] = []
+    new_rem: List[Dict] = []
+    reps = cfg.num_layers // len(cfg.block_pattern)
+    for i, (p, btype) in enumerate(zip(params["blocks"], layer_types)):
+        cache = None if caches is None else _layer_cache(caches, cfg, i)
+        x, nc = _apply_block(cfg, p, btype, x, positions, cache, use_flash)
+        if caches is not None:
+            if i < reps * len(cfg.block_pattern):
+                new_pos.append(nc["pos"])
+            else:
+                new_rem.append(nc)
+    new_caches = None
+    if caches is not None:
+        n = len(cfg.block_pattern)
+        unit = tuple(
+            {"k": u["k"], "v": u["v"], "pos": torch.stack(new_pos[j::n]) if reps else u["pos"]}
+            for j, u in enumerate(caches["unit"])
+        )
+        new_caches = {"unit": unit, "rem": tuple(new_rem)}
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _head_weight(cfg: ModelConfig, params: Dict) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["w"].T  # (D, V)
+    return params["lm_head"]["w"]
+
+
+def logits_from_hidden(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocabulary, in the hidden's dtype."""
+    logits = hidden @ _head_weight(cfg, params).to(hidden.dtype)
+    if cfg.logits_soft_cap:
+        c = cfg.logits_soft_cap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: Dict,
+    tokens: torch.Tensor,  # (B, 1) int
+    caches: Dict,
+    use_flash: bool = False,
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode against the caches -> (logits (B, 1, V_pad), new
+    caches).  A per-slot cache decodes each row at its own position."""
+    b = tokens.shape[0]
+    pos = _cache_pos(caches)
+    if pos.ndim:  # per-slot (B,)
+        positions = pos[:, None].to(torch.int32)
+    else:
+        positions = pos.to(torch.int32).expand(b, 1)
+    hidden, new_caches, _ = forward(cfg, params, tokens, positions, caches, use_flash=use_flash)
+    return logits_from_hidden(cfg, params, hidden), new_caches
+
+
+def _cache_pos(caches: Dict) -> torch.Tensor:
+    """Current position(s): () shared-scalar or (B,) per-slot.  Every layer
+    holds the same position, so read the first one."""
+    if caches["unit"] and caches["unit"][0]["pos"].shape[0]:
+        return caches["unit"][0]["pos"][0]
+    return caches["rem"][0]["pos"]
+
+
+def param_count(params: Dict) -> int:
+    def count(tree) -> int:
+        if isinstance(tree, torch.Tensor):
+            return tree.numel()
+        if isinstance(tree, Mapping):
+            return sum(count(v) for v in tree.values())
+        return sum(count(v) for v in tree)
+
+    return count(params)
+
+
+def lm_loss(*args, **kwargs):
+    raise NotImplementedError(
+        "lm_loss belongs to the LM training path (ROADMAP Queue 1, Slice 2 item 8), "
+        "which is not ported yet"
+    )
+
+
+def features(*args, **kwargs):
+    raise NotImplementedError(
+        "features (the LM client profile) belongs to the LM FL client path "
+        "(ROADMAP Queue 1, Slice 2 item 8), which is not ported yet"
+    )

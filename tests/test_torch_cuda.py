@@ -80,3 +80,103 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     s0 = torch.zeros(8, 8, device=card)
     with pytest.raises(ValueError):
         gram_ops.normalized_gram(s0, torch.zeros(()), torch.ones((), device=card), 8)
+
+
+# ------------------------------------------------------------------- K5
+
+from repro_torch.kernels.flash_attention import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fd_ref  # noqa: E402
+
+
+def _qkv(b, s, h, hk, hd, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(n, generator=g) for n in ((b, 1, h, hd), (b, s, hk, hd), (b, s, hk, hd)))
+    return q.to(dtype).to(device), k.to(dtype).to(device), v.to(dtype).to(device)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,hd,lengths,dtype",
+    [
+        (5, 40, 4, 2, 32, [0, 1, 7, 33, 40], torch.float32),  # the JAX test's shapes
+        (2, 64, 4, 4, 16, [64, 50], torch.float32),
+        (3, 16, 4, 1, 64, [16, 3, 9], torch.float32),
+        (4, 40, 15, 5, 64, [0, 40, 17, 1], torch.float32),
+        (16, 256, 15, 5, 64, None, torch.bfloat16),  # the serving path's shape
+        (3, 300, 48, 8, 128, [300, 0, 129], torch.bfloat16),
+        (2, 100, 32, 2, 256, [100, 31], torch.float32),  # 16 rows per KV head: two groups
+        (2, 70, 6, 3, 40, [70, 5], torch.bfloat16),  # hd*2 % 16 == 0: vector loads
+        (2, 70, 6, 3, 20, [69, 70], torch.bfloat16),  # scalar loads
+    ],
+)
+def test_flash_decode_kernel_matches_plain(card, b, s, h, hk, hd, lengths, dtype):
+    q, k, v = _qkv(b, s, h, hk, hd, dtype, card)
+    if lengths is None:  # ragged, with an empty and a full slot
+        lengths = [0, s] + [int(x) for x in torch.randint(1, s, (b - 2,), generator=torch.Generator().manual_seed(1))]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = _build.LAUNCHES["flash_decode"]
+    got = fd_ops.flash_decode(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_decode"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fd_ref.decode_attention_ref(q, k, v, ln)
+    empty = ln == 0
+    assert torch.all(got[empty] == 0)
+    if dtype == torch.float32:
+        # fp32 sums in another order: the JAX test's bound
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        # both compute in fp32 from the same bf16 inputs and round once at the
+        # end: they differ by at most one bf16 step of each output element
+        # (<= 2^-7 of |out|), plus the fp32 sums' order near 0, bounded by
+        # 2^-8 of the slot's largest output
+        wf = want.float()
+        atol = 2.0**-8 * wf.abs().amax(dim=(1, 2, 3), keepdim=True)
+        diff = (got.float() - wf).abs()
+        bad = diff > 2.0**-7 * wf.abs() + atol
+        assert not bool(bad.any()), f"{int(bad.sum())} elements off, max {float(diff.max())}"
+
+
+def test_flash_decode_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(2, 16, 4, 2, 32, torch.float32, card)
+    ln = torch.tensor([3, 16], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="lengths"):
+        fd_ops.flash_decode(q, k, v, ln[:1])
+    with pytest.raises(ValueError, match="one query"):
+        fd_ops.flash_decode(torch.cat([q, q], dim=1), k, v, ln)
+    with pytest.raises(ValueError, match="multiple"):
+        fd_ops.flash_decode(q[:, :, :3], k, v, ln)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fd_ops.flash_decode(q.half(), k.half(), v.half(), ln)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fd_ops.flash_decode(q, k.bfloat16(), v, ln)
+    with pytest.raises(ValueError, match="int32"):
+        fd_ops.flash_decode(q, k, v, ln.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        fd_ops.flash_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, ln)
+    with pytest.raises(ValueError, match="one device"):
+        fd_ops.flash_decode(q, k, v, ln.cpu())
+    q3, k3, v3 = _qkv(1, 8, 2, 1, 264, torch.float32, card)
+    with pytest.raises(ValueError, match="head_dim"):
+        fd_ops.flash_decode(q3, k3, v3, torch.tensor([8], dtype=torch.int32, device=card))
+
+
+def test_decode_step_with_flash_launches_k5_once_per_layer(card):
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as T
+
+    cfg, params = tserve.build_model("smollm-360m", 0, device=card)  # reduced, fp32
+    b, p = 3, 5
+    toks = torch.randint(0, cfg.vocab_size, (b, p), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(torch.int32).to(card)
+    pos = torch.arange(p, dtype=torch.int32, device=card)[None].expand(b, p)
+    logits = {}
+    for use_flash in (False, True):
+        caches = T.init_caches(cfg, b, p + 2, per_slot=True, device=card)
+        _, caches, _ = T.forward(cfg, params, toks, pos, caches)
+        before = _build.LAUNCHES["flash_decode"]
+        logits[use_flash], _ = T.decode_step(cfg, params, toks[:, -1:], caches, use_flash=use_flash)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_decode"] - before == (cfg.num_layers if use_flash else 0)
+    # fp32 attention summed in another order, carried through the layers
+    scale = float(logits[False].abs().max())
+    torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4 * scale)
