@@ -9,10 +9,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    for matmuls and cuDNN, and builds every CUDA kernel from the sources in
    this checkout (``nvcc`` for ``sm_90a``).
 2. K1 and K2 against their plain PyTorch versions on the card, at the
-   main-path shape and three larger ones, with the tolerances stated below;
+   FL and LM paths' shapes and three larger ones, with the tolerances stated below;
    prints errors and the kernel, plain and library times.  Then K5
    (flash-decode) the same way, at the serving path's shape, two long
-   shapes and the JAX test's three fp32 shapes.
+   shapes and the JAX test's three fp32 shapes, and K6 (causal flash
+   attention) at the LM path's refresh shape, three long bf16 shapes and
+   the JAX test's five fp32 shapes, windows included.
 3. The FL main path: five rounds of FL-DP³S at the paper's scale (C=100
    clients, 10 per round, 600 samples each, CNN (16, 32) with Q=128) through
    ``FLTrainer`` on ``cuda`` with the paper's config as it stands; checks
@@ -28,7 +30,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    prompts without the engine or K5, that greedy scan tokens without K5
    equal the legacy loop's bit for bit, and holds K5's teacher-forced
    logits against the plain attention's.
-5. Prints one JSON line describing every kernel, then the device line
+5. The LM client path at full width: ``python -m
+   repro_torch.launch.train --mode fl --arch smollm-360m --full-width
+   --flash --seq 512`` (10 clients, 4 a round, 3 rounds) and ``--mode
+   pretrain`` for a few steps, both through the launcher's ``main``;
+   checks that K6 took every layer of every loss-refresh forward and no
+   gradient pass, that K1 and K2 built the kernel once and that it agrees
+   with the plain chain on the path's profiles, that every round's
+   loss and GEMD are finite, and holds the refresh through K6 against the
+   same refresh without it (losses, and the final hidden states with a
+   control that breaks the bound).
+6. Prints one JSON line describing every kernel, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and imports nothing of JAX.
@@ -49,8 +61,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}  # fp32 on the CUDA cores; bf16 tensor cores
 
 ROUNDS = 5
-SHAPES = [  # (C, Q, dtype name): the main-path shape first
+SHAPES = [  # (C, Q, dtype name): the FL main path's shape first, then the LM path's
     (100, 128, "fp32"),
+    (10, 960, "fp32"),
     (1000, 700, "fp32"),
     (4096, 128, "fp32"),
     (513, 257, "bf16"),
@@ -69,6 +82,25 @@ DECODE_SHAPES = [
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "smollm-360m", 16, 128, 64
 SERVE_REQUESTS, SERVE_BUDGETS, SERVE_CHUNK = 48, (32, 128), 8
 FL_KERNELS = ("pairwise_dists_stats", "normalized_gram")
+# K6: (B, S, H, Hk, hd, dtype name, window); the LM path's refresh shape first
+ATTN_SHAPES = [
+    (16, 512, 15, 5, 64, "bf16", None),
+    (4, 2048, 15, 5, 64, "bf16", None),
+    (2, 1000, 48, 8, 128, "bf16", None),  # ragged: 1000 = 15 * 64 + 40
+    (1, 4096, 16, 16, 256, "bf16", None),
+    (2, 64, 4, 2, 32, "fp32", None),  # the JAX test's shapes
+    (1, 100, 4, 4, 16, "fp32", None),
+    (2, 64, 8, 2, 32, "fp32", 16),
+    (1, 128, 4, 1, 64, "fp32", 32),
+    (1, 32, 2, 2, 8, "fp32", None),
+]
+# the LM client path (smollm-360m at full width)
+LM_ROUNDS, LM_CLIENTS, LM_PER_ROUND, LM_SEQ, LM_DOCS = 3, 10, 4, 512, 16
+PRETRAIN_STEPS = 6
+# bounds on the refresh with K6 against the refresh without it, fixed
+# before the first run (PERF.md): per-client losses, and the relative
+# Frobenius distance of the final hidden states of one refresh batch
+LM_LOSS_BOUND, LM_HIDDEN_BOUND, CONTROL_WINDOW = 2e-3, 0.03, 64
 
 
 def check(ok: bool, msg: str) -> None:
@@ -287,40 +319,218 @@ def serve_phase(torch, dev) -> int:
     # where a decode step's time goes: three steps under torch.profiler,
     # after the counted runs (the device's busy share is its kernel time over
     # the scan run's unprofiled wall time per step)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     caches = T.init_caches(cfg, b, p + 4, per_slot=True, device=dev)
     logits, caches = serve_launch.prefill(cfg, params, prompts, caches)
     tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
-    logits, caches = T.decode_step(cfg, params, tok, caches, use_flash=True)
+    box = [T.decode_step(cfg, params, tok, caches, use_flash=True)[1]]
+
+    def decode():
+        box[0] = T.decode_step(cfg, params, tok, box[0], use_flash=True)[1]
+
+    _print_profile(torch, "decode step at full width", decode, "flash_decode", n=3,
+                   wall_ms=t["t_decode"] / (g - 1) * 1e3)
+    return scan_launches["flash_decode"] + cont_launches["flash_decode"]
+
+
+def _print_profile(torch, what: str, fn, mark: str, n: int = 1, wall_ms=None) -> None:
+    """Runs ``fn`` ``n`` times (after the caller's warm-up) under
+    torch.profiler and prints per call: top-level aten ops, device kernels,
+    wall time (``wall_ms`` where the caller measured it unprofiled), device
+    kernel time and busy share, the share of kernels whose name holds
+    ``mark``, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    n_prof = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            logits, caches = T.decode_step(cfg, params, tok, caches, use_flash=True)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) / n * 1e3
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     ops = [e for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
            and e.name.startswith("aten::")]
-    step_ms = t["t_decode"] / (g - 1) * 1e3
-    print(f"decode step at full width: {len(ops) / n_prof:.0f} top-level aten ops and "
-          f"{len(kernels) / n_prof:.0f} device kernels per step; wall {step_ms:.3f} ms per step "
-          f"(scan run, unprofiled)")
-    if kernels:
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_prof
-        dev_ms = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"  device kernel time {dev_ms:.3f} ms per step: busy share {dev_ms / step_ms:.4f}, "
-              f"idle share {1 - dev_ms / step_ms:.4f}")
-        for name, ms in top:
-            print(f"  {ms:.4f} ms/step  {name[:110]}")
-    else:
+    wall = prof_wall if wall_ms is None else wall_ms
+    print(f"{what}: {len(ops) / n:.0f} top-level aten ops and {len(kernels) / n:.0f} device "
+          f"kernels per call; wall {wall:.3f} ms per call "
+          f"({'under the profiler' if wall_ms is None else 'unprofiled'})")
+    if not kernels:
         print("  device kernel time: not measured (the profiler recorded no device events)")
-    return scan_launches["flash_decode"] + cont_launches["flash_decode"]
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    dev_ms = sum(by_name.values())
+    mine = sum(ms for name, ms in by_name.items() if mark in name)
+    print(f"  device kernel time {dev_ms:.3f} ms per call: busy share {dev_ms / wall:.4f}, "
+          f"idle share {1 - dev_ms / wall:.4f}; {mark} {mine:.3f} ms ({mine / dev_ms:.4f})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"  {ms:.4f} ms  {name[:110]}")
+
+
+def lm_phase(torch, dev) -> int:
+    """The LM client path at full width through the launcher's ``main``;
+    returns K6's launches on its FL run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.core import similarity
+    from repro_torch.fl import rounds
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("smollm-360m").model
+    common = ["--arch", "smollm-360m", "--full-width", "--seq", str(LM_SEQ), "--log-every", "1"]
+    fl_argv = ["--mode", "fl", "--flash", "--rounds", str(LM_ROUNDS), "--clients", str(LM_CLIENTS),
+               "--per-round", str(LM_PER_ROUND), "--docs-per-client", str(LM_DOCS)] + common
+    print(f"LM FL: python -m repro_torch.launch.train {' '.join(fl_argv)}")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = train_launch.main(fl_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    layers, refreshes = cfg.num_layers, LM_ROUNDS * LM_PER_ROUND
+    print(f"LM FL: {LM_ROUNDS} rounds in {wall:.3f} s with set-up (model, data, profiles, "
+          f"K1 + K2, eigh); launches {launches}")
+    for i in range(LM_ROUNDS):
+        parts = [float(outs[n][i]) for n in ("t_select", "t_local", "t_refresh")]
+        print(f"  round {int(outs['round'][i])}: {sum(parts):.4f} s = selection {parts[0]:.4f} "
+              f"+ local updates {parts[1]:.4f} + refresh {parts[2]:.4f} "
+              f"({LM_PER_ROUND} x {LM_DOCS} x {LM_SEQ} tokens through K6)")
+    # (g) K6 took every layer of every refresh forward and nothing else: the
+    # local updates take gradients, where the wrapper would raise
+    check(launches["flash_attention"] == layers * refreshes,
+          f"K6 launches {launches['flash_attention']} != {layers} x {refreshes} refresh forwards")
+    check(launches["pairwise_dists_stats"] == 1 and launches["normalized_gram"] == 1,
+          f"K1/K2 not once on the LM path: {launches}")
+    check(launches["flash_decode"] == 0, "K5 ran on the LM path")
+    sel = outs["selected"].numpy()
+    check(sel.shape == (LM_ROUNDS, LM_PER_ROUND), f"cohorts {sel.shape}")
+    check(all(len(set(r)) == LM_PER_ROUND and r.min() >= 0 and r.max() < LM_CLIENTS for r in sel),
+          f"bad cohorts {sel.tolist()}")
+    check(bool(np.isfinite(outs["loss"].numpy()).all()), f"round losses {outs['loss']}")
+    check(bool(((outs["gemd"] >= 0) & (outs["gemd"] <= 2)).all()), f"GEMDs {outs['gemd']}")
+    losses = state.losses
+    check(bool(torch.isfinite(losses).all()), "non-finite client losses")
+    refreshed = sorted(set(sel.ravel().tolist()))
+    check(bool((losses[refreshed] != 1.0).all()), "a selected client's loss was not refreshed")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(state.params)), "non-finite params")
+    # the eq.-14 kernel that K1 + K2 built on this path, against the plain
+    # chain on the same profiles, elementwise at the main-path tolerance
+    # (rtol 1e-5 / atol 1e-5) around an fp64 chain, plus the fp32 plain
+    # chain's own distance from it: hidden-state means lie close together
+    # relative to their norms, where the plain chain's |a|^2 + |b|^2 - 2ab
+    # cancels and K1's direct sum of (a - b)^2 does not
+    prof, kern = state.profiles, state.kernel
+    check(tuple(prof.shape) == (LM_CLIENTS, cfg.d_model) and prof.dtype == torch.float32,
+          f"LM profiles {tuple(prof.shape)} {prof.dtype}")
+    want = gram_ref.kernel_from_profiles_ref(prof)
+    exact = similarity.kernel_from_profiles(prof.double())
+    slack = (want.double() - exact).abs()
+    kerr, kerr64 = float((kern - want).abs().max()), float((kern.double() - exact).abs().max())
+    print(f"LM eq.-14 kernel ({LM_CLIENTS} x {cfg.d_model} fp32 profiles): |K1+K2 - plain| "
+          f"{kerr:.3e}; vs an fp64 chain: K1+K2 {kerr64:.3e}, plain {float(slack.max()):.3e}")
+    check(bool(torch.all((kern.double() - exact).abs() <= 1e-5 + 1e-5 * exact.abs() + slack)),
+          f"the LM path's eq.-14 kernel off the plain chain: {kerr}")
+
+    # (h) the refresh through K6 against the same refresh without it, on the
+    # final params: the last cohort's losses, and the final hidden states of
+    # one client's batch.  A control routes K6 through a 64-position window
+    # (a kernel that drops every key more than one tile back) and must
+    # break the hidden-state bound.
+    params = state.params
+    last = outs["selected"][-1].long().to(dev)
+    xs = state.client_xs[last]
+    pos = torch.arange(LM_SEQ, dtype=torch.int32, device=dev)[None].expand(LM_DOCS, LM_SEQ)
+    real = fa_ops.flash_attention
+
+    def windowed(q, k, v, window=None):
+        return real(q, k, v, window=CONTROL_WINDOW)
+
+    with torch.no_grad():
+        k6_l = torch.stack([T.lm_loss(cfg, params, x, use_flash=True) for x in xs])
+        plain_l = torch.stack([T.lm_loss(cfg, params, x) for x in xs])
+        h_k6 = T.forward(cfg, params, xs[0], pos, use_flash=True)[0].float()
+        h_plain = T.forward(cfg, params, xs[0], pos)[0].float()
+        fa_ops.flash_attention = windowed
+        try:
+            ctrl_l = torch.stack([T.lm_loss(cfg, params, x, use_flash=True) for x in xs])
+            h_ctrl = T.forward(cfg, params, xs[0], pos, use_flash=True)[0].float()
+        finally:
+            fa_ops.flash_attention = real
+        # the same batch through an fp32 copy of the model (plain attention)
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        h_32 = T.forward(cfg32, _to_float(torch, params), xs[0], pos)[0]
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    e_k6, e_plain = rel(h_k6, h_32), rel(h_plain, h_32)
+    d_path = float((k6_l - losses[last]).abs().max())
+    d_loss = float((k6_l - plain_l).abs().max())
+    d_ctrl_loss = float((ctrl_l - plain_l).abs().max())
+    d_h, d_ctrl = rel(h_k6, h_plain), rel(h_ctrl, h_plain)
+    print(
+        f"refresh of cohort {sel[-1].tolist()} on the final params: losses through K6 "
+        f"{[round(float(x), 6) for x in k6_l]}, without {[round(float(x), 6) for x in plain_l]}: "
+        f"max |K6 - plain| {d_loss:.3e} (bound {LM_LOSS_BOUND:g}), |K6 - the path's refresh| "
+        f"{d_path:.3e}; control {d_ctrl_loss:.3e}"
+    )
+    print(
+        f"final hidden of {LM_DOCS} x {LM_SEQ} tokens: |K6 - plain| / |plain| = {d_h:.4e} "
+        f"(bound {LM_HIDDEN_BOUND:g}); control with a {CONTROL_WINDOW}-position window: {d_ctrl:.4e}; "
+        f"vs the fp32 model: K6 {e_k6:.4e}, plain {e_plain:.4e}"
+    )
+    check(d_path <= LM_LOSS_BOUND, f"the path's refresh {d_path} off a refresh through K6")
+    check(d_loss <= LM_LOSS_BOUND, f"refresh losses through K6 off the plain path by {d_loss}")
+    check(d_h <= LM_HIDDEN_BOUND, f"hidden through K6 off the plain path by {d_h} > {LM_HIDDEN_BOUND}")
+    check(d_ctrl > LM_HIDDEN_BOUND, f"the control stayed within the bound: {d_ctrl}")
+    # the plain path rounds scores and probabilities to bf16 in every layer
+    # and K6 rounds once, so K6 must stay (within a quarter) no further from
+    # the fp32 model than the plain bf16 attention is
+    check(e_k6 <= 1.25 * e_plain, f"K6 {e_k6} further from fp32 than the plain path {e_plain}")
+
+    # where a round's time goes, after the counted run: one refresh forward
+    # and one local SGD step (forward, backward and update of 4 x 512 tokens)
+    with torch.no_grad():
+        _print_profile(torch, f"one refresh forward ({LM_DOCS} x {LM_SEQ} tokens)",
+                       lambda: T.lm_loss(cfg, params, xs[0], use_flash=True), "flash_attention")
+    spec = get_arch("smollm-360m")
+    local = rounds.build_local_update(lambda p, b: T.lm_loss(cfg, p, b[0]), spec.fl.lr)
+    steps_batch = (xs[0][None, :4], state.client_ys[last[0]][None, :4])
+    local(params, steps_batch)
+    _print_profile(torch, f"one local SGD step (4 x {LM_SEQ} tokens)",
+                   lambda: local(params, steps_batch), "flash_attention")
+    del state, params, outs
+
+    # pretrain at full width: Adam, clip 1.0, batch 4 x 512
+    pre_argv = ["--mode", "pretrain", "--steps", str(PRETRAIN_STEPS), "--local-batch", "4"] + common
+    print(f"LM pretrain: python -m repro_torch.launch.train {' '.join(pre_argv)}")
+    _build.reset_launches()
+    pre_params, pre_state, hist = train_launch.main(pre_argv)
+    pre_launches = dict(_build.LAUNCHES)
+    check(all(n == 0 for n in pre_launches.values()), f"kernels ran in pretrain: {pre_launches}")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"pretrain losses {hist}")
+    first, end = hist[0], hist[-1]
+    steady = (end["step"] - first["step"]) * 4 * LM_SEQ / (end["seconds"] - first["seconds"])
+    print(f"pretrain: {end['step']} steps, losses {[round(h['loss'], 4) for h in hist]}; "
+          f"{steady:.1f} tok/s over steps {first['step'] + 1}-{end['step']} "
+          f"(first step {first['seconds']:.3f} s)")
+    # one more step of the same construction under the profiler
+    opt = getattr(optim, spec.optimizer)(1e-3)
+    step = rounds.build_fedsgd_step(lambda p, b: T.lm_loss(cfg, p, b["tokens"]), opt, grad_clip=1.0)
+    batch = {"tokens": xs[:, :1].reshape(-1, LM_SEQ)[:4]}
+    _print_profile(torch, f"one pretrain step (4 x {LM_SEQ} tokens, Adam)",
+                   lambda: step(pre_params, pre_state, batch), "flash_attention")
+    return launches["flash_attention"]
 
 
 def _to_float(torch, tree):
@@ -417,8 +627,8 @@ def main() -> int:
         lmax = float(wp.abs().max())
         if kind == "bf16":
             tol = 3e-2 * lmax  # bf16 products vs the fp32 chain: the JAX test's bound
-        elif (c, q) == SHAPES[0][:2]:
-            tol = None  # main-path shape: rtol 1e-5 / atol 1e-5 elementwise
+        elif (c, q, kind) in SHAPES[:2]:
+            tol = None  # a main path's shape: rtol 1e-5 / atol 1e-5 elementwise
             check(
                 bool(torch.all((lp - wp).abs() <= 1e-5 + 1e-5 * wp.abs())),
                 f"L off at {c}x{q}: {errp}",
@@ -523,6 +733,63 @@ def main() -> int:
             f"K5 B={b} S={s} H={h} Hk={hk} hd={hd} {kind} valid={valid}: err={err:.3e} "
             f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k5_ms:.5f} plain={k5_plain:.5f} sdpa={k5_lib:.5f} "
             f"bound={b5[0]:.6f} ({b5[1]})"
+        )
+
+    # K6 on its own against its plain version, with SDPA as the yardstick
+    attn_rows = {}
+    for b, s, h, hk, hd, kind, window in ATTN_SHAPES:
+        gen = torch.Generator().manual_seed(b * 7919 + s + hd)
+        q, k, v = (
+            torch.randn(shape, generator=gen).to(dtypes[kind]).to(dev)
+            for shape in ((b, s, h, hd), (b, s, hk, hd), (b, s, hk, hd))
+        )
+        got = fd_ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = fd_ref.attention_ref(q, k, v, window=window)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if kind == "fp32":
+            tol = 1e-5  # fp32 sums in another order
+            check(err <= tol, f"K6 off at {(b, s, h, hk, hd, kind, window)}: {err} > {tol}")
+        else:
+            # one bf16 step of each output element (<= 2^-7 of |out|), plus
+            # the fp32 sums' order near 0, within 2^-8 of the largest output
+            # of the same query row (per row: row 0 returns v[0] itself, a
+            # late row of a long sequence outputs far smaller values)
+            wf = want.float()
+            atol = 2.0**-8 * wf.abs().amax(dim=-1, keepdim=True)
+            tol = float(atol.max())
+            bad = int((diff > 2.0**-7 * wf.abs() + atol).sum())
+            check(bad == 0, f"K6 off at {(b, s, h, hk, hd, kind, window)}: {bad} elements, max {err}")
+        pos = torch.arange(s, device=dev)
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None, :] > pos[:, None] - window
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        big = b * s * s * h * hd > 3e10  # the hd-256 shape: fewer timed calls
+        reps = dict(launches=10, repeats=3, warmup=2) if big else {}
+        k6_ms = time_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), **reps)
+        k6_plain = time_ms(torch, lambda: fd_ref.attention_ref(q, k, v, window=window), **reps)
+        k6_lib = time_ms(torch, sdpa, **reps)
+        # least work: q, k, v read once and out written once; 4 FLOPs per
+        # attended (query, key) pair, head and dimension (QK^T and PV), at
+        # the peak of the inputs' type
+        pairs = int(mask.sum())
+        esize = q.element_size()
+        b6 = bound(2 * b * s * (h + hk) * hd * esize, 4.0 * b * h * hd * pairs, kind)
+        attn_rows[(b, s, kind, window)] = dict(
+            max_abs_err=err, ms=k6_ms, plain_ms=k6_plain, library_ms=k6_lib,
+            bound_ms=b6[0], bound_by=b6[1],
+        )
+        print(
+            f"K6 B={b} S={s} H={h} Hk={hk} hd={hd} {kind} window={window}: err={err:.3e} "
+            f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k6_ms:.5f} "
+            f"plain={k6_plain:.5f} sdpa={k6_lib:.5f} bound={b6[0]:.6f} ({b6[1]}) "
+            f"= {b6[0] / k6_ms:.4f} of the kernel's time"
         )
 
     # --------------------------------------------------------- 3. main path
@@ -643,7 +910,10 @@ def main() -> int:
     # ------------------------------------------- 4. the serving main path
     serve_launches = serve_phase(torch, dev)
 
-    # ---------------------------------------------------------- 5. results
+    # ------------------------------------------------ 5. the LM client path
+    lm_launches = lm_phase(torch, dev)
+
+    # ---------------------------------------------------------- 6. results
     main_shape = SHAPES[0]
     sources = {
         "pairwise_dists_stats": (
@@ -661,6 +931,12 @@ def main() -> int:
             "src/repro/kernels/flash_attention/decode.py:78",
             decode_rows[DECODE_SHAPES[0][0], DECODE_SHAPES[0][1], DECODE_SHAPES[0][5]],
             serve_launches,
+        ),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:86",
+            attn_rows[ATTN_SHAPES[0][0], ATTN_SHAPES[0][1], ATTN_SHAPES[0][5], ATTN_SHAPES[0][6]],
+            lm_launches,
         ),
     }
     table = []

@@ -1,9 +1,9 @@
-"""Model configuration of the port's decoder LMs.
+"""Model and FL-run configuration of the port's decoder LMs.
 
-The port's own copy of ``ModelConfig``: the JAX package's field names and
-defaults, ``q_dim``, ``kv_dim``, ``layer_types`` and ``reduced``.  The
-sharding rules are left out: the port runs on one card, and multi-device
-execution is ROADMAP Slice 5.
+The port's own copies of ``ModelConfig`` (the JAX package's field names and
+defaults, ``q_dim``, ``kv_dim``, ``layer_types`` and ``reduced``) and of
+``FLRunConfig`` (its ``lr``).  The sharding rules are left out: the port
+runs on one card, and multi-device execution is ROADMAP Slice 5.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ModelConfig"]
+__all__ = ["FLRunConfig", "ModelConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +105,12 @@ class ModelConfig:
         small.update(overrides)
         return dataclasses.replace(self, **small)
 
+
+@dataclasses.dataclass(frozen=True)
+class FLRunConfig:
+    """How FL rounds execute for an architecture.  Of the JAX package's
+    fields only ``lr``, the one the LM client path reads; ``mode``,
+    ``local_steps``, ``optimizer`` and ``micro_batches`` come with the
+    dry run's Mode B that reads them (ROADMAP Queue 1 item 14)."""
+
+    lr: float = 1e-2

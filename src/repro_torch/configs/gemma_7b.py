@@ -4,7 +4,7 @@ vocab=256000 — GeGLU, head_dim=256 [arXiv:2403.08295].
 Gemma particulars: GeGLU MLP, embeddings scaled by sqrt(d_model), q/k/v
 projected to 16·256 = 4096 (≠ d_model), logits over a 256k vocab."""
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FLRunConfig, ModelConfig
 from repro_torch.configs.registry import ArchSpec
 
 
@@ -28,4 +28,8 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
-    return ArchSpec(model=model)
+    return ArchSpec(
+        model=model,
+        fl=FLRunConfig(lr=2e-3),
+        optimizer="adam",
+    )

@@ -1,7 +1,7 @@
 """granite-3-2b [dense]: 40L d_model=2048 32H (GQA kv=8) d_ff=8192
 vocab=49155 — GQA [hf:ibm-granite/granite-3.0-2b-base]."""
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FLRunConfig, ModelConfig
 from repro_torch.configs.registry import ArchSpec
 
 
@@ -24,4 +24,8 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
-    return ArchSpec(model=model)
+    return ArchSpec(
+        model=model,
+        fl=FLRunConfig(lr=3e-3),
+        optimizer="adam",
+    )

@@ -1,7 +1,7 @@
 """internlm2-20b [dense]: 48L d_model=6144 48H (GQA kv=8) d_ff=16384
 vocab=92544 — GQA [arXiv:2403.17297]."""
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FLRunConfig, ModelConfig
 from repro_torch.configs.registry import ArchSpec
 
 
@@ -24,4 +24,8 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
-    return ArchSpec(model=model)
+    return ArchSpec(
+        model=model,
+        fl=FLRunConfig(lr=2e-3),
+        optimizer="adam",
+    )

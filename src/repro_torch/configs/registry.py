@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FLRunConfig, ModelConfig
 
 __all__ = ["ArchSpec", "get_arch", "ARCH_NAMES"]
 
@@ -41,10 +41,13 @@ NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """An arch's published model configuration (the JAX package's spec
-    without its sharding rules and FL run settings)."""
+    """An arch's published model configuration, its FL run settings and its
+    pretrain optimizer (the JAX package's spec without the sharding rules
+    and notes)."""
 
     model: ModelConfig
+    fl: FLRunConfig = FLRunConfig()
+    optimizer: str = "adam"  # Mode-B / pretrain optimizer
 
 
 def get_arch(name: str) -> ArchSpec:

@@ -1,7 +1,7 @@
 """smollm-360m [dense]: 32L d_model=960 15H (GQA kv=5) d_ff=2560
 vocab=49152 — llama-arch small [hf:HuggingFaceTB/SmolLM-135M]."""
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FLRunConfig, ModelConfig
 from repro_torch.configs.registry import ArchSpec
 
 
@@ -24,4 +24,8 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
-    return ArchSpec(model=model)
+    return ArchSpec(
+        model=model,
+        fl=FLRunConfig(lr=5e-3),
+        optimizer="adam",
+    )

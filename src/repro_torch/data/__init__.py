@@ -1,4 +1,5 @@
-"""Data substrate: the synthetic image dataset and the ξ-skew partitioner."""
+"""Data substrate: the synthetic image and token datasets and the ξ-skew
+partitioner."""
 
 from repro_torch.data.partition import skewness_partition
-from repro_torch.data.synthetic import SyntheticImageDataset, make_image_dataset
+from repro_torch.data.synthetic import SyntheticImageDataset, make_image_dataset, make_token_dataset

@@ -1,6 +1,6 @@
-"""Synthetic class-conditional image dataset — the port's own copy of
-``repro/data/synthetic.py`` (``make_image_dataset`` and its helpers),
-verbatim, so that the same seed gives byte-identical arrays.
+"""Synthetic datasets — the port's own copy of ``repro/data/synthetic.py``
+(``make_image_dataset`` and its helpers, ``make_token_dataset``), verbatim,
+so that the same seed gives byte-identical arrays.
 
 MNIST / Fashion-MNIST are not available offline, so the paper's experiments
 run on a *class-structured* synthetic image dataset with the same interface:
@@ -19,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["SyntheticImageDataset", "make_image_dataset"]
+__all__ = ["SyntheticImageDataset", "make_image_dataset", "make_token_dataset"]
 
 
 @dataclasses.dataclass
@@ -70,3 +70,36 @@ def make_image_dataset(
     xs = xs + noise * rng.normal(size=xs.shape).astype(np.float32)
     xs = (xs - xs.mean()) / (xs.std() + 1e-8)
     return SyntheticImageDataset(xs[..., None].astype(np.float32), ys, num_classes)
+
+
+def make_token_dataset(
+    n_docs: int = 2_000,
+    doc_len: int = 256,
+    vocab: int = 512,
+    num_topics: int = 10,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Topic-conditional token documents: returns (docs (N, L) int32, topics (N,)).
+
+    Each topic owns a sparse transition structure over a preferred token band,
+    so language-model loss is topic-dependent — giving the LM-FL examples real
+    non-IID structure.
+    """
+    rng = np.random.default_rng(seed)
+    topics = rng.integers(0, num_topics, size=n_docs).astype(np.int32)
+    band = vocab // num_topics
+    docs = np.zeros((n_docs, doc_len), np.int32)
+    for t in range(num_topics):
+        idx = np.nonzero(topics == t)[0]
+        if idx.size == 0:
+            continue
+        lo = t * band
+        # 80% in-band tokens with a deterministic drift, 20% uniform
+        cur = rng.integers(lo, lo + band, size=idx.size)
+        for pos in range(doc_len):
+            docs[idx, pos] = cur
+            drift = (cur + rng.integers(1, 4, size=idx.size) - lo) % band + lo
+            uni = rng.integers(0, vocab, size=idx.size)
+            use_band = rng.random(idx.size) < 0.8
+            cur = np.where(use_band, drift, uni)
+    return docs, topics

@@ -1,29 +1,32 @@
-"""FL round steps: FedAvg local SGD (eq. 3-5) and the eq.-(6) weighted
-average, over parameter dicts.
+"""FL round steps over parameter trees: FedAvg local SGD (eq. 3-5), the
+eq.-(6) weighted average, and the Mode-B optimizer step.
 
 ``build_client_parallel_round`` is Mode A of the JAX package in its
 ``sequential_clients=True`` form: each cohort client runs its E local steps
 in turn from the round's global params, then one weighted average forms the
-new global params.
+new global params.  ``build_fedsgd_step`` is Mode B: one optimizer step on
+the (micro-batch accumulated) gradient; the pretrain loop runs it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core.metrics import safe_div
-from repro_torch.optim.optimizers import clip_by_global_norm
+from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "weighted_average",
     "make_grad_fn",
     "build_local_update",
     "build_client_parallel_round",
+    "build_fedsgd_step",
 ]
 
-Params = Dict[str, torch.Tensor]
+Params = Any  # a tree of tensors
 # loss_fn(params, batch) -> scalar loss
 LossFn = Callable[[Params, Tuple[torch.Tensor, ...]], torch.Tensor]
 
@@ -37,17 +40,17 @@ def weighted_average(stacked: Params, weights: torch.Tensor) -> Params:
         wb = w.reshape((-1,) + (1,) * (x.ndim - 1))
         return torch.sum(wb * x.float(), dim=0).to(x.dtype)
 
-    return {k: avg(v) for k, v in stacked.items()}
+    return tree_map(avg, stacked)
 
 
 def make_grad_fn(loss_fn: LossFn) -> Callable[[Params, tuple], Tuple[torch.Tensor, Params]]:
     """``grad_fn(params, batch) -> (loss, grad)`` on the full batch."""
 
     def grad_fn(params: Params, batch: tuple):
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = loss_fn(p, batch)
-        grads = torch.autograd.grad(loss, list(p.values()))
-        return loss.detach(), dict(zip(p, grads))
+        live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+        return loss.detach(), tree_unflatten(params, grads)
 
     return grad_fn
 
@@ -66,7 +69,7 @@ def build_local_update(
             loss, g = grad_fn(params, tuple(x[s] for x in steps_batch))
             if grad_clip is not None:
                 g = clip_by_global_norm(g, grad_clip)
-            params = {k: (w - lr * g[k]).to(w.dtype) for k, w in params.items()}
+            params = tree_map(lambda w, gw: (w - lr * gw).to(w.dtype), params, g)
             losses.append(loss)
         return params, torch.stack(losses)
 
@@ -96,7 +99,45 @@ def build_client_parallel_round(
             p, l = local_update(global_params, tuple(x[i] for x in client_batches))
             new_params.append(p)
             losses.append(l)
-        stacked = {k: torch.stack([p[k] for p in new_params]) for k in global_params}
+        stacked = tree_map(lambda *xs: torch.stack(xs), *new_params)
         return weighted_average(stacked, client_weights), torch.mean(torch.stack(losses))
 
     return round_step
+
+
+def build_fedsgd_step(
+    loss_fn: LossFn,
+    optimizer: Optimizer,
+    grad_clip: Optional[float] = None,
+    micro_batches: int = 1,
+) -> Callable[[Params, Any, Any], Tuple[Params, Any, torch.Tensor]]:
+    """Mode B step: ``step(params, opt_state, batch) -> (params, opt_state,
+    loss)``, one optimizer step on the gradient of ``loss_fn(params,
+    batch)``.  ``micro_batches`` splits every leaf of the batch along its
+    leading axis and averages the slices' losses and fp32 gradients
+    (exact for a mean loss over equal slices)."""
+    grad_fn = make_grad_fn(loss_fn)
+
+    def grad_of(params: Params, batch):
+        if micro_batches == 1:
+            return grad_fn(params, batch)
+        micro = tree_map(
+            lambda x: x.reshape((micro_batches, x.shape[0] // micro_batches) + x.shape[1:]), batch
+        )
+        tot_l = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+        tot_g = tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32, device=w.device), params)
+        for i in range(micro_batches):
+            l, g = grad_fn(params, tree_map(lambda x: x[i], micro))
+            tot_l = tot_l + l
+            tot_g = tree_map(torch.add, tot_g, g)
+        inv = 1.0 / micro_batches
+        return tot_l * inv, tree_map(lambda x: x * inv, tot_g)
+
+    def step(params: Params, opt_state, batch):
+        loss, g = grad_of(params, batch)
+        if grad_clip is not None:
+            g = clip_by_global_norm(g, grad_clip)
+        updates, opt_state = optimizer.update(g, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return step

@@ -6,8 +6,8 @@ kernel, then runs rounds in a host loop: select cohort → local SGD on each
 cohort client (eq. 3-5) → eq.-(6) aggregation.  Metrics: training-set
 accuracy (Fig. 1 protocol), GEMD per round (Fig. 2), last-known local losses.
 
-The round loop is the JAX package's ``FLTrainer.run_legacy``; the JAX
-package's scanned engine is not ported.  Randomness comes from one
+The round loop is the JAX package's ``FLTrainer.run_legacy``; its scanned
+engine is ``fl/engine.py``'s ``make_round_fn``.  Randomness comes from one
 ``torch.Generator`` on the trainer's device, seeded from ``cfg.seed``.
 
 Works for any model exposing ``loss_fn(params, x, y)`` and

@@ -38,7 +38,7 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
-SOURCES = ("pairwise_l2", "gram", "flash_decode")
+SOURCES = ("pairwise_l2", "gram", "flash_decode", "flash_attention")
 
 # C signatures: name -> (restype, argtypes).  Pointers and the stream are
 # c_void_p so that ctypes does not cut them to 32 bits.
@@ -57,9 +57,15 @@ _SIGNATURES = {
         "flash_decode": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
         "flash_decode_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_attention": {
+        "flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
-LAUNCHES: Dict[str, int] = {"pairwise_dists_stats": 0, "normalized_gram": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {
+    "pairwise_dists_stats": 0, "normalized_gram": 0, "flash_decode": 0, "flash_attention": 0,
+}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

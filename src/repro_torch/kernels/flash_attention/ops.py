@@ -1,17 +1,81 @@
-"""K5 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU
-tensors.  ``repro_torch.models.attention.apply_attention`` calls it on
-every decode step with ``use_flash=True``."""
+"""K5 and K6 wrappers: the CUDA kernel for CUDA tensors, the plain version
+for CPU tensors.  ``repro_torch.models.attention.apply_attention`` calls K5
+on every decode step with ``use_flash=True``, and K6 on the no-cache
+forward with ``use_flash=True`` and no window."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, decode_attention_ref
 
-__all__ = ["flash_decode"]
+__all__ = ["flash_attention", "flash_decode"]
 
 MAX_HEAD_DIM = 256
+MAX_GRID_YZ = 65535  # K6's grid holds the query heads in y and the batch in z
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, S, Hk, hd)
+    v: torch.Tensor,  # (B, S, Hk, hd)
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal GQA softmax attention -> (B, S, H, hd) in q's dtype.  Query
+    head h reads KV head h // (H / Hk); position i attends j <= i, and
+    j > i - window with a window.  fp32 math, scale hd^-0.5 on q.
+
+    Forward only, like the TPU kernel it replaces (no VJP there, no
+    backward here): it raises when grad is enabled and an input requires
+    grad."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q/k/v must be (B, S, H|Hk, head_dim)")
+    b, s, h, hd = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be ({b}, {s}, Hk, {hd})")
+    if h % k.shape[2]:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {k.shape[2]}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must all be float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim={hd} must be a multiple of 8 in [8, {MAX_HEAD_DIM}]")
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be >= 1")
+    if min(b, s) < 1:
+        raise ValueError("q/k/v must be non-empty")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention (K6) is forward-only: it has no backward, as the TPU "
+            "kernel has no VJP; run it under torch.no_grad() or take the plain attention"
+        )
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"q, k and v must share one device, got {devices}")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+    if max(b, h) > MAX_GRID_YZ:
+        raise ValueError(f"batch {b} and heads {h} must each be <= {MAX_GRID_YZ}")
+    lib = _build.library("flash_attention")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, s, h, k.shape[2], hd,
+            0 if window is None else int(window), hd**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check("flash_attention", err, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def flash_decode(

@@ -1,0 +1,227 @@
+"""Training launcher: federated LM clients selected by FL-DP³S, or a plain
+pretrain loop.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+        --arch smollm-360m --full-width --flash --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --mode pretrain \\
+        --arch smollm-360m --steps 200 --device cpu
+
+``--mode fl`` runs Algorithm 1 over topic-skewed LM clients: every client
+profiled once with the fresh global model (mean final hidden of up to 8
+docs), the eq.-(14) kernel over the profiles (K1 + K2), then per round a
+k-DPP cohort, local SGD on each cohort client, FedAvg, and the refresh of
+the cohort's losses over their whole shards.  ``--mode pretrain`` runs
+optimizer steps (the arch's optimizer, global-norm clip 1.0) on random
+batches of a topic-mixed corpus.
+
+Without ``--full-width`` the model is the arch's ``reduced`` variant in
+fp32; with it, the arch's own widths, depth and dtypes.  Weights are random
+from ``--seed``.  ``--flash`` routes the attention of every pass that takes
+no gradient (the loss refresh) through K6; gradient passes keep the plain
+attention, since K6 is forward-only.  ``--device`` defaults to ``cuda`` and
+raises without a card.  Flags of features the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import optim as optim_lib
+from repro_torch.configs import ARCH_NAMES, get_arch
+from repro_torch.core.selection import make_strategy
+from repro_torch.data import make_token_dataset
+from repro_torch.device import resolve_device
+from repro_torch.fl import engine as engine_lib
+from repro_torch.fl import rounds as rounds_lib
+from repro_torch.launch.serve import build_model
+from repro_torch.models import transformer as T
+
+__all__ = ["main", "run_fl", "run_pretrain"]
+
+
+def _token_clients(cfg, num_clients, docs_per_client, seq, seed=0):
+    """Topic-skewed client corpora (ξ=1-style: one topic per client)."""
+    docs, topics = make_token_dataset(
+        n_docs=num_clients * docs_per_client * 2,
+        doc_len=seq,
+        vocab=min(cfg.vocab_size, 512),
+        num_topics=min(10, num_clients),
+        seed=seed,
+    )
+    clients = []
+    for c in range(num_clients):
+        topic = c % min(10, num_clients)
+        idx = np.nonzero(topics == topic)[0][:docs_per_client]
+        clients.append(docs[idx])
+    return np.stack(clients)  # (C, docs, seq)
+
+
+def _refuse_unported(args) -> None:
+    """Flags of features the port does not run yet, with their ROADMAP
+    Queue-1 items."""
+    checks = [
+        ("--shard-clients", bool(args.shard_clients), 15),
+        ("--cohort-cap", args.cohort_cap is not None, 15),
+        ("--scenario", args.scenario is not None, 11),
+        ("--staleness-bound", args.staleness_bound is not None, 11),
+        ("--staleness-decay", args.staleness_decay != "polynomial", 11),
+        ("--staleness-alpha", args.staleness_alpha != 0.5, 11),
+        ("--candidate-frac", args.candidate_frac is not None, 10),
+        ("--faults", args.faults is not None, 12),
+        ("--aggregator", args.aggregator != "mean", 12),
+        ("--local-algo", args.local_algo != "fedavg", 12),
+        ("--prox-mu", args.prox_mu is not None, 12),
+        ("--feddyn-alpha", args.feddyn_alpha is not None, 12),
+        ("--ckpt", args.ckpt is not None, 12),
+        ("--ckpt-every", args.ckpt_every is not None, 12),
+        ("--telemetry", args.telemetry is not None, 13),
+        ("--profile-dir", args.profile_dir is not None, 13),
+    ]
+    used = [f"{flag} (ROADMAP Queue 1 item {item})" for flag, on, item in checks if on]
+    if used:
+        raise NotImplementedError(f"not ported yet: {', '.join(used)}")
+
+
+def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
+    """Federated LM training through the engine -> (final state, per-round
+    outputs stacked over rounds, with the host seconds of each round's
+    selection, local updates and loss refresh)."""
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    spec = get_arch(args.arch)
+    cfg, params = build_model(args.arch, args.seed, full_width=args.full_width, device=device)
+    clients = _token_clients(cfg, args.clients, args.docs_per_client, args.seq)
+    c, n_docs, _ = clients.shape
+    num_topics = min(10, args.clients)
+    # per-doc topic labels (one topic per client): the engine's GEMD then
+    # measures how topic-representative each selected cohort is
+    topics = np.stack([np.full((n_docs,), ci % num_topics, np.int32) for ci in range(c)])
+
+    # Alg. 1 init: profile every client once (plain attention, as in JAX)
+    xs = torch.as_tensor(clients, device=device)
+    with torch.no_grad():
+        profiles = torch.stack(
+            [T.features(cfg, params, xs[ci, : min(8, n_docs)])[1].float().mean(0) for ci in range(c)]
+        )
+    strategy = make_strategy(args.selection)
+
+    # topics only feed GEMD; K6 only where no gradient is taken
+    def loss_fn(p, x, y):
+        return T.lm_loss(cfg, p, x, use_flash=args.flash and not torch.is_grad_enabled())
+
+    flcfg = engine_lib.FLConfig(
+        num_clients=c,
+        clients_per_round=args.per_round,
+        local_batch_size=args.local_batch,
+        local_steps=args.local_steps,
+        sample_with_replacement=True,
+        lr=spec.fl.lr,
+        rounds=args.rounds,
+        eval_every=max(args.log_every, 1),
+        num_classes=num_topics,
+        seed=args.seed,
+    )
+    state = engine_lib.init_server_state(
+        flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device
+    )
+    round_fn = engine_lib.make_round_fn(flcfg, loss_fn, strategy)
+    state, outs = engine_lib.run_scanned(round_fn, state, args.rounds)
+    tag = f"[fl:{args.selection}]"
+    for i in range(args.rounds):
+        t = int(outs["round"][i])
+        if t % args.log_every == 0 or t == args.rounds:
+            print(f"{tag} round {t:4d} sel={outs['selected'][i].tolist()} "
+                  f"loss={float(outs['loss'][i]):.4f} gemd={float(outs['gemd'][i]):.3f}")
+            print(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
+                  f"local updates {float(outs['t_local'][i]):.4f} "
+                  f"refresh {float(outs['t_refresh'][i]):.4f}")
+    return state, outs
+
+
+def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
+    """Optimizer steps on random batches -> (params, optimizer state, one
+    record per logged step: step, loss, host seconds since the first step
+    began, tokens/s so far)."""
+    _refuse_unported(args)
+    if args.flash:
+        raise NotImplementedError(
+            "--flash has no pass to route in --mode pretrain: every pass takes a "
+            "gradient, and K6 is forward-only (the TPU kernel has no VJP either)"
+        )
+    device = resolve_device(args.device)
+    spec = get_arch(args.arch)
+    cfg, params = build_model(args.arch, args.seed, full_width=args.full_width, device=device)
+    opt = getattr(optim_lib, spec.optimizer)(args.lr)
+    opt_state = opt.init(params)
+    docs, _ = make_token_dataset(
+        n_docs=4096, doc_len=args.seq, vocab=min(cfg.vocab_size, 512), seed=args.seed
+    )
+    docs = torch.as_tensor(docs, device=device)
+    step = rounds_lib.build_fedsgd_step(
+        lambda p, batch: T.lm_loss(cfg, p, batch["tokens"]), opt, grad_clip=1.0
+    )
+    rng = np.random.default_rng(args.seed)
+    history: List[Dict[str, float]] = []
+    t0 = time.perf_counter()
+    for i in range(1, args.steps + 1):
+        idx = torch.as_tensor(rng.integers(0, len(docs), size=args.local_batch), device=device)
+        params, opt_state, loss = step(params, opt_state, {"tokens": docs[idx]})
+        if i % args.log_every == 0 or i == args.steps:
+            loss_v = float(loss)  # waits for the step on the device
+            sec = time.perf_counter() - t0
+            tps = i * args.local_batch * args.seq / sec
+            history.append({"step": i, "loss": loss_v, "seconds": sec, "tok_s": tps})
+            print(f"[pretrain] step {i:5d} loss={loss_v:.4f} tok/s={tps:,.0f}")
+    return params, opt_state, history
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="smollm-360m")
+    ap.add_argument("--mode", choices=("fl", "pretrain"), default="fl")
+    ap.add_argument("--selection", default="fl-dp3s")
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--clients", type=int, default=10)
+    ap.add_argument("--per-round", type=int, default=4)
+    ap.add_argument("--docs-per-client", type=int, default=16)
+    ap.add_argument("--local-steps", type=int, default=2)
+    ap.add_argument("--local-batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--full-width", action="store_true",
+                    help="the arch's own widths, depth and dtypes instead of the reduced fp32 model")
+    ap.add_argument("--flash", action="store_true",
+                    help="route the attention of gradient-free passes (the loss refresh) through K6")
+    # the JAX launcher's flags of features not ported yet: each raises
+    ap.add_argument("--shard-clients", type=int, default=0)
+    ap.add_argument("--cohort-cap", type=int, default=None)
+    ap.add_argument("--scenario", default=None)
+    ap.add_argument("--staleness-bound", type=int, default=None)
+    ap.add_argument("--staleness-decay", default="polynomial")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5)
+    ap.add_argument("--candidate-frac", type=float, default=None)
+    ap.add_argument("--faults", default=None)
+    ap.add_argument("--aggregator", default="mean")
+    ap.add_argument("--local-algo", default="fedavg")
+    ap.add_argument("--prox-mu", type=float, default=None)
+    ap.add_argument("--feddyn-alpha", type=float, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=None)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--telemetry", default=None, metavar="PATH")
+    ap.add_argument("--profile-dir", default=None, metavar="PATH")
+    args = ap.parse_args(argv)
+    return (run_fl if args.mode == "fl" else run_pretrain)(args)
+
+
+if __name__ == "__main__":
+    main()

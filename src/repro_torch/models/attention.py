@@ -14,8 +14,10 @@ step that way) and returns the cache dict with the advanced position; the
 position tensor itself is never written in place.
 
 ``use_flash`` routes a decode step (S == 1, no window) through K5
-(``kernels.flash_attention.ops.flash_decode``).  The no-cache flash route
-(K6) is not ported yet and raises.
+(``kernels.flash_attention.ops.flash_decode``) and the no-cache forward
+without a window through K6 (``kernels.flash_attention.ops.
+flash_attention``).  K6 is forward-only: with grad enabled and parameters
+that require grad it raises, so a training pass takes ``use_flash=False``.
 """
 
 from __future__ import annotations
@@ -129,12 +131,10 @@ def apply_attention(
 
     if cache is None:
         if use_flash and window is None:
-            raise NotImplementedError(
-                "the no-cache flash route needs K6 (flash_attention_kernel), "
-                "which is not ported yet (ROADMAP Queue 2)"
-            )
-        valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        out = _attend(q, k, v, q_pos, q_pos, valid, window, chunk=cfg.attention_chunk)
+            out = flash_ops.flash_attention(q, k, v)
+        else:
+            valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+            out = _attend(q, k, v, q_pos, q_pos, valid, window, chunk=cfg.attention_chunk)
         new_cache = None
     else:
         ck, cv = cache["k"], cache["v"]

@@ -277,15 +277,65 @@ def param_count(params: Dict) -> int:
     return count(params)
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "lm_loss belongs to the LM training path (ROADMAP Queue 1, Slice 2 item 8), "
-        "which is not ported yet"
-    )
+def lm_loss(
+    cfg: ModelConfig,
+    params: Dict,
+    tokens: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+    loss_chunk: Optional[int] = None,
+    use_flash: bool = False,
+    embeds: Optional[torch.Tensor] = None,
+    targets: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Next-token cross-entropy, mean over the B * (S - 1) predictions.
+
+    The logits are formed ``loss_chunk`` (default ``cfg.loss_chunk``)
+    positions at a time, with a shorter tail chunk, so (B, S, V) logits
+    never exist at once; each chunk is soft-capped as configured and its
+    CE taken in fp32, and the chunks' sums are added in order, as in the
+    JAX package.  ``targets`` default to the shifted tokens (a (B, S)
+    tensor is shifted, a (B, S - 1) one is taken as it is).  ``use_flash``
+    routes attention through K6, which is forward-only.  ``cfg.remat`` is
+    not applied: at the sizes the port runs, the activations of a pass fit
+    on the card.  ``embeds`` (the VLM/audio frontends) raises until those
+    archs are ported."""
+    if embeds is not None:
+        raise NotImplementedError(
+            "lm_loss(embeds=...) belongs to the VLM/audio archs, which are not ported yet "
+            "(ROADMAP Queue 1, Slice 2 item 8)"
+        )
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    hidden, _, aux = forward(cfg, params, tokens, positions, use_flash=use_flash)
+    h_in = hidden[:, :-1]
+    if targets is None:
+        targets = tokens[:, 1:]
+    elif targets.shape[1] == s:
+        targets = targets[:, 1:]
+    n = h_in.shape[1]
+    chunk = min(loss_chunk or cfg.loss_chunk, n)
+    w = _head_weight(cfg, params)
+
+    def ce(h_c: torch.Tensor, t_c: torch.Tensor) -> torch.Tensor:
+        logits = h_c @ w.to(h_c.dtype)
+        if cfg.logits_soft_cap:
+            logits = torch.tanh(logits / cfg.logits_soft_cap) * cfg.logits_soft_cap
+        logits = logits.float()
+        gold = logits.gather(-1, t_c[..., None].long())[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, n, chunk):  # full chunks, then the tail
+        total = total + ce(h_in[:, i : i + chunk], targets[:, i : i + chunk])
+    return total / (b * n) + aux
 
 
-def features(*args, **kwargs):
-    raise NotImplementedError(
-        "features (the LM client profile) belongs to the LM FL client path "
-        "(ROADMAP Queue 1, Slice 2 item 8), which is not ported yet"
-    )
+def features(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits of the last position (B, 1, V_pad), mean final hidden (B, D))
+    — the FL data profile of an LM client, at positions 0 .. S - 1.  Plain
+    attention, as in the JAX package."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    hidden, _, _ = forward(cfg, params, tokens, positions)
+    return logits_from_hidden(cfg, params, hidden[:, -1:]), hidden.mean(dim=1)

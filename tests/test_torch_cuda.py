@@ -180,3 +180,113 @@ def test_decode_step_with_flash_launches_k5_once_per_layer(card):
     # fp32 attention summed in another order, carried through the layers
     scale = float(logits[False].abs().max())
     torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4 * scale)
+
+
+# ------------------------------------------------------------------- K6
+
+
+def _seq_qkv(b, s, h, hk, hd, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(n, generator=g) for n in ((b, s, h, hd), (b, s, hk, hd), (b, s, hk, hd)))
+    return q.to(dtype).to(device), k.to(dtype).to(device), v.to(dtype).to(device)
+
+
+def _assert_one_bf16_step(got, want):
+    """Both compute in fp32 from the same bf16 inputs and round once at the
+    end: they differ by at most one bf16 step of each output element (<=
+    2^-7 of |out|), plus the fp32 sums' order near 0, bounded by 2^-8 of
+    the largest output of the same query row (row 0 returns v[0] itself, a
+    late row of a long sequence outputs far smaller values)."""
+    wf = want.float()
+    diff = (got.float() - wf).abs()
+    bad = diff > 2.0**-7 * wf.abs() + 2.0**-8 * wf.abs().amax(dim=-1, keepdim=True)
+    assert not bool(bad.any()), f"{int(bad.sum())} elements off, max {float(diff.max())}"
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,hd,window,dtype",
+    [
+        (2, 64, 4, 2, 32, None, torch.float32),  # the JAX test's shapes
+        (1, 100, 4, 4, 16, None, torch.float32),
+        (2, 64, 8, 2, 32, 16, torch.float32),
+        (1, 128, 4, 1, 64, 32, torch.float32),
+        (1, 32, 2, 2, 8, None, torch.float32),
+        (16, 512, 15, 5, 64, None, torch.bfloat16),  # the LM path's refresh shape
+        (2, 1000, 48, 8, 128, None, torch.bfloat16),  # ragged: 1000 = 15 * 64 + 40
+        (1, 300, 16, 16, 256, 100, torch.bfloat16),
+        (2, 200, 6, 3, 40, None, torch.bfloat16),  # hd not a multiple of 64
+        (3, 77, 4, 2, 24, 5, torch.float32),
+    ],
+)
+def test_flash_attention_kernel_matches_plain(card, b, s, h, hk, hd, window, dtype):
+    q, k, v = _seq_qkv(b, s, h, hk, hd, dtype, card)
+    before = _build.LAUNCHES["flash_attention"]
+    got = fd_ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fd_ref.attention_ref(q, k, v, window=window)
+    if dtype == torch.float32:
+        # fp32 sums in another order
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        _assert_one_bf16_step(got, want)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _seq_qkv(2, 16, 4, 2, 32, torch.float32, card)
+    with pytest.raises(ValueError, match="multiple"):
+        fd_ops.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fd_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fd_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd_ops.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(q.numel() + 1, device=card)
+        fd_ops.flash_attention(flat[1:].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="one device"):
+        fd_ops.flash_attention(q, k, v.cpu())
+    with pytest.raises(ValueError, match="head_dim"):
+        fd_ops.flash_attention(*(t[..., :20].contiguous() for t in (q, k, v)))
+    with pytest.raises(ValueError, match="window"):
+        fd_ops.flash_attention(q, k, v, window=0)
+
+
+def test_backward_through_flash_attention_raises(card):
+    q, k, v = _seq_qkv(1, 16, 2, 1, 32, torch.float32, card)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fd_ops.flash_attention(q.requires_grad_(True), k, v)
+
+
+def test_no_cache_forward_with_flash_launches_k6_once_per_layer(card):
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as T
+
+    cfg, params = tserve.build_model("smollm-360m", 0, device=card)  # reduced, fp32
+    b, s = 3, 70
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(torch.int32).to(card)
+    pos = torch.arange(s, dtype=torch.int32, device=card)[None].expand(b, s)
+    hidden = {}
+    with torch.no_grad():
+        for use_flash in (False, True):
+            before = _build.LAUNCHES["flash_attention"]
+            hidden[use_flash], _, _ = T.forward(cfg, params, toks, pos, use_flash=use_flash)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["flash_attention"] - before == (cfg.num_layers if use_flash else 0)
+    # fp32 attention summed in another order, carried through the layers
+    torch.testing.assert_close(hidden[True], hidden[False], rtol=1e-4, atol=1e-4)
+    # a gradient pass through the K6 route raises; the plain route trains
+    with pytest.raises(RuntimeError, match="forward-only"):
+        T.lm_loss(cfg, _requiring_grad(params), toks, use_flash=True)
+    T.lm_loss(cfg, _requiring_grad(params), toks).backward()
+
+
+def _requiring_grad(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().requires_grad_(True)
+    if isinstance(tree, dict):
+        return {k: _requiring_grad(v) for k, v in tree.items()}
+    return [_requiring_grad(v) for v in tree]

@@ -257,12 +257,25 @@ def test_apply_attention_whole_cache_prefill_and_no_cache_match_jax():
 
 
 def test_no_cache_flash_route_names_k6():
-    _, tcfg = _cfgs("smollm-360m")
-    tp = tattn.init_attention(torch.Generator().manual_seed(0), tcfg, "cpu")
-    x = torch.zeros(1, 4, tcfg.d_model)
-    pos = torch.arange(4, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="K6"):
-        tattn.apply_attention(tcfg, tp, x, pos, None, None, use_flash=True)
+    """``apply_attention(cache=None, use_flash=True)`` routes through K6
+    (Pallas in interpret mode on the JAX side, the port's plain version for
+    CPU tensors) and matches JAX's; with a window both stay on the masked
+    attention."""
+    jcfg, tcfg = _cfgs("smollm-360m")
+    jp = jattn.init_attention(jax.random.key(21), jcfg)
+    tp = _t(_np(jp))
+    x = _normal((2, 19, jcfg.d_model), 22)
+    pos = np.broadcast_to(np.arange(19, dtype=np.int32), (2, 19)).copy()
+    for window in (None, 5):
+        jy, _ = jattn.apply_attention(jcfg, jp, jnp.asarray(x), jnp.asarray(pos), None, window, True)
+        with torch.no_grad():
+            ty, tc = tattn.apply_attention(tcfg, tp, torch.from_numpy(x), torch.from_numpy(pos), None, window, True)
+        assert tc is None
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    # K6 is forward-only: a pass that takes gradients of the weights raises
+    live = {name: {"w": w["w"].clone().requires_grad_(True)} for name, w in tp.items()}
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tattn.apply_attention(tcfg, live, torch.from_numpy(x), torch.from_numpy(pos), None, None, True)
 
 
 # ----------------------------------------------------------- transformer
@@ -359,7 +372,3 @@ def test_unported_blocks_and_training_path_raise():
     _, tcfg = _cfgs("smollm-360m", block_pattern=("rwkv+cmix",))
     with pytest.raises(NotImplementedError, match="rwkv"):
         tT.init_caches(tcfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="LM training"):
-        tT.lm_loss(tcfg, {})
-    with pytest.raises(NotImplementedError, match="LM FL client"):
-        tT.features(tcfg, {}, None)

@@ -1,0 +1,320 @@
+"""The port's LM client path against the JAX package on the CPU: the
+optimizers, the Mode-B step, the token corpus, and the slice as a whole —
+``repro_torch.launch.train.run_fl`` (``init_server_state`` →
+``make_round_fn`` → ``run_scanned``) against JAX's ``run_scanned`` on the
+LM FL configuration of ``repro.launch.train.run_fl``, with JAX's cohorts
+and batch index plans handed to the port.  Then the port's launcher in both
+modes, and the flags that must raise."""
+
+import argparse
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import optim as joptim  # noqa: E402
+from repro.configs import get_arch as jget_arch  # noqa: E402
+from repro.core import selection as jsel  # noqa: E402
+from repro.data import make_token_dataset as j_make_token_dataset  # noqa: E402
+from repro.fl import engine as jengine  # noqa: E402
+from repro.fl import rounds as jrounds  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+
+from repro_torch import optim as toptim  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core import selection as tsel  # noqa: E402
+from repro_torch.data import make_token_dataset  # noqa: E402
+from repro_torch.fl import engine as tengine  # noqa: E402
+from repro_torch.fl import rounds as trounds  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tflash  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _t(tree):
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+# -------------------------------------------------------------- configs
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-3-2b", "internlm2-20b", "gemma-7b"])
+def test_fl_run_config_and_optimizer_are_the_jax_ones(arch):
+    j, t = jget_arch(arch), get_arch(arch)
+    assert t.optimizer == j.optimizer == "adam"
+    assert t.fl.lr == j.fl.lr
+
+
+# ------------------------------------------------------------ optimizers
+
+
+def _opt_tree(seed):
+    """A tree with 1-, 2- and 3-D leaves; keys in sorted order, the order
+    JAX walks a dict in."""
+    rng = np.random.default_rng(seed)
+    return {
+        "blocks": [
+            {"b": rng.normal(size=(7,)).astype(np.float32)},
+            {"t": rng.normal(size=(2, 3, 4)).astype(np.float32)},
+        ],
+        "w": rng.normal(size=(5, 7)).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize(
+    "name,kw",
+    [
+        ("sgd", dict(lr=0.1, momentum=0.9)),
+        ("sgd", dict(lr=0.1, momentum=0.9, nesterov=True)),
+        ("adam", dict(lr=1e-2)),
+        ("adamw", dict(lr=1e-2, weight_decay=0.1)),
+        ("adafactor", dict(lr=1e-2)),
+    ],
+)
+def test_optimizers_match_jax_over_steps(name, kw):
+    """Four steps on gradients drawn with numpy; params, updates and state
+    leaves agree to fp32 rounding (pow, sqrt and means in another order)."""
+    jopt, topt = getattr(joptim, name)(**kw), getattr(toptim, name)(**kw)
+    jp, tp = _opt_tree(0), _t(_opt_tree(0))
+    jstate, tstate = jopt.init(jp), topt.init(tp)
+    for step in range(4):
+        g = _opt_tree(10 + step)
+        jup, jstate = jopt.update(g, jstate, jp)
+        tup, tstate = topt.update(_t(g), tstate, tp)
+        jp, tp = joptim.apply_updates(jp, jup), toptim.apply_updates(tp, tup)
+        for a, b in zip(tree_leaves(tup), jax.tree_util.tree_leaves(jup)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-7)
+    for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-7)
+    for a, b in zip(tree_leaves(tstate), jax.tree_util.tree_leaves(jstate)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-7)
+
+
+def test_clip_by_global_norm_matches_jax_and_widens_bf16():
+    g = _opt_tree(3)
+    want = joptim.clip_by_global_norm(g, 0.5)
+    got = toptim.clip_by_global_norm(_t(g), 0.5)
+    for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    low = toptim.clip_by_global_norm({"w": torch.ones(3, dtype=torch.bfloat16)}, 1.0)
+    assert low["w"].dtype == torch.float32  # as JAX promotes bf16 * fp32
+
+
+@pytest.mark.parametrize("micro_batches", [1, 2])
+def test_fedsgd_step_matches_jax(micro_batches):
+    """Two steps of ``build_fedsgd_step`` (clip 1.0) on the reduced smollm
+    LM: the loss of each step and the parameters after both.  Plain SGD
+    here, so a parameter parts by lr times its gradient's fp32 rounding;
+    Adam divides every gradient by its own size and so turns the rounding
+    of a near-zero gradient into a step of up to lr, which the optimizer
+    test above avoids by feeding both packages the same gradients."""
+    kw = dict(param_dtype="float32", dtype="float32", remat=False)
+    jcfg = jget_arch("smollm-360m").model.reduced(**kw)
+    tcfg = get_arch("smollm-360m").model.reduced(**kw)
+    jp = jT.init_params(jax.random.key(41), jcfg)
+    tp = tT.params_from_jax(_np(jp), tcfg, device="cpu")
+    jopt, topt = joptim.sgd(0.1), toptim.sgd(0.1)
+    jstep = jax.jit(jrounds.build_fedsgd_step(
+        lambda p, b: jT.lm_loss(jcfg, p, b["tokens"]), jopt, grad_clip=1.0, micro_batches=micro_batches))
+    tstep = trounds.build_fedsgd_step(
+        lambda p, b: tT.lm_loss(tcfg, p, b["tokens"]), topt, grad_clip=1.0, micro_batches=micro_batches)
+    js, ts = jopt.init(jp), topt.init(tp)
+    rng = np.random.default_rng(42)
+    for _ in range(2):
+        toks = rng.integers(0, jcfg.vocab_size, size=(4, 9)).astype(np.int32)
+        jp, js, jl = jstep(jp, js, {"tokens": jnp.asarray(toks)})
+        tp, ts, tl = tstep(tp, ts, {"tokens": torch.from_numpy(toks)})
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
+    want = tT.params_from_jax(_np(jp), tcfg, device="cpu")
+    for a, b in zip(tree_leaves(tp), tree_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- data
+
+
+@pytest.mark.parametrize("seed,n,length,topics", [(0, 300, 17, 10), (5, 64, 40, 6)])
+def test_token_dataset_copy_is_byte_identical(seed, n, length, topics):
+    a_docs, a_top = make_token_dataset(n_docs=n, doc_len=length, vocab=512, num_topics=topics, seed=seed)
+    b_docs, b_top = j_make_token_dataset(n_docs=n, doc_len=length, vocab=512, num_topics=topics, seed=seed)
+    assert a_docs.dtype == b_docs.dtype and a_docs.tobytes() == b_docs.tobytes()
+    assert a_top.dtype == b_top.dtype and a_top.tobytes() == b_top.tobytes()
+
+
+@pytest.mark.parametrize("clients,docs,seq", [(10, 16, 32), (6, 4, 9)])
+def test_token_clients_are_byte_identical(clients, docs, seq):
+    jcfg = jget_arch("smollm-360m").model
+    a = ttrain._token_clients(get_arch("smollm-360m").model, clients, docs, seq)
+    b = jtrain._token_clients(jcfg, clients, docs, seq)
+    assert a.shape == (clients, docs, seq) and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+# ------------------------------------------------------- the whole slice
+
+
+C, K, DOCS, SEQ, STEPS, BATCH, ROUNDS = 6, 3, 4, 12, 2, 2, 3
+
+
+def _args(**kw):
+    base = dict(
+        arch="smollm-360m", mode="fl", selection="fl-dp3s", rounds=ROUNDS, steps=3, clients=C,
+        per_round=K, docs_per_client=DOCS, local_steps=STEPS, local_batch=BATCH, seq=SEQ,
+        lr=1e-3, seed=0, log_every=1, device="cpu", full_width=False, flash=False,
+        shard_clients=0, cohort_cap=None, scenario=None, staleness_bound=None,
+        staleness_decay="polynomial", staleness_alpha=0.5, candidate_frac=None, faults=None,
+        aggregator="mean", local_algo="fedavg", prox_mu=None, feddyn_alpha=None,
+        ckpt_every=None, ckpt=None, telemetry=None, profile_dir=None,
+    )
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _jax_lm_fl():
+    """JAX's ``run_fl`` construction (reduced smollm, seed 0), run through
+    its scanned engine -> (params, profiles, kernel, outputs, final state,
+    per-round batch index plans)."""
+    cfg = jget_arch("smollm-360m").model.reduced(param_dtype="float32", dtype="float32", remat=False)
+    params = jT.init_params(jax.random.key(0), cfg)
+    clients = jtrain._token_clients(cfg, C, DOCS, SEQ)
+    topics = np.stack([np.full((DOCS,), ci % C, np.int32) for ci in range(C)])
+    feat_fn = jax.jit(lambda p, xs: jT.features(cfg, p, xs)[1].mean(0))
+    profiles = jnp.stack([feat_fn(params, jnp.asarray(clients[ci][: min(8, DOCS)])) for ci in range(C)])
+    strategy = jsel.DPPSelection()
+    loss_fn = lambda p, x, y: jT.lm_loss(cfg, p, x)
+    flcfg = jengine.FLConfig(
+        num_clients=C, clients_per_round=K, local_batch_size=BATCH, local_steps=STEPS,
+        sample_with_replacement=True, lr=jget_arch("smollm-360m").fl.lr, rounds=ROUNDS,
+        eval_every=1, num_classes=C, seed=0,
+    )
+    state = jengine.init_server_state(
+        flcfg, params, loss_fn, None, clients, topics, strategy=strategy, profiles=profiles,
+        losses=jnp.ones((C,)),
+    )
+    kernel = np.asarray(state.kernel)
+    final, outs = jengine.run_scanned(jengine.make_round_fn(flcfg, loss_fn, (strategy,)), state, ROUNDS)
+    # the round's key schedule, replayed on the host: key -> (key, k_sel, k_batch)
+    key, plans = jax.random.key(0), []
+    for _ in range(ROUNDS):
+        key, _, k_batch = jax.random.split(key, 3)
+        keys = jax.random.split(k_batch, K)
+        plans.append(np.asarray(jengine.batch_indices_from_keys(flcfg, keys, DOCS)))
+    return params, np.asarray(profiles), kernel, _np(outs), final, plans
+
+
+class _Replay(tsel.DPPSelection):
+    """The port's strategy handing out JAX's cohorts in order: the two
+    packages draw from different generators."""
+
+    def __init__(self, cohorts):
+        super().__init__()
+        self.cohorts = [np.array(c) for c in cohorts]
+
+    def draw_fn(self, generator, state, k):
+        return torch.as_tensor(self.cohorts.pop(0), device=state.kernel.device)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_lm_fl_slice_matches_jax_run_scanned(monkeypatch, flash):
+    """The port's ``run_fl`` (the refresh through K6's plain version with
+    ``--flash``) against JAX's scanned engine, round by round."""
+    jparams, jprof, jkern, jouts, jfinal, plans = _jax_lm_fl()
+    tcfg = get_arch("smollm-360m").model.reduced(param_dtype="float32", dtype="float32", remat=False)
+    monkeypatch.setattr(
+        ttrain, "build_model",
+        lambda arch, seed, full_width, device: (tcfg, tT.params_from_jax(_np(jparams), tcfg, device=device)),
+    )
+    monkeypatch.setattr(ttrain, "make_strategy", lambda name: _Replay(jouts["selected"]))
+    queue = [torch.from_numpy(p.astype(np.int64)) for p in plans]
+
+    def jax_plan(cfg, generator, m, n_c):
+        plan = queue.pop(0)
+        assert plan.shape == (m, STEPS, BATCH) and n_c == DOCS
+        return plan
+
+    monkeypatch.setattr(tengine, "batch_indices_from_keys", jax_plan)
+    calls = []
+    k6 = tflash.flash_attention
+    monkeypatch.setattr(tflash, "flash_attention", lambda *a, **kw: calls.append(1) or k6(*a, **kw))
+    state, outs = ttrain.run_fl(_args(flash=flash))
+    assert not queue
+    # K6 takes every layer of each refresh forward (one per cohort client
+    # and round) and nothing else
+    assert len(calls) == (tcfg.num_layers * ROUNDS * K if flash else 0)
+
+    # profiles and kernel: fp32 sums in another order; the kernel through
+    # K1 + K2's plain versions against JAX's op chain: K1 sums (a - b)^2
+    # where the chain expands it, ~1e-5 apart
+    np.testing.assert_allclose(state.profiles.numpy(), jprof, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(state.kernel.numpy(), jkern, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(outs["selected"].numpy(), jouts["selected"])
+    np.testing.assert_array_equal(outs["round"].numpy(), jouts["round"])
+    assert np.isnan(outs["acc"].numpy()).all() and np.isnan(jouts["acc"]).all()
+    np.testing.assert_allclose(outs["gemd"].numpy(), jouts["gemd"], atol=1e-6)  # same cohorts
+    # mean local losses and refreshed losses: three rounds of SGD on fp32
+    # gradients summed in another order, through two layers
+    np.testing.assert_allclose(outs["loss"].numpy(), jouts["loss"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(state.losses.numpy(), np.asarray(jfinal.losses), rtol=1e-5, atol=1e-5)
+    assert (state.losses.numpy() != 1.0).sum() == len(np.unique(jouts["selected"]))
+    want = tT.params_from_jax(_np(jfinal.params), tcfg, device="cpu")
+    for a, b in zip(tree_leaves(state.params), tree_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+    assert state.round == ROUNDS and set(outs) >= {"t_select", "t_local", "t_refresh"}
+    hist = tengine.history_from_outputs(outs, 2, final_acc=0.5)
+    jhist = jengine.history_from_outputs(jouts, 2, final_acc=0.5)
+    assert hist["round"] == jhist["round"] == [2, 3]
+    for name in ("acc", "gemd", "loss"):
+        np.testing.assert_allclose(hist[name], jhist[name], rtol=1e-5, atol=1e-6)
+    assert np.isnan(hist["acc"][0]) and hist["acc"][1] == 0.5
+
+
+# ------------------------------------------------------------- launcher
+
+
+def test_launcher_runs_both_modes_on_the_cpu(capsys):
+    ttrain.main(["--mode", "fl", "--rounds", "2", "--clients", "4", "--per-round", "2",
+                 "--docs-per-client", "3", "--local-steps", "1", "--local-batch", "2",
+                 "--seq", "10", "--log-every", "1", "--flash", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("[fl:fl-dp3s] round") == 4 and "seconds: selection" in out
+    params, _, hist = ttrain.main(["--mode", "pretrain", "--steps", "3", "--local-batch", "2",
+                                   "--seq", "10", "--log-every", "1", "--device", "cpu"])
+    assert [h["step"] for h in hist] == [1, 2, 3] and all(np.isfinite(h["loss"]) for h in hist)
+    assert capsys.readouterr().out.count("[pretrain] step") == 3
+
+
+def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("fl", "pretrain"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ttrain.main(["--mode", mode, "--rounds", "1", "--steps", "1"])
+
+
+@pytest.mark.parametrize(
+    "flag,value",
+    [
+        ("--shard-clients", "2"), ("--cohort-cap", "2"), ("--scenario", "diurnal"),
+        ("--staleness-bound", "1"), ("--staleness-decay", "exponential"),
+        ("--staleness-alpha", "0.3"), ("--candidate-frac", "0.5"), ("--faults", "dropout"),
+        ("--aggregator", "trimmed_mean"), ("--local-algo", "fedprox"), ("--prox-mu", "0.01"),
+        ("--feddyn-alpha", "0.01"), ("--ckpt", "ck"), ("--ckpt-every", "2"),
+        ("--telemetry", "t.jsonl"), ("--profile-dir", "prof"),
+    ],
+)
+@pytest.mark.parametrize("mode", ["fl", "pretrain"])
+def test_launcher_refuses_flags_not_ported(mode, flag, value):
+    with pytest.raises(NotImplementedError, match=f"{flag} .ROADMAP Queue 1 item"):
+        ttrain.main(["--mode", mode, flag, value, "--device", "cpu"])
+
+
+def test_flash_in_pretrain_raises():
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ttrain.main(["--mode", "pretrain", "--flash", "--device", "cpu"])
