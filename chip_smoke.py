@@ -14,7 +14,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (flash-decode) the same way, at the serving path's shape, two long
    shapes and the JAX test's three fp32 shapes, and K6 (causal flash
    attention) at the LM path's refresh shape, three long bf16 shapes and
-   the JAX test's five fp32 shapes, windows included.
+   the JAX test's five fp32 shapes, windows included, and K7 (the WKV6
+   recurrence) at rwkv6-7b's decode and prefill shapes, two long shapes,
+   the JAX test's four fp32 shapes and its state hand-off.
 3. The FL main path: five rounds of FL-DP³S at the paper's scale (C=100
    clients, 10 per round, 600 samples each, CNN (16, 32) with Q=128) through
    ``FLTrainer`` on ``cuda`` with the paper's config as it stands; checks
@@ -40,7 +42,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    loss and GEMD are finite, and holds the refresh through K6 against the
    same refresh without it (losses, and the final hidden states with a
    control that breaks the bound).
-6. Prints one JSON line describing every kernel, then the device line
+6. The RWKV-6 serving path: rwkv6-7b at full width (32 layers, d_model
+   4096, 64 WKV heads of 64, bf16, random weights from seed 0) with
+   ``use_flash=True``, in scan mode and through ``ServeEngine`` as in 4;
+   the same checks, with K7 launched once per layer at every prefill and
+   every decode step, and its teacher-forced logits against the plain scan
+   and an fp32 copy of the model; two witnesses without K7 (the plain scan
+   with its sums reordered, and one bf16 step added in layer 0) show how
+   far correct bf16 paths part, and K7's bf16 logits are held to them.  The
+   continuous tokens are held on an engine over the fp32 copy.
+7. Prints one JSON line describing every kernel, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and imports nothing of JAX.
@@ -48,6 +59,7 @@ It needs no network and imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -78,8 +90,19 @@ DECODE_SHAPES = [
     (2, 64, 4, 4, 16, "fp32", [64, 50]),
     (3, 16, 4, 1, 64, "fp32", [16, 3, 9]),
 ]
-# the serving main path (smollm-360m at full width)
-SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "smollm-360m", 16, 128, 64
+# the serving main paths at full width: smollm-360m through K5, rwkv6-7b
+# through K7; arch -> (kernel, label, runs at prefill too, d_model, the
+# dtype in which the end-to-end bounds (e) and (f) are held).  rwkv6-7b's
+# are held on an fp32 copy of the model: at random init its 32 layers
+# amplify rounding differences so far that two correct bf16 paths part by
+# about a third of max|logits|, while in fp32 they part by a few percent.
+# The script shows it each run with two witnesses that do not involve K7
+# (``serve_phase``, check (e)), and holds K7's bf16 logits to them
+SERVE_PATHS = {
+    "smollm-360m": ("flash_decode", "K5", False, 960, "bfloat16"),
+    "rwkv6-7b": ("wkv6", "K7", True, 4096, "float32"),
+}
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 64
 SERVE_REQUESTS, SERVE_BUDGETS, SERVE_CHUNK = 48, (32, 128), 8
 FL_KERNELS = ("pairwise_dists_stats", "normalized_gram")
 # K6: (B, S, H, Hk, hd, dtype name, window); the LM path's refresh shape first
@@ -93,6 +116,19 @@ ATTN_SHAPES = [
     (2, 64, 8, 2, 32, "fp32", 16),
     (1, 128, 4, 1, 64, "fp32", 32),
     (1, 32, 2, 2, 8, "fp32", None),
+]
+# K7: (B, T, H, hd, dtype name); rwkv6-7b's decode step first, then its
+# prefill of one admitted request and of the scan batch
+WKV_SHAPES = [
+    (16, 1, 64, 64, "bf16"),
+    (1, 128, 64, 64, "bf16"),
+    (16, 128, 64, 64, "bf16"),
+    (4, 2048, 64, 64, "bf16"),
+    (1, 4096, 64, 64, "bf16"),
+    (2, 64, 2, 16, "fp32"),  # the JAX test's shapes
+    (1, 100, 3, 32, "fp32"),
+    (2, 33, 1, 64, "fp32"),
+    (1, 16, 2, 8, "fp32"),
 ]
 # the LM client path (smollm-360m at full width)
 LM_ROUNDS, LM_CLIENTS, LM_PER_ROUND, LM_SEQ, LM_DOCS = 3, 10, 4, 512, 16
@@ -136,8 +172,10 @@ def bound(nbytes: float, flops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def serve_phase(torch, dev) -> int:
-    """The serving main path at full width; returns K5's launches on it."""
+def serve_phase(torch, dev, arch: str) -> int:
+    """The serving main path of ``arch`` at full width through its kernel
+    (``SERVE_PATHS``), which runs once per layer at every decode step and,
+    for K7, at every prefill; returns the kernel's launches on the path."""
     import dataclasses
 
     import numpy as np
@@ -147,11 +185,14 @@ def serve_phase(torch, dev) -> int:
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg, params = serve_launch.build_model(SERVE_ARCH, 0, full_width=True, device=dev)
-    check((cfg.num_layers, cfg.d_model, cfg.dtype) == (32, 960, "bfloat16"), f"not full width: {cfg}")
+    kernel, label, at_prefill, width, strict = SERVE_PATHS[arch]
+    cfg, params = serve_launch.build_model(arch, 0, full_width=True, device=dev)
+    check((cfg.num_layers, cfg.d_model, cfg.dtype) == (32, width, "bfloat16"), f"not full width: {cfg}")
     layers = cfg.num_layers
+    per_prefill = layers if at_prefill else 0
+    others = [n for n in _build.LAUNCHES if n != kernel]
     print(
-        f"serving: {SERVE_ARCH} at full width, {T.param_count(params) / 1e6:.1f} M parameters "
+        f"serving: {arch} at full width, {T.param_count(params) / 1e6:.1f} M parameters "
         f"in {cfg.param_dtype}, activations and caches in {cfg.dtype}"
     )
     rng = np.random.default_rng(0)
@@ -160,7 +201,7 @@ def serve_phase(torch, dev) -> int:
     # warm-up (cuBLAS handles, allocator pools), outside the counted runs
     serve_launch.run_scan_mode(cfg, params, prompts[:, :8], 4, use_flash=True)
 
-    # scan mode through K5
+    # scan mode through the kernel
     _build.reset_launches()
     toks, t = serve_launch.run_scan_mode(cfg, params, prompts, g, use_flash=True)
     scan_launches = dict(_build.LAUNCHES)
@@ -169,9 +210,10 @@ def serve_phase(torch, dev) -> int:
         f"{t['t_decode'] * 1e3:.3f} ms = {b * (g - 1) / t['t_decode']:.1f} tok/s; "
         f"launches {scan_launches}"
     )
-    # (a) K5 once per layer and decode step; prefill launches none
-    check(scan_launches["flash_decode"] == layers * (g - 1), f"K5 launches {scan_launches}")
-    check(all(scan_launches[n] == 0 for n in FL_KERNELS), "K1/K2 ran on the serving path")
+    # (a) the kernel once per layer and decode step, and per layer at the
+    # prefill for K7 (K5 takes only single-token steps); no other kernel
+    check(scan_launches[kernel] == layers * (g - 1) + per_prefill, f"{label} launches {scan_launches}")
+    check(all(scan_launches[n] == 0 for n in others), f"another kernel ran: {scan_launches}")
     check(toks.shape == (b, g) and bool(((toks >= 0) & (toks < T.vocab_padded(cfg))).all()), "scan tokens")
 
     # continuous batching through ServeEngine
@@ -220,9 +262,11 @@ def serve_phase(torch, dev) -> int:
         f"max {ttft.max():.2f} (first {ttft.min():.2f}); launches {cont_launches}; "
         f"shape signatures {eng.compile_counts()}"
     )
-    # (a) again: every K5 launch belongs to a decode step, so admissions launched none
-    check(cont_launches["flash_decode"] == layers * steps, f"K5 {cont_launches} vs {steps} steps")
-    check(all(cont_launches[n] == 0 for n in FL_KERNELS), "K1/K2 ran on the serving path")
+    # (a) again, counted apart: one launch per layer for every decode step
+    # and, for K7, every admission's prefill; K5 none at admission
+    want = layers * steps + per_prefill * SERVE_REQUESTS
+    check(cont_launches[kernel] == want, f"{label} {cont_launches} vs {steps} steps, {SERVE_REQUESTS} admissions")
+    check(all(cont_launches[n] == 0 for n in others), f"another kernel ran: {cont_launches}")
     # (b) every request finishes once, with exactly its budget
     ids = sorted(f.seq_id for f in finished)
     check(ids == list(range(SERVE_REQUESTS)), f"finished ids {ids}")
@@ -232,58 +276,77 @@ def serve_phase(torch, dev) -> int:
     check(eng.compile_counts() == {"decode_chunk": 1, "admit": 1}, f"{eng.compile_counts()}")
 
     # (f) the engine's tokens against a reference without the engine and
-    # without K5: all requests prefilled together at the same depth, plain
-    # attention, the engine's tokens teacher-forced.  Where the engine's
+    # without the kernel: all requests prefilled together at the same depth,
+    # the plain path, the engine's tokens teacher-forced.  Where the engine's
     # logits lie within d of the reference's, its greedy token t has
     # ref[t] >= max(ref) - 2d; d is check (e)'s bound, 0.05 * max|logits|.
     # A control feeds each request the previous request's prompt (what a
-    # scatter into the wrong row would do) and must break the bound.
-    out = np.zeros((SERVE_REQUESTS, gmax), np.int32)
-    for f in finished:
-        out[f.seq_id, : len(f.tokens)] = f.tokens
-    out_d = torch.as_tensor(out, device=dev)
-    valid = torch.as_tensor(np.arange(gmax)[None, :] < budgets[:, None], device=dev)
+    # scatter into the wrong row would do) and must break the bound.  Held
+    # in the ``strict`` dtype only: for rwkv6-7b the same requests go
+    # through a second engine over the fp32 copy of the model (K7 on fp32
+    # inputs); its bf16 engine is held by (a)-(c) and, through K7's logits,
+    # by (e).
+    def engine_vs_reference(c, prm, finished, what):
+        out = np.zeros((SERVE_REQUESTS, gmax), np.int32)
+        for f in finished:
+            out[f.seq_id, : len(f.tokens)] = f.tokens
+        out_d = torch.as_tensor(out, device=dev)
+        valid = torch.as_tensor(np.arange(gmax)[None, :] < budgets[:, None], device=dev)
 
-    def reference_gaps(prompts_np):
-        """max(ref logits) - ref logit of the engine's token, (n, gmax),
-        greedy agreement, and max|ref logits|."""
-        caches = T.init_caches(cfg, SERVE_REQUESTS, scfg.cache_len, per_slot=True, device=dev)
-        logits, caches = serve_launch.prefill(cfg, params, torch.as_tensor(prompts_np, device=dev), caches)
-        gaps, hits, top = [], [], torch.zeros((), device=dev)
-        for j in range(gmax):
-            if j:
-                logits, caches = T.decode_step(cfg, params, out_d[:, j - 1 : j], caches)
-            lj = logits[:, 0].float()
-            gaps.append(lj.max(-1).values - lj.gather(-1, out_d[:, j : j + 1].long())[:, 0])
-            hits.append(lj.argmax(-1) == out_d[:, j])
-            top = torch.maximum(top, lj.abs().max())
-        return torch.stack(gaps, 1), torch.stack(hits, 1), float(top)
+        def reference_gaps(prompts_np):
+            """max(ref logits) - ref logit of the engine's token, (n, gmax),
+            greedy agreement, and max|ref logits|."""
+            caches = T.init_caches(c, SERVE_REQUESTS, scfg.cache_len, per_slot=True, device=dev)
+            logits, caches = serve_launch.prefill(c, prm, torch.as_tensor(prompts_np, device=dev), caches)
+            gaps, hits, top = [], [], torch.zeros((), device=dev)
+            for j in range(gmax):
+                if j:
+                    logits, caches = T.decode_step(c, prm, out_d[:, j - 1 : j], caches)
+                lj = logits[:, 0].float()
+                gaps.append(lj.max(-1).values - lj.gather(-1, out_d[:, j : j + 1].long())[:, 0])
+                hits.append(lj.argmax(-1) == out_d[:, j])
+                top = torch.maximum(top, lj.abs().max())
+            return torch.stack(gaps, 1), torch.stack(hits, 1), float(top)
 
-    gaps, hits, top = reference_gaps(requests)
-    worst = float(gaps[valid].max())
-    agree_c = float(hits[valid].float().mean())
-    cgaps, _, ctop = reference_gaps(np.roll(requests, 1, axis=0))
-    flagged = int(((cgaps > 0.1 * ctop) & valid).any(1).sum())
-    print(
-        f"continuous tokens vs a batch-{SERVE_REQUESTS} reference without the engine or K5 over "
-        f"{int(valid.sum())} tokens: worst gap {worst:.4g} (bound 0.1 * max|logits| = "
-        f"{0.1 * top:.4g}), greedy agreement {agree_c:.4f}; control with shifted prompts "
-        f"breaks the bound in {flagged} of {SERVE_REQUESTS} requests"
-    )
-    check(worst <= 0.1 * top, f"continuous tokens off the reference: gap {worst} > 0.1 * {top}")
-    check(flagged >= SERVE_REQUESTS // 2, f"the control flagged only {flagged} requests")
+        gaps, hits, top = reference_gaps(requests)
+        worst = float(gaps[valid].max())
+        agree_c = float(hits[valid].float().mean())
+        cgaps, _, ctop = reference_gaps(np.roll(requests, 1, axis=0))
+        flagged = int(((cgaps > 0.1 * ctop) & valid).any(1).sum())
+        print(
+            f"continuous tokens ({what}) vs a batch-{SERVE_REQUESTS} reference without the engine or "
+            f"{label} over {int(valid.sum())} tokens: worst gap {worst:.4g} (bound 0.1 * max|logits| = "
+            f"{0.1 * top:.4g}), greedy agreement {agree_c:.4f}; control with shifted prompts breaks "
+            f"the bound in {flagged} of {SERVE_REQUESTS} requests"
+        )
+        check(worst <= 0.1 * top, f"continuous tokens off the reference: gap {worst} > 0.1 * {top}")
+        check(flagged >= SERVE_REQUESTS // 2, f"the control flagged only {flagged} requests")
 
-    # (d) greedy scan without K5 equals the legacy loop bit for bit
+    if strict == cfg.dtype:
+        engine_vs_reference(cfg, params, finished, f"{cfg.dtype} engine")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = _to_float(torch, params)
+    if strict == "float32":
+        eng32 = ServeEngine(cfg32, scfg, params32, prompt_len=p, seed=0)
+        for i in range(SERVE_REQUESTS):
+            eng32.submit(requests[i], int(budgets[i]))
+        finished32 = eng32.run()
+        check(sorted((f.seq_id, len(f.tokens)) for f in finished32)
+              == [(i, int(budgets[i])) for i in range(SERVE_REQUESTS)], "fp32 engine: a request missed its budget")
+        engine_vs_reference(cfg32, params32, finished32, f"fp32 engine through {label}")
+        del eng32, finished32
+
+    # (d) greedy scan without the kernel equals the legacy loop bit for bit
     plain, _ = serve_launch.run_scan_mode(cfg, params, prompts, g, use_flash=False)
     legacy, _ = serve_launch.run_legacy(cfg, params, prompts, g)
     check(bool((plain == legacy).all()), "scan tokens != legacy tokens")
-    print(f"parity OK: scan tokens without K5 bit-identical to the legacy loop ({b}x{g})")
+    print(f"parity OK: scan tokens without {label} bit-identical to the legacy loop ({b}x{g})")
 
-    # (e) teacher-forced logits over the K5 scan's tokens: K5, the plain
-    # attention, and the plain attention in an fp32 copy of the model
+    # (e) teacher-forced logits over the kernel's scan tokens: the kernel,
+    # the plain path, and the plain path in an fp32 copy of the model
     def teacher(c, prm, use_flash):
         caches = T.init_caches(c, b, p + g, per_slot=True, device=dev)
-        logits, caches = serve_launch.prefill(c, prm, prompts, caches)
+        logits, caches = serve_launch.prefill(c, prm, prompts, caches, use_flash)
         out = [logits.float()]
         toks_d = torch.as_tensor(toks, device=dev)
         for i in range(g - 1):
@@ -291,8 +354,6 @@ def serve_phase(torch, dev) -> int:
             out.append(logits.float())
         return torch.cat(out, dim=1)
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = _to_float(torch, params)
     l_k5, l_plain = teacher(cfg, params, True), teacher(cfg, params, False)
     l_32 = teacher(cfg32, params32, False)
     scale = float(l_plain.abs().max())
@@ -302,19 +363,103 @@ def serve_phase(torch, dev) -> int:
     agree = float((l_k5.argmax(-1) == l_plain.argmax(-1)).float().mean())
     agree32 = float((l_k5.argmax(-1) == l_32.argmax(-1)).float().mean())
     print(
-        f"teacher-forced logits over {b}x{g} steps (max|logits| {scale:.4g}): |K5 - plain| "
-        f"{d:.4g}; vs the fp32 model: K5 {e_k5:.4g}, plain {e_plain:.4g}; greedy tokens "
-        f"agree K5/plain {agree:.4f}, K5/fp32 {agree32:.4f}"
+        f"teacher-forced logits over {b}x{g} steps (max|logits| {scale:.4g}): |{label} - plain| "
+        f"{d:.4g}; vs the fp32 model: {label} {e_k5:.4g}, plain {e_plain:.4g}; greedy tokens "
+        f"agree {label}/plain {agree:.4f}, {label}/fp32 {agree32:.4f}"
     )
-    check(bool(torch.isfinite(l_k5).all()), "non-finite logits through K5")
-    # the bf16 bound: the plain path rounds scores and probabilities to bf16
-    # in every one of the 32 layers and K5 rounds its output once, so the
-    # two bf16 paths part by a few percent of max|logits|; a wrong head
-    # mapping, mask or length would part them by the logits' own size.  K5
-    # must also stay (within a quarter) no further from the fp32 model than
-    # the plain bf16 attention is.
-    check(d <= 0.05 * scale, f"K5 logits off the plain path by {d} > 0.05 * {scale}")
-    check(e_k5 <= 1.25 * e_plain, f"K5 {e_k5} further from fp32 than the plain path {e_plain}")
+    check(bool(torch.isfinite(l_k5).all()), f"non-finite logits through {label}")
+    # the bf16 bound: K5's plain path rounds scores and probabilities to
+    # bf16 in every one of the 32 layers and K5 rounds its output once, so
+    # the two bf16 paths part by a few percent of max|logits|; a wrong head
+    # mapping, mask or length would part them by the logits' own size.  K7
+    # and the plain scan both round y to bf16 once per layer from fp32 sums
+    # taken in another order, which the chaotic rwkv6-7b amplifies (below).
+    # The kernel must also stay (within a quarter) no further from the fp32
+    # model than the plain bf16 path is.
+    check(e_k5 <= 1.25 * e_plain, f"{label} {e_k5} further from fp32 than the plain path {e_plain}")
+    if strict == cfg.dtype:
+        check(d <= 0.05 * scale, f"{label} logits off the plain path by {d} > 0.05 * {scale}")
+    else:
+        from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+        from repro_torch.models import rwkv6 as rwkv_mod
+
+        real_ref, real_k7 = rwkv_mod.wkv6_scan_ref, wkv_ops.wkv6
+
+        def patched(c, prm, use_flash, k7=real_k7, ref=real_ref):
+            """The teacher-forced logits with K7's wrapper and the model's
+            plain scan swapped for ``k7`` and ``ref``."""
+            rwkv_mod.wkv6_scan_ref, wkv_ops.wkv6 = ref, k7
+            try:
+                return teacher(c, prm, use_flash)
+            finally:
+                rwkv_mod.wkv6_scan_ref, wkv_ops.wkv6 = real_ref, real_k7
+
+        def reordered(r, k, v, w, u, s0):
+            """The plain recurrence with its fp32 sums in another order:
+            r^T S, plus the bonus taken as (r . (u * k)) v."""
+            r, k, v, w = (a.float() for a in (r, k, v, w))
+            s, ys = s0.float(), []
+            for i in range(r.shape[1]):
+                bonus = (r[:, i] * u.float() * k[:, i]).sum(-1, keepdim=True) * v[:, i]
+                ys.append(torch.einsum("bhk,bhkv->bhv", r[:, i], s) + bonus)
+                s = w[:, i, :, :, None] * s + k[:, i, :, :, None] * v[:, i, :, None, :]
+            return torch.stack(ys, dim=1), s
+
+        calls = [0]
+
+        def one_ulp(r, k, v, w, u, s0):
+            """The plain scan, with one element of the first call's y (layer
+            0 at the prefill) moved by one bf16 step."""
+            y, s_new = real_ref(r, k, v, w, u, s0)
+            if calls[0] == 0:
+                y = y.clone()
+                bits = y[:1, :1, :1, :1].to(torch.bfloat16).view(torch.int16) + 1
+                y[:1, :1, :1, :1] = bits.view(torch.bfloat16).float()
+            calls[0] += 1
+            return y, s_new
+
+        def stateless(r, k, v, w, u, s0):
+            """The control: K7 handing back s0 as its final state (a kernel
+            whose state never advances)."""
+            return real_k7(r, k, v, w, u, s0)[0], s0.clone()
+
+        # two witnesses without K7 that the bf16 model is chaotic: the
+        # plain bf16 path against itself with the scan's sums in another
+        # order, and with one bf16 step added to one element of layer 0's y.
+        # K7's bf16 logits must part from the plain path's no further than
+        # the farther witness (within a quarter), or 5% of max|logits|
+        # where the witnesses part by less; the control must break that
+        w_order = float((patched(cfg, params, False, ref=reordered) - l_plain).abs().max())
+        w_ulp = float((patched(cfg, params, False, ref=one_ulp) - l_plain).abs().max())
+        d_ctrl16 = float((patched(cfg, params, True, k7=stateless) - l_plain).abs().max())
+        bound16 = max(0.05 * scale, 1.25 * max(w_order, w_ulp))
+        print(
+            f"bf16 witnesses without {label} (max|logits| {scale:.4g}): the plain path against itself "
+            f"with the scan's sums reordered {w_order:.4g}, with one bf16 step in layer 0's y "
+            f"{w_ulp:.4g}; bound on |{label} - plain| {bound16:.4g}; control with the state never "
+            f"advanced {d_ctrl16:.4g}"
+        )
+        check(d <= bound16, f"{label} logits off the plain path by {d} > {bound16}")
+        check(d_ctrl16 > bound16, f"the bf16 state control stayed within the bound: {d_ctrl16}")
+
+        # the issue's 5% bound on the fp32 copy: K7 on fp32 inputs against
+        # the plain fp32 scan, which part only by the order of fp32 sums;
+        # the same control must break it
+        l_32k = teacher(cfg32, params32, True)
+        d32 = float((l_32k - l_32).abs().max())
+        d_ctrl = float((patched(cfg32, params32, True, k7=stateless) - l_32).abs().max())
+        scale32 = float(l_32.abs().max())
+        agree_32k = float((l_32k.argmax(-1) == l_32.argmax(-1)).float().mean())
+        print(
+            f"teacher-forced logits of the fp32 copy (max|logits| {scale32:.4g}): |{label} - plain| "
+            f"{d32:.4g} (bound 0.05 * max = {0.05 * scale32:.4g}), greedy tokens agree {agree_32k:.4f}; "
+            f"control with the state never advanced {d_ctrl:.4g}"
+        )
+        check(bool(torch.isfinite(l_32k).all()), f"non-finite fp32 logits through {label}")
+        check(d32 <= 0.05 * scale32, f"fp32 {label} logits off the plain path by {d32} > 0.05 * {scale32}")
+        check(d_ctrl > 0.05 * scale32, f"the state control stayed within the bound: {d_ctrl}")
+        del l_32k
+    del params32, l_k5, l_plain, l_32
 
     # where a decode step's time goes: three steps under torch.profiler,
     # after the counted runs (the device's busy share is its kernel time over
@@ -327,9 +472,9 @@ def serve_phase(torch, dev) -> int:
     def decode():
         box[0] = T.decode_step(cfg, params, tok, box[0], use_flash=True)[1]
 
-    _print_profile(torch, "decode step at full width", decode, "flash_decode", n=3,
+    _print_profile(torch, f"{arch} decode step at full width", decode, kernel, n=3,
                    wall_ms=t["t_decode"] / (g - 1) * 1e3)
-    return scan_launches["flash_decode"] + cont_launches["flash_decode"]
+    return scan_launches[kernel] + cont_launches[kernel]
 
 
 def _print_profile(torch, what: str, fn, mark: str, n: int = 1, wall_ms=None) -> None:
@@ -561,6 +706,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fd_ops
     from repro_torch.kernels.flash_attention import ref as fd_ref
     from repro_torch.kernels.pairwise_l2 import ref as pw_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
     from repro_torch.models import cnn
 
     t_start = time.perf_counter()
@@ -792,6 +939,79 @@ def main() -> int:
             f"= {b6[0] / k6_ms:.4f} of the kernel's time"
         )
 
+    # K7 on its own against its plain version; no PyTorch call computes WKV6
+    wkv_rows = {}
+    for b, t, h, hd, kind in WKV_SHAPES:
+        gen = torch.Generator().manual_seed(b * 7919 + t + hd)
+        r, k, v = (torch.randn(b, t, h, hd, generator=gen).to(dtypes[kind]).to(dev) for _ in range(3))
+        if kind == "fp32":  # the JAX test's decays
+            w = 0.4 + 0.59 * torch.rand(b, t, h, hd, generator=gen)
+        else:  # the model's law, exp(-exp(z)), from its fastest decays to its slowest
+            w = torch.exp(-torch.exp(torch.rand(b, t, h, hd, generator=gen) * 6.0 - 6.0))
+        u = torch.randn(h, hd, generator=gen)
+        s0 = torch.randn(b, h, hd, hd, generator=gen)  # a state carried in from earlier tokens
+        w, u, s0 = w.to(dev), u.to(dev), s0.to(dev)
+        got_y, got_s = wkv_ops.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        want_y, want_s = wkv_ref.wkv6_scan_ref(r, k, v, w, u, s0)
+        want_y = want_y.to(r.dtype)
+        dy = (got_y.float() - want_y.float()).abs()
+        ds = (got_s - want_s).abs()
+        err_y, err_s = float(dy.max()), float(ds.max())
+        if kind == "fp32":
+            tol = 5e-4  # the JAX sweep's bound
+            check(max(err_y, err_s) <= tol, f"K7 off at {(b, t, h, hd, kind)}: y {err_y}, S {err_s}")
+        else:
+            # y: one bf16 step of each element (<= 2^-7 of |y|), plus the
+            # fp32 sums' order near 0 within 2^-8 of the largest |y| of the
+            # same (b, t, h) row: both compute in fp32 from the same bf16
+            # inputs and round y once.  S: within 1e-5 of its (b, h) head's
+            # largest |S|: the two round each step's w S + k v differently
+            # (one fma against a product and a sum), about one fp32 step of
+            # |S| a step, and the decay forgets old steps' rounding
+            wf = want_y.float()
+            atol = 2.0**-8 * wf.abs().amax(dim=-1, keepdim=True)
+            tol = float(atol.max())
+            bad = int((dy > 2.0**-7 * wf.abs() + atol).sum())
+            bad_s = int((ds > 1e-5 * want_s.abs().amax(dim=(2, 3), keepdim=True)).sum())
+            check(bad == 0 and bad_s == 0,
+                  f"K7 off at {(b, t, h, hd, kind)}: {bad} y elements (max {err_y}), {bad_s} S elements (max {err_s})")
+        k7_ms = time_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0))
+        # the plain loop launches ~6 kernels per token: fewer timed calls
+        reps = dict(launches=1, repeats=3, warmup=1) if t > 16 else {}
+        k7_plain = time_ms(torch, lambda: wkv_ref.wkv6_scan_ref(r, k, v, w, u, s0), **reps)
+        # least work: r, k, v and w read once, y written once, the state
+        # read and written once, u read once.  Per (b, t, h) the recurrence
+        # needs 5 hd^2 fp32 FLOPs, r^T S (2 hd^2) and w_i S_ij + k_i v_j
+        # (3 hd^2), and 4 hd for the bonus taken as (r . (u * k)) v
+        esize = r.element_size()
+        seq = b * t * h * hd
+        b7 = bound(seq * (4 * esize + 4) + 2 * b * h * hd * hd * 4 + h * hd * 4,
+                   (5.0 * hd * hd + 4.0 * hd) * h * b * t, "fp32")
+        wkv_rows[(b, t, kind)] = dict(
+            max_abs_err=err_y, ms=k7_ms, plain_ms=k7_plain, library_ms=None,
+            bound_ms=b7[0], bound_by=b7[1],
+        )
+        print(
+            f"K7 B={b} T={t} H={h} hd={hd} {kind}: err y={err_y:.3e} S={err_s:.3e} "
+            f"(tol {'2^-7*|y| + at most ' if kind == 'bf16' else ''}{tol:.3e}{'' if kind == 'fp32' else ', S 1e-5*max|S| of the head'}) "
+            f"ms={k7_ms:.5f} plain={k7_plain:.5f} library=none bound={b7[0]:.6f} ({b7[1]}) "
+            f"= {b7[0] / k7_ms:.4f} of the kernel's time"
+        )
+    # the state hand-off: two halves == one shot, at the JAX test's bound
+    gen = torch.Generator().manual_seed(17)
+    r, k, v = (torch.randn(1, 32, 2, 16, generator=gen).to(dev) for _ in range(3))
+    w = (0.5 + 0.49 * torch.rand(1, 32, 2, 16, generator=gen)).to(dev)
+    u = torch.randn(2, 16, generator=gen).to(dev)
+    s0 = torch.zeros(1, 2, 16, 16, device=dev)
+    y_full, s_full = wkv_ops.wkv6(r, k, v, w, u, s0)
+    y1, s_mid = wkv_ops.wkv6(*(x[:, :16].contiguous() for x in (r, k, v, w)), u, s0)
+    y2, s_end = wkv_ops.wkv6(*(x[:, 16:].contiguous() for x in (r, k, v, w)), u, s_mid)
+    torch.cuda.synchronize()
+    e_hand = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()), float((s_end - s_full).abs().max()))
+    print(f"K7 state hand-off (1, 16 + 16, 2, 16) fp32: two halves vs one shot {e_hand:.3e} (bound 1e-4)")
+    check(e_hand <= 1e-4, f"K7 state hand-off off by {e_hand}")
+
     # --------------------------------------------------------- 3. main path
     exp = paper_cnn.paper_scale()
     c, cp = exp.num_clients, exp.clients_per_round
@@ -852,7 +1072,7 @@ def main() -> int:
     check(trainer.device.type == "cuda", "the trainer did not run on the card")
     for name in FL_KERNELS:
         check(init_launches[name] >= 1, f"{name} did not run during _init_profiles")
-    check(launches["flash_decode"] == 0, "K5 ran on the FL path")
+    check(launches["flash_decode"] == 0 and launches["wkv6"] == 0, "K5 or K7 ran on the FL path")
     check(len(strategy.cohorts) == ROUNDS, "not one cohort per round")
     for cohort in strategy.cohorts:
         check(
@@ -908,12 +1128,19 @@ def main() -> int:
     )
 
     # ------------------------------------------- 4. the serving main path
-    serve_launches = serve_phase(torch, dev)
+    serve_launches = serve_phase(torch, dev, "smollm-360m")
 
     # ------------------------------------------------ 5. the LM client path
     lm_launches = lm_phase(torch, dev)
 
-    # ---------------------------------------------------------- 6. results
+    # ------------------------------------------ 6. the RWKV-6 serving path
+    # the earlier phases' models are out of scope: hand their memory back
+    # before the 15 GB model and its 30 GB fp32 copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_launches = serve_phase(torch, dev, "rwkv6-7b")
+
+    # ---------------------------------------------------------- 7. results
     main_shape = SHAPES[0]
     sources = {
         "pairwise_dists_stats": (
@@ -937,6 +1164,12 @@ def main() -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:86",
             attn_rows[ATTN_SHAPES[0][0], ATTN_SHAPES[0][1], ATTN_SHAPES[0][5], ATTN_SHAPES[0][6]],
             lm_launches,
+        ),
+        "wkv6": (
+            "src/repro_torch/kernels/csrc/wkv6.cu",
+            "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:63",
+            wkv_rows[WKV_SHAPES[0][0], WKV_SHAPES[0][1], WKV_SHAPES[0][4]],
+            rwkv_launches,
         ),
     }
     table = []

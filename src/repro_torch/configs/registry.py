@@ -1,9 +1,10 @@
 """Registry of the assigned architectures, by the JAX package's names.
 
 ``get_arch(name)`` returns the ``ArchSpec`` of an arch whose mixers, FFNs
-and position encoding the port runs (the dense ``attn+mlp`` family).  For
-the others it raises ``NotImplementedError`` naming what is missing and
-the ROADMAP slice that brings it.
+and position encoding the port runs (the dense ``attn+mlp`` family and the
+RWKV-6 ``rwkv+cmix`` family).  For the others it raises
+``NotImplementedError`` naming what is missing and the ROADMAP slice that
+brings it.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ NOT_PORTED = {
     "qwen2-vl-2b": "M-RoPE positions",
     "recurrentgemma-9b": "RG-LRU mixers",
     "llama4-maverick-400b-a17b": "MoE FFNs",
-    "rwkv6-7b": "RWKV-6 mixers",
     "mixtral-8x7b": "MoE FFNs",
     "musicgen-medium": "sinusoidal positions",
 }

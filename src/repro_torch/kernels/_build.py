@@ -38,7 +38,7 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
-SOURCES = ("pairwise_l2", "gram", "flash_decode", "flash_attention")
+SOURCES = ("pairwise_l2", "gram", "flash_decode", "flash_attention", "wkv6")
 
 # C signatures: name -> (restype, argtypes).  Pointers and the stream are
 # c_void_p so that ctypes does not cut them to 32 bits.
@@ -61,10 +61,15 @@ _SIGNATURES = {
         "flash_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
+    "wkv6": {
+        "wkv6": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "wkv6_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 LAUNCHES: Dict[str, int] = {
     "pairwise_dists_stats": 0, "normalized_gram": 0, "flash_decode": 0, "flash_attention": 0,
+    "wkv6": 0,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -3,8 +3,8 @@
 Three decode modes over the same model:
 
 * legacy (default): a host loop of greedy decode steps on the shared-scalar
-  cache, without K5.  The parity oracle: greedy scan mode must give its
-  tokens bit for bit.
+  cache, without kernels (K5, K7).  The parity oracle: greedy scan mode
+  without ``--flash`` must give its tokens bit for bit.
 * ``--scan``: the serving engine's decode loop over per-slot caches, greedy
   or with ``--temperature``.
 * ``--continuous``: slot-based continuous batching through
@@ -13,6 +13,9 @@ Three decode modes over the same model:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --batch 4 --prompt-len 8 --gen 12 --scan --check --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --batch 4 --prompt-len 8 --gen 16 --continuous --requests 10 --mixed \\
+        --flash --device cpu
 
 Without ``--full-width`` the model is the arch's ``reduced`` variant in
 fp32; with it, the arch's own widths and dtypes.  Weights are random from
@@ -73,8 +76,8 @@ def prefill(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, caches: Dict,
 
 
 def run_legacy(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, gen: int):
-    """Host-loop greedy decode on the shared-scalar cache, without K5 — the
-    parity oracle.  -> (tokens (B, gen) numpy, {"t_prefill": s, "t_decode": s})."""
+    """Host-loop greedy decode on the shared-scalar cache, without kernels
+    (K5, K7) — the parity oracle.  -> (tokens (B, gen) numpy, {"t_prefill": s, "t_decode": s})."""
     b, p = prompts.shape
     dev = prompts.device
     caches = T.init_caches(cfg, b, p + gen, device=dev)
@@ -220,7 +223,7 @@ def main(argv=None):
                     help="continuous mode: budgets drawn in [gen // 4, gen]")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--flash", action="store_true",
-                    help="route decode attention through the flash-decode kernel (K5)")
+                    help="route attention through K5/K6 and the RWKV-6 time mix through K7")
     ap.add_argument("--check", action="store_true",
                     help="assert scan tokens match the legacy oracle")
     ap.add_argument("--telemetry", default=None, metavar="PATH", help="not ported yet")

@@ -1,9 +1,11 @@
-"""Composable decoder transformer: the dense ``attn+mlp`` family.
+"""Composable decoder transformer: the dense ``attn+mlp`` family and the
+RWKV-6 ``rwkv+cmix`` family.
 
 A model is a ``block_pattern``, a repeating unit of "mixer+ffn" layer specs
 (``cfg.layer_types()``).  The port runs the attention mixers (``attn``,
-``swa``, ``local``) and the ``mlp`` FFN; ``moe``, ``rglru``, ``rwkv`` and
-``cmix`` raise ``NotImplementedError`` until their slice lands.
+``swa``, ``local``) with the ``mlp`` FFN, and the ``rwkv`` time mix with
+the ``cmix`` channel mix; ``moe`` and ``rglru`` raise
+``NotImplementedError`` until their slice lands.
 
 Parameters are a plain dict: ``embed.w`` (V_pad, D), ``final_norm``,
 ``lm_head.w`` (D, V_pad) when the embeddings are untied, and ``blocks``,
@@ -11,10 +13,19 @@ one dict per layer in layer order.  ``params_from_jax`` turns the JAX
 package's layer-stacked tree into this layout.
 
 Caches keep the JAX package's layer-stacked layout (``init_caches``):
-``{"unit": ({"k","v": (reps, B, slots, Hk, hd), "pos": (reps,) |
-(reps, B)}, ...), "rem": (per-layer caches, ...)}``.  ``forward`` hands
-each layer a view of its row and the layers write k/v in place; the
+``{"unit": (cache of one pattern entry with every leaf stacked (reps, ...),
+...), "rem": (per-layer caches, ...)}``.  An attention layer's cache is
+``{"k","v": (B, slots, Hk, hd), "pos"}``, an RWKV layer's ``{"tm_x",
+"wkv", "cm_x", "pos"}`` (``pos: ()`` or ``(B,)``).  ``forward`` hands each
+layer a view of its row and the layers write their tensors in place; the
 returned caches share those tensors and carry new positions.
+
+``use_flash`` routes attention through K5/K6 (``attention.py``) and the
+RWKV time mix through K7 at every prefill and decode step
+(``rwkv6.apply_rwkv_tmix(use_kernel=True)``).  The JAX package's model
+path never sets ``use_kernel`` (its transformer calls the time mix
+without it); the port routes it from the same switch, and with
+``use_flash=False`` computes exactly what JAX's path computes.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as rwkv_mod
 
 __all__ = [
     "init_params",
@@ -47,10 +59,10 @@ ATTN_MIXERS = ("attn", "swa", "local")
 
 def _parse(btype: str) -> Tuple[str, str]:
     mixer, ffn = btype.split("+")
-    if mixer not in ATTN_MIXERS or ffn != "mlp":
+    if not ((mixer in ATTN_MIXERS and ffn == "mlp") or (mixer, ffn) == ("rwkv", "cmix")):
         raise NotImplementedError(
-            f"block {btype!r}: the port runs attn/swa/local mixers with mlp FFNs; "
-            "moe, rglru, rwkv and cmix come later (ROADMAP Queue 1, Slice 2 item 8)"
+            f"block {btype!r}: the port runs attn/swa/local mixers with mlp FFNs and "
+            "rwkv with cmix; moe and rglru come later (ROADMAP Queue 1, Slice 2 item 8)"
         )
     return mixer, ffn
 
@@ -67,20 +79,24 @@ def vocab_padded(cfg: ModelConfig) -> int:
 
 
 def _init_block(generator: torch.Generator, cfg: ModelConfig, btype: str, device) -> Dict:
-    _parse(btype)
-    return {
-        "norm1": L.init_norm(cfg, device),
-        "norm2": L.init_norm(cfg, device),
-        "mixer": attn_mod.init_attention(generator, cfg, device),
-        "ffn": L.init_mlp(generator, cfg, device),
-    }
+    mixer, _ = _parse(btype)
+    p = {"norm1": L.init_norm(cfg, device), "norm2": L.init_norm(cfg, device)}
+    if mixer == "rwkv":
+        p["mixer"] = rwkv_mod.init_rwkv_tmix(generator, cfg, device)
+        p["ffn"] = rwkv_mod.init_rwkv_cmix(generator, cfg, device)
+    else:
+        p["mixer"] = attn_mod.init_attention(generator, cfg, device)
+        p["ffn"] = L.init_mlp(generator, cfg, device)
+    return p
 
 
 def init_params(
     generator: torch.Generator, cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None
 ) -> Dict:
     """Random parameters from ``generator`` (which must live on ``device``):
-    embeddings N(0, 0.02²), dense weights N(0, 1/d_in), norms 1."""
+    embeddings N(0, 0.02²), dense weights N(0, 1/d_in), norms 1, the RWKV
+    mixes by the JAX package's laws (``rwkv6.init_rwkv_tmix``).  Leaves
+    are in ``cfg.param_dtype`` except RWKV's ``w0`` and ``u``, fp32."""
     device = resolve_device(device)
     dtype = L.torch_dtype(cfg.param_dtype)
     v = vocab_padded(cfg)
@@ -98,14 +114,17 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig, device=None) -> Dict:
 
     Layer ``r * len(pattern) + j`` of the unit part is
     ``np_params["unit"][j][...][r]``; the ``rem`` blocks follow.  Dense
-    weights keep JAX's (d_in, d_out) layout."""
+    weights keep JAX's (d_in, d_out) layout, and every leaf keeps its own
+    dtype (RWKV's ``w0`` and ``u`` are fp32 in a bf16 model)."""
     device = resolve_device(device)
-    dtype = L.torch_dtype(cfg.param_dtype)
 
     def conv(tree):
         if isinstance(tree, Mapping):
             return {k: conv(v) for k, v in tree.items()}
-        return torch.tensor(np.ascontiguousarray(np.asarray(tree, np.float32)), device=device).to(dtype)
+        a = np.asarray(tree)
+        if a.dtype.name == "bfloat16":  # numpy has no bf16 of its own: widen exactly
+            return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        return torch.tensor(np.ascontiguousarray(a), device=device)
 
     pattern = cfg.block_pattern
     reps = cfg.num_layers // len(pattern)
@@ -130,15 +149,18 @@ def init_caches(
     cfg: ModelConfig, batch: int, cache_len: int, per_slot: bool = False,
     device: Optional[Union[str, torch.device]] = None,
 ) -> Dict:
-    """Zeroed, layer-stacked caches.  ``per_slot=True`` carries one position
-    per batch row (``pos: (B,)`` in each layer), the serving engine's
-    layout; otherwise one shared scalar position."""
+    """Zeroed, layer-stacked caches: KV caches for attention layers, RWKV
+    states for RWKV layers.  ``per_slot=True`` carries one position per
+    batch row (``pos: (B,)`` in each layer), the serving engine's layout;
+    otherwise one shared scalar position."""
     device = resolve_device(device)
     pattern = cfg.block_pattern
     reps, rem = divmod(cfg.num_layers, len(pattern))
 
     def one(btype: str) -> Dict:
         mixer, _ = _parse(btype)
+        if mixer == "rwkv":  # constant in cache_len
+            return rwkv_mod.init_rwkv_state(cfg, batch, per_slot=per_slot, device=device)
         return attn_mod.init_cache(
             cfg, batch, cache_len, _mixer_window(cfg, mixer), per_slot=per_slot, device=device
         )
@@ -158,12 +180,19 @@ def _apply_block(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     mixer, _ = _parse(btype)
     h = L.apply_norm(cfg, p["norm1"], x)
-    y, new_cache = attn_mod.apply_attention(
-        cfg, p["mixer"], h, positions, cache, _mixer_window(cfg, mixer), use_flash
-    )
+    if mixer == "rwkv":
+        y, new_cache = rwkv_mod.apply_rwkv_tmix(cfg, p["mixer"], h, cache, use_kernel=use_flash)
+    else:
+        y, new_cache = attn_mod.apply_attention(
+            cfg, p["mixer"], h, positions, cache, _mixer_window(cfg, mixer), use_flash
+        )
     x = x + y
     h = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.apply_mlp(cfg, p["ffn"], h), new_cache
+    if mixer == "rwkv":  # cmix shares the rwkv state dict
+        y, new_cache = rwkv_mod.apply_rwkv_cmix(cfg, p["ffn"], h, new_cache)
+    else:
+        y = L.apply_mlp(cfg, p["ffn"], h)
+    return x + y, new_cache
 
 
 def _embed_in(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -197,8 +226,8 @@ def forward(
     use_flash: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """-> (final hidden (B, S, D), new caches, total aux loss (0 for the
-    dense family)).  With caches, k/v are written in place (module
-    docstring)."""
+    dense and RWKV families)).  With caches, each layer's tensors are
+    written in place (module docstring)."""
     x = _embed_in(cfg, params, tokens)
     layer_types = cfg.layer_types()
     new_pos: List[torch.Tensor] = []
@@ -216,7 +245,7 @@ def forward(
     if caches is not None:
         n = len(cfg.block_pattern)
         unit = tuple(
-            {"k": u["k"], "v": u["v"], "pos": torch.stack(new_pos[j::n]) if reps else u["pos"]}
+            {**u, "pos": torch.stack(new_pos[j::n]) if reps else u["pos"]}
             for j, u in enumerate(caches["unit"])
         )
         new_caches = {"unit": unit, "rem": tuple(new_rem)}
@@ -295,7 +324,8 @@ def lm_loss(
     CE taken in fp32, and the chunks' sums are added in order, as in the
     JAX package.  ``targets`` default to the shifted tokens (a (B, S)
     tensor is shifted, a (B, S - 1) one is taken as it is).  ``use_flash``
-    routes attention through K6, which is forward-only.  ``cfg.remat`` is
+    routes attention through K6 and the RWKV time mix through K7, both
+    forward-only.  ``cfg.remat`` is
     not applied: at the sizes the port runs, the activations of a pass fit
     on the card.  ``embeds`` (the VLM/audio frontends) raises until those
     archs are ported."""

@@ -3,14 +3,16 @@
 The JAX package's engine as PyTorch code that runs eagerly:
 
 * :class:`DecodeState` holds everything a slot batch evolves: per-slot
-  model caches (``init_caches(..., per_slot=True)``, every slot at its own
-  depth), the last sampled token, the generated-token buffer, per-slot
+  model caches (``init_caches(..., per_slot=True)``: KV caches or RWKV
+  states, every slot at its own depth), the last sampled token, the generated-token buffer, per-slot
   counters and budgets, the active and occupancy masks, and one sampling
   ``torch.Generator`` per slot.
 * :func:`make_decode_fn` is one decode step for all slots: the model's
-  ``decode_step`` (through K5 with ``use_flash``), per-slot sampling, stop
-  handling and the masked token write.  Inactive slots run the model too,
-  with every visible update masked; their caches keep advancing and wrap.
+  ``decode_step`` (through K5 or K7 with ``use_flash``), per-slot
+  sampling, stop handling and the masked token write.  Inactive slots run
+  the model too, on token 0, with their tokens and counters masked; their
+  caches keep advancing (a KV cache wraps, an RWKV state takes the token
+  in), and admission overwrites every row of the slot.
 * :func:`run_scan` and :func:`run_while` loop the step: a fixed count, or
   until every slot has stopped.
 * :func:`make_admit_fn` prefills one queued sequence into a width-1
@@ -69,7 +71,7 @@ class ServeConfig:
     max_new: int  # output buffer width (>= any per-slot budget)
     temperature: float = 0.0  # 0.0 = greedy
     eos_id: Optional[int] = None  # None = budget-only stopping
-    use_flash: bool = False  # decode attention through K5
+    use_flash: bool = False  # decode attention through K5, the RWKV time mix through K7
     decode_chunk: int = 8  # decode steps between admission checks
 
     def __post_init__(self):
@@ -141,7 +143,10 @@ def init_decode_state(
 def make_decode_fn(cfg: ModelConfig, scfg: ServeConfig) -> Callable:
     """One decode step for all slots: ``(params, state) -> state``, writing
     the caches and ``out_tokens`` in place.  Inactive slots' sampled tokens
-    are pinned to 0 and none of their visible buffers changes."""
+    are pinned to 0 and their ``out_tokens``, ``n_gen`` and ``active`` do
+    not change; their caches do, as in the JAX package: the model runs on
+    every row, so an inactive slot's KV cache and position advance and its
+    RWKV state takes token 0 in.  Admission overwrites all of it."""
 
     def decode_fn(params: Dict, state: DecodeState) -> DecodeState:
         logits, caches = T.decode_step(
@@ -190,7 +195,8 @@ def run_while(decode_fn: Callable, params: Dict, state: DecodeState, max_steps: 
 
 
 def _scatter_caches(dst: Dict, src: Dict, slot: int) -> None:
-    """Copy the width-1 caches ``src`` into row ``slot`` of ``dst``: unit
+    """Copy every leaf of the width-1 caches ``src`` (k/v, or an RWKV
+    layer's tm_x/wkv/cm_x, and pos) into row ``slot`` of ``dst``: unit
     leaves are layer-stacked (reps, B, ...), so the batch is axis 1;
     remainder leaves lead with B."""
     for d, s in zip(dst["unit"], src["unit"]):
@@ -211,7 +217,8 @@ def make_admit_fn(cfg: ModelConfig, scfg: ServeConfig, prompt_len: int) -> Calla
     admission finishes at prefill and stays occupied until the host
     harvests it, and a second admission in the same wave must not take its
     slot.  The prefill runs on a width-1 per-slot cache of the same
-    ``cache_len``, so every cache row copies over as it is; the first token
+    ``cache_len`` (with ``use_flash``, an RWKV prefill goes through K7), so
+    every cache row copies over as it is; the first token
     is sampled from the prefill logits with the sequence's own generator,
     which then becomes the slot's stream.
     """

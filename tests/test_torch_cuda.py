@@ -290,3 +290,145 @@ def _requiring_grad(tree):
     if isinstance(tree, dict):
         return {k: _requiring_grad(v) for k, v in tree.items()}
     return [_requiring_grad(v) for v in tree]
+
+
+# ------------------------------------------------------------------- K7
+
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref  # noqa: E402
+
+
+def _wkv_inputs(b, t, h, hd, dtype, device, seed=0, w_range=(0.4, 0.99)):
+    """r/k/v normal in ``dtype``; w fp32 in ``w_range`` (None: the model's
+    law exp(-exp(z)) with z ~ U(-6, 0), w in (0.37, 0.9975)); u normal;
+    s0 normal, fp32."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(b, t, h, hd, generator=g).to(dtype).to(device) for _ in range(3))
+    if w_range is None:
+        w = torch.exp(-torch.exp(torch.rand(b, t, h, hd, generator=g) * 6.0 - 6.0))
+    else:
+        w = w_range[0] + (w_range[1] - w_range[0]) * torch.rand(b, t, h, hd, generator=g)
+    u = torch.randn(h, hd, generator=g)
+    s0 = torch.randn(b, h, hd, hd, generator=g)
+    return r, k, v, w.to(device), u.to(device), s0.to(device)
+
+
+def assert_wkv6_close(got, want, atol=None):
+    """K7's (y, s_out) against the plain version's.  fp32 (``atol`` given):
+    elementwise at ``atol``.  bf16: each y element within one bf16 step of
+    itself (2^-7 |y|) plus 2^-8 of the largest |y| of the same (b, t, h)
+    row (the fp32 sums' order near 0); both versions compute in fp32 from
+    the same bf16 inputs and round y once.  The fp32 state within 1e-5 of
+    its (b, h) head's largest |S|: the two versions round each step's
+    w S + k v differently (one fma against a product and a sum), about one
+    fp32 step of |S| a step, and the decay forgets old steps' rounding."""
+    (gy, gs), (wy, ws) = got, want
+    assert gy.dtype == wy.dtype and gs.dtype == ws.dtype == torch.float32
+    if atol is not None:
+        torch.testing.assert_close(gy, wy, rtol=0, atol=atol)
+        torch.testing.assert_close(gs, ws, rtol=0, atol=atol)
+        return
+    wf = wy.float()
+    diff = (gy.float() - wf).abs()
+    bad = diff > 2.0**-7 * wf.abs() + 2.0**-8 * wf.abs().amax(dim=-1, keepdim=True)
+    assert not bool(bad.any()), f"y: {int(bad.sum())} elements off, max {float(diff.max())}"
+    sdiff = (gs - ws).abs()
+    sbad = sdiff > 1e-5 * ws.abs().amax(dim=(2, 3), keepdim=True)
+    assert not bool(sbad.any()), f"s_out: {int(sbad.sum())} elements off, max {float(sdiff.max())}"
+
+
+@pytest.mark.parametrize(
+    "b,t,h,hd,dtype",
+    [
+        (2, 64, 2, 16, torch.float32),  # the JAX test's four shapes
+        (1, 100, 3, 32, torch.float32),
+        (2, 33, 1, 64, torch.float32),
+        (1, 16, 2, 8, torch.float32),
+        (16, 1, 64, 64, torch.bfloat16),  # rwkv6-7b's decode step
+        (1, 128, 64, 64, torch.bfloat16),  # rwkv6-7b's prefill
+        (4, 2048, 64, 64, torch.bfloat16),
+        (1, 4096, 64, 64, torch.bfloat16),
+        (3, 45, 5, 32, torch.float32),  # T not a multiple of the staged chunk
+    ],
+)
+def test_wkv6_kernel_matches_plain(card, b, t, h, hd, dtype):
+    w_range = (0.4, 0.99) if dtype == torch.float32 else None
+    args = _wkv_inputs(b, t, h, hd, dtype, card, seed=t, w_range=w_range)
+    s0 = args[5].clone()
+    before = _build.LAUNCHES["wkv6"]
+    got = wkv_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv6"] == before + 1
+    assert torch.equal(args[5], s0)  # s0 is read, not written
+    assert got[0].shape == args[0].shape and got[1].shape == s0.shape
+    y, s = wkv_ref.wkv6_scan_ref(*args)
+    # the JAX sweep's bound for fp32
+    assert_wkv6_close(got, (y.to(dtype), s), atol=5e-4 if dtype == torch.float32 else None)
+
+
+def test_wkv6_kernel_state_handoff_equals_one_shot(card):
+    """Two halves with the state handed over == one shot, at the JAX
+    hand-off test's bound."""
+    r, k, v, w, u, _ = _wkv_inputs(1, 32, 2, 16, torch.float32, card, seed=5, w_range=(0.5, 0.99))
+    s0 = torch.zeros(1, 2, 16, 16, device=card)
+    y_full, s_full = wkv_ops.wkv6(r, k, v, w, u, s0)
+    y1, s_mid = wkv_ops.wkv6(*(x[:, :16].contiguous() for x in (r, k, v, w)), u, s0)
+    y2, s_end = wkv_ops.wkv6(*(x[:, 16:].contiguous() for x in (r, k, v, w)), u, s_mid)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=0, atol=1e-4)
+    torch.testing.assert_close(s_end, s_full, rtol=0, atol=1e-4)
+
+
+def test_wkv6_refuses_what_the_kernel_does_not_take(card):
+    r, k, v, w, u, s0 = _wkv_inputs(2, 8, 2, 16, torch.float32, card)
+    with pytest.raises(ValueError, match="B, T, H, head_dim"):
+        wkv_ops.wkv6(r[0], k, v, w, u, s0)
+    with pytest.raises(ValueError, match="one shape"):
+        wkv_ops.wkv6(r, k[:, :4], v, w, u, s0)
+    with pytest.raises(ValueError, match="state shape"):
+        wkv_ops.wkv6(r, k, v, w, u, s0[:1])
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        wkv_ops.wkv6(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        wkv_ops.wkv6(r, k.bfloat16(), v, w, u, s0)
+    with pytest.raises(ValueError, match="must be float32"):
+        wkv_ops.wkv6(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="must be float32"):
+        wkv_ops.wkv6(r, k, v, w, u, s0.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_ops.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="one device"):
+        wkv_ops.wkv6(r, k, v, w, u.cpu(), s0)
+    r2, k2, v2, w2, u2, s2 = _wkv_inputs(1, 4, 2, 24, torch.float32, card)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv_ops.wkv6(r2, k2, v2, w2, u2, s2)
+
+
+def test_backward_through_wkv6_raises(card):
+    r, k, v, w, u, s0 = _wkv_inputs(1, 4, 2, 8, torch.float32, card)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        wkv_ops.wkv6(r, k, v, w, u.requires_grad_(True), s0)
+
+
+def test_rwkv_prefill_and_decode_with_flash_launch_k7_once_per_layer(card):
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as T
+
+    cfg, params = tserve.build_model("rwkv6-7b", 0, device=card)  # reduced, fp32
+    b, p = 3, 37
+    toks = torch.randint(0, cfg.vocab_size, (b, p), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(torch.int32).to(card)
+    pos = torch.arange(p, dtype=torch.int32, device=card)[None].expand(b, p)
+    logits = {}
+    for use_flash in (False, True):
+        caches = T.init_caches(cfg, b, p + 2, per_slot=True, device=card)
+        before = _build.LAUNCHES["wkv6"]
+        _, caches, _ = T.forward(cfg, params, toks, pos, caches, use_flash=use_flash)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["wkv6"] - before == (cfg.num_layers if use_flash else 0)
+        before = _build.LAUNCHES["wkv6"]
+        logits[use_flash], _ = T.decode_step(cfg, params, toks[:, -1:], caches, use_flash=use_flash)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["wkv6"] - before == (cfg.num_layers if use_flash else 0)
+    # the fp32 recurrence summed in another order, carried through the layers
+    scale = float(logits[False].abs().max())
+    torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4 * scale)

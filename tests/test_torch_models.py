@@ -369,6 +369,6 @@ def test_unported_blocks_and_training_path_raise():
     _, tcfg = _cfgs("smollm-360m", block_pattern=("attn+moe",))
     with pytest.raises(NotImplementedError, match="moe"):
         tT.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    _, tcfg = _cfgs("smollm-360m", block_pattern=("rwkv+cmix",))
-    with pytest.raises(NotImplementedError, match="rwkv"):
+    _, tcfg = _cfgs("smollm-360m", block_pattern=("rglru+mlp",))
+    with pytest.raises(NotImplementedError, match="rglru"):
         tT.init_caches(tcfg, 1, 4, device="cpu")

@@ -1,0 +1,366 @@
+"""The port's RWKV-6 family (``repro_torch.models.rwkv6``, K7's plain
+version and wrapper, the ``rwkv+cmix`` transformer and its config) against
+the JAX package on the CPU, with JAX-initialised weights carried across by
+``params_from_jax``.  JAX's Pallas WKV6 kernel runs in interpret mode, as
+the JAX package's own tests run it; the port's K7 wrapper runs its plain
+version for CPU tensors (the CUDA kernel itself is held against that plain
+version in ``tests/test_torch_cuda.py``).
+
+Tolerances: everything here is fp32.  The plain WKV6 is held to JAX's at
+``atol = 1e-5`` and ``rtol = 1e-5``: the same fp32 recurrence with its sums
+over hd taken in another order, on outputs up to |y| ~ 30, where one fp32
+step is 1.9e-6 and the two orders part by up to 1.5e-5 (1e-6 relative);
+the model functions at ``rtol = 1e-5`` and ``atol = 1e-5 * max|want|``
+(XLA's and PyTorch's CPU GEMMs sum the same products in another
+order)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as jget_arch  # noqa: E402
+from repro.kernels.rwkv6_scan.rwkv6_scan import wkv6_kernel  # noqa: E402
+from repro.models import rwkv6 as jrwkv  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as twkv  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as twkv_ref  # noqa: E402
+from repro_torch.models import rwkv6 as trwkv  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
+
+ARCH = "rwkv6-7b"
+WKV_TOL = dict(rtol=2e-6, atol=1e-5)
+# the JAX test's four shapes (tests/test_kernels.py::test_rwkv6_scan_sweep)
+JAX_SHAPES = [(2, 64, 2, 16, 32), (1, 100, 3, 32, 64), (2, 33, 1, 64, 16), (1, 16, 2, 8, 16)]
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _t(tree):
+    """numpy tree -> torch tree (CPU)."""
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _cfgs(**overrides):
+    kw = dict(param_dtype="float32", dtype="float32", remat=False, **overrides)
+    return jget_arch(ARCH).model.reduced(**kw), get_arch(ARCH).model.reduced(**kw)
+
+
+def _close(got, want, err_msg=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()), err_msg=err_msg)
+
+
+def _wkv_inputs(b, t, h, hd, seed, w_lo=0.4):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, t, h, hd)).astype(np.float32) for _ in range(3))
+    w = rng.uniform(w_lo, 0.99, size=(b, t, h, hd)).astype(np.float32)
+    u = rng.normal(size=(h, hd)).astype(np.float32)
+    s0 = rng.normal(size=(b, h, hd, hd)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+# --------------------------------------------------------- plain WKV6
+
+
+@pytest.mark.parametrize("b,t,h,hd,bt", JAX_SHAPES)
+def test_plain_wkv6_matches_pallas_and_jax_ref(b, t, h, hd, bt):
+    args = _wkv_inputs(b, t, h, hd, seed=100 + t)
+    jargs = [jnp.asarray(a) for a in args]
+    py, ps = wkv6_kernel(*jargs, block_t=bt, interpret=True)
+    jy, js = jrwkv.wkv6_scan_ref(*jargs)
+    targs = [torch.from_numpy(a) for a in args]
+    s0_before = targs[5].clone()
+    ty, ts = twkv_ref.wkv6_scan_ref(*targs)
+    assert ty.shape == (b, t, h, hd) and ts.shape == (b, h, hd, hd)
+    assert ty.dtype == ts.dtype == torch.float32
+    assert torch.equal(targs[5], s0_before)  # the plain scan does not write s0
+    for want_y, want_s in ((py, ps), (jy, js)):
+        np.testing.assert_allclose(ty.numpy(), np.asarray(want_y), **WKV_TOL)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(want_s), **WKV_TOL)
+    # the wrapper takes the plain version for CPU tensors
+    wy, ws = twkv.wkv6(*targs)
+    assert torch.equal(wy, ty) and torch.equal(ws, ts)
+
+
+def test_plain_wkv6_state_handoff_equals_one_shot_and_jax():
+    """Two halves with the state handed over == one shot (the decode path),
+    as ``tests/test_kernels.py::test_rwkv6_state_handoff_equals_one_shot``."""
+    r, k, v, w, u, _ = _wkv_inputs(1, 32, 2, 16, seed=7, w_lo=0.5)
+    s0 = np.zeros((1, 2, 16, 16), np.float32)
+    jargs = [jnp.asarray(a) for a in (r, k, v, w, u, s0)]
+    j_full, js_full = wkv6_kernel(*jargs, block_t=16, interpret=True)
+    t = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    y_full, s_full = twkv.wkv6(*t)
+    y1, s_mid = twkv.wkv6(*(x[:, :16] for x in t[:4]), t[4], t[5])
+    y2, s_end = twkv.wkv6(*(x[:, 16:] for x in t[:4]), t[4], s_mid)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y_full.numpy(), **WKV_TOL)
+    np.testing.assert_allclose(s_end.numpy(), s_full.numpy(), **WKV_TOL)
+    np.testing.assert_allclose(y_full.numpy(), np.asarray(j_full), **WKV_TOL)
+    np.testing.assert_allclose(s_full.numpy(), np.asarray(js_full), **WKV_TOL)
+
+
+def test_wkv6_wrapper_dtypes_and_refusals():
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _wkv_inputs(2, 5, 2, 8, seed=3))
+    y, s = twkv.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), w, u, s0)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32  # y in r's dtype
+    with pytest.raises(ValueError, match="B, T, H, head_dim"):
+        twkv.wkv6(r[0], k, v, w, u, s0)
+    with pytest.raises(ValueError, match="one shape"):
+        twkv.wkv6(r, k[:, :4], v, w, u, s0)
+    with pytest.raises(ValueError, match="state shape"):
+        twkv.wkv6(r, k, v, w, u, s0[:1])
+    with pytest.raises(ValueError, match="bonus shape"):
+        twkv.wkv6(r, k, v, w, u[:1], s0)
+    with pytest.raises(ValueError, match="non-empty"):
+        twkv.wkv6(*(x[:, :0] for x in (r, k, v, w)), u, s0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        twkv.wkv6(r.requires_grad_(True), k, v, w, u, s0)
+    with torch.no_grad():
+        twkv.wkv6(r, k, v, w, u, s0)  # no gradient pass, no refusal
+
+
+# ----------------------------------------------------- model functions
+
+
+def _x(b, t, d, seed):
+    return np.random.default_rng(seed).normal(size=(b, t, d)).astype(np.float32)
+
+
+def _state_pair(jcfg, b, seed):
+    """JAX's and the port's RWKV state holding the same random values."""
+    rng = np.random.default_rng(seed)
+    js = jrwkv.init_rwkv_state(jcfg, b)
+    vals = {name: rng.normal(size=np.asarray(x).shape).astype(np.float32) * 0.5
+            for name, x in js.items() if name != "pos"}
+    vals["pos"] = np.asarray(3, np.int32)
+    return {n: jnp.asarray(a) for n, a in vals.items()}, {n: torch.from_numpy(a.copy()) for n, a in vals.items()}
+
+
+def test_group_norm_matches_jax():
+    x = _x(2, 5, 256, 0) * 3.0 + 1.0
+    scale = 1.0 + 0.1 * np.random.default_rng(1).normal(size=256).astype(np.float32)
+    want = jrwkv._group_norm(jnp.asarray(x), jnp.asarray(scale), 4)
+    got = trwkv._group_norm(torch.from_numpy(x), torch.from_numpy(scale), 4)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_apply_rwkv_tmix_matches_jax(with_state, use_kernel):
+    """With a state the port writes ``tm_x`` and ``wkv`` in place and returns
+    a dict sharing them; ``use_kernel`` takes Pallas in interpret mode on the
+    JAX side and K7's plain version on the port's."""
+    jcfg, tcfg = _cfgs()
+    jp = jrwkv.init_rwkv_tmix(jax.random.key(1), jcfg)
+    tp = _t(_np(jp))
+    b, t = 2, 7
+    x = _x(b, t, jcfg.d_model, 2)
+    js, ts = _state_pair(jcfg, b, 3) if with_state else (None, None)
+    jy, jns = jrwkv.apply_rwkv_tmix(jcfg, jp, jnp.asarray(x), js, use_kernel=use_kernel)
+    with torch.no_grad():
+        ty, tns = trwkv.apply_rwkv_tmix(tcfg, tp, torch.from_numpy(x), ts, use_kernel=use_kernel)
+    _close(ty.numpy(), jy)
+    if not with_state:
+        assert tns is None and jns is None
+        return
+    assert set(tns) == set(jns) == {"tm_x", "wkv", "cm_x", "pos"}
+    for name in ("tm_x", "wkv", "cm_x"):
+        _close(tns[name].numpy(), jns[name], err_msg=name)
+        assert tns[name] is ts[name]  # written in place
+    assert int(tns["pos"]) == int(jns["pos"]) == 3 + t
+    assert int(ts["pos"]) == 3  # the position is a new tensor
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_apply_rwkv_cmix_matches_jax(with_state):
+    jcfg, tcfg = _cfgs()
+    jp = jrwkv.init_rwkv_cmix(jax.random.key(4), jcfg)
+    tp = _t(_np(jp))
+    b, t = 3, 5
+    x = _x(b, t, jcfg.d_model, 5)
+    js, ts = _state_pair(jcfg, b, 6) if with_state else (None, None)
+    jy, jns = jrwkv.apply_rwkv_cmix(jcfg, jp, jnp.asarray(x), js)
+    ty, tns = trwkv.apply_rwkv_cmix(tcfg, tp, torch.from_numpy(x), ts)
+    _close(ty.numpy(), jy)
+    if with_state:
+        for name in ("tm_x", "wkv", "cm_x"):
+            _close(tns[name].numpy(), jns[name], err_msg=name)
+        assert tns["cm_x"] is ts["cm_x"]
+    else:
+        assert tns is None and jns is None
+
+
+# ------------------------------------------------------- the transformer
+
+
+def _models(**overrides):
+    jcfg, tcfg = _cfgs(**overrides)
+    jp = jT.init_params(jax.random.key(13), jcfg)
+    return jcfg, tcfg, jp, tT.params_from_jax(_np(jp), tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_forward_and_decode_step_match_jax(per_slot):
+    """Prefill then four decode steps on the reduced rwkv6-7b (2 layers,
+    d_model 256, 4 heads of 64), with K7's plain version and without: the
+    logits of every step and the final states of every layer."""
+    jcfg, tcfg, jp, tp = _models()
+    assert tT.param_count(tp) == jT.param_count(jp)
+    assert "lm_head" in tp and len(tp["blocks"]) == 2
+    b, p = 2, 6
+    toks = np.random.default_rng(14).integers(0, tcfg.vocab_size, size=(b, p)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(p, dtype=np.int32), (b, p)).copy()
+
+    jh, _, _ = jT.forward(jcfg, jp, jnp.asarray(toks), jnp.asarray(pos))
+    th, tc, aux = tT.forward(tcfg, tp, torch.from_numpy(toks), torch.from_numpy(pos))
+    assert tc is None and float(aux) == 0.0
+    _close(th.numpy(), jh)
+
+    for use_flash in (False, True):
+        jc = jT.init_caches(jcfg, b, p + 4, per_slot=per_slot)
+        tc = tT.init_caches(tcfg, b, p + 4, per_slot=per_slot, device="cpu")
+        jh, jc, _ = jT.forward(jcfg, jp, jnp.asarray(toks), jnp.asarray(pos), jc)
+        with torch.no_grad():
+            th, tc, _ = tT.forward(tcfg, tp, torch.from_numpy(toks), torch.from_numpy(pos), tc,
+                                   use_flash=use_flash)
+        _close(th.numpy(), jh)
+        nxt = np.asarray(jnp.argmax(jT.logits_from_hidden(jcfg, jp, jh[:, -1:])[:, 0], -1))
+        nxt = nxt.astype(np.int32)[:, None]
+        for step in range(4):
+            jl, jc = jT.decode_step(jcfg, jp, jnp.asarray(nxt), jc)
+            with torch.no_grad():
+                tl, tc = tT.decode_step(tcfg, tp, torch.from_numpy(nxt), tc, use_flash=use_flash)
+            assert tl.shape == (b, 1, tT.vocab_padded(tcfg))
+            _close(tl.numpy(), jl, err_msg=f"flash={use_flash} step {step}")
+            nxt = np.asarray(jnp.argmax(jl[:, 0], -1)).astype(np.int32)[:, None]
+        for tu, ju in zip(tc["unit"], jc["unit"]):
+            assert set(tu) == set(ju) == {"tm_x", "wkv", "cm_x", "pos"}
+            np.testing.assert_array_equal(tu["pos"].numpy(), np.asarray(ju["pos"]))
+            for name in ("tm_x", "wkv", "cm_x"):
+                _close(tu[name].numpy(), ju[name], err_msg=name)
+        assert int(tT._cache_pos(tc).max()) == p + 4
+
+
+def test_forward_returns_every_cache_key_sharing_the_tensors():
+    """The caches ``forward`` returns carry every key a layer's cache has
+    (an RWKV layer's tm_x, wkv and cm_x, not only k/v), as the same tensors
+    written in place, with advanced positions; a remainder layer too."""
+    jcfg, tcfg, jp, tp = _models(num_layers=3, block_pattern=("rwkv+cmix", "rwkv+cmix"))
+    caches = tT.init_caches(tcfg, 2, 8, device="cpu")
+    assert len(caches["rem"]) == 1
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512, size=(2, 4)).astype(np.int32))
+    pos = torch.arange(4, dtype=torch.int32)[None].expand(2, 4)
+    _, new, _ = tT.forward(tcfg, tp, toks, pos, caches)
+    for old_u, new_u in zip(caches["unit"], new["unit"]):
+        assert set(new_u) == set(old_u) == {"tm_x", "wkv", "cm_x", "pos"}
+        for name in ("tm_x", "wkv", "cm_x"):
+            assert new_u[name] is old_u[name] and bool(new_u[name].abs().sum() > 0)
+        assert new_u["pos"].tolist() == [4]  # one repeat of the two-layer unit
+    assert set(new["rem"][0]) == {"tm_x", "wkv", "cm_x", "pos"} and int(new["rem"][0]["pos"]) == 4
+    # a second forward continues from the returned caches, as JAX's does
+    jc = jT.init_caches(jcfg, 2, 8)
+    _, jc, _ = jT.forward(jcfg, jp, jnp.asarray(toks.numpy()), jnp.asarray(pos.numpy()), jc)
+    jl, _ = jT.decode_step(jcfg, jp, jnp.asarray(toks.numpy()[:, :1]), jc)
+    tl, _ = tT.decode_step(tcfg, tp, toks[:, :1], new)
+    _close(tl.numpy(), jl)
+
+
+def test_rwkv_state_is_constant_size():
+    """The decode state is O(1) in the sequence length, as
+    ``tests/test_models.py::test_rwkv_state_is_constant_size`` states."""
+    _, tcfg = _cfgs()
+    sizes = {n: sum(x.numel() for c in tT.init_caches(tcfg, 1, n, device="cpu")["unit"] for x in c.values())
+             for n in (8, 1 << 19)}
+    assert sizes[8] == sizes[1 << 19] < 1e6
+
+
+# --------------------------------------------------------------- weights
+
+
+def test_params_from_jax_keeps_each_leaf_dtype():
+    """Under a bf16 param_dtype JAX keeps ``w0`` and ``u`` fp32; the port's
+    converted tree keeps them so (a cast of every leaf to the param dtype
+    would round the decay base and the bonus to bf16)."""
+    kw = dict(param_dtype="bfloat16", dtype="bfloat16", remat=False)
+    jcfg = jget_arch(ARCH).model.reduced(**kw)
+    tcfg = get_arch(ARCH).model.reduced(**kw)
+    jp = jT.init_params(jax.random.key(3), jcfg)
+    tp = tT.params_from_jax(_np(jp), tcfg, device="cpu")
+    mixer = tp["blocks"][1]["mixer"]
+    assert mixer["w0"].dtype == mixer["u"].dtype == torch.float32
+    assert mixer["wr"]["w"].dtype == mixer["mu_k"].dtype == tp["embed"]["w"].dtype == torch.bfloat16
+    jm = jax.tree_util.tree_map(lambda a: np.asarray(a[1], np.float32), jp["unit"][0]["mixer"])
+    np.testing.assert_array_equal(mixer["w0"].numpy(), jm["w0"])  # not rounded
+    np.testing.assert_array_equal(mixer["u"].numpy(), jm["u"])
+    np.testing.assert_array_equal(mixer["wr"]["w"].float().numpy(), jm["wr"]["w"])
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def test_init_params_follows_jax_laws():
+    kw = dict(param_dtype="bfloat16", dtype="bfloat16", remat=False)
+    jcfg = jget_arch(ARCH).model.reduced(d_model=512, **kw)
+    tcfg = get_arch(ARCH).model.reduced(d_model=512, **kw)
+    tp = tT.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    jp = jT.init_params(jax.random.key(0), jcfg)
+    assert tT.param_count(tp) == jT.param_count(jp)
+    # the same leaves, shapes and dtypes as JAX's layer 0
+    jblock = jax.tree_util.tree_map(lambda a: a[0], jp["unit"][0])
+    want = {n: (tuple(np.shape(a)), str(a.dtype)) for n, a in _leaves(_np(jblock))}
+    got = {n: (tuple(x.shape), str(x.dtype).replace("torch.", "")) for n, x in _leaves(tp["blocks"][0])}
+    assert got == want
+    m, c = tp["blocks"][0]["mixer"], tp["blocks"][0]["ffn"]
+    d = tcfg.d_model
+    for mu in [m[f"mu_{n}"] for n in "xwkvrg"] + [c["mu_k"], c["mu_r"]]:
+        assert 0.0 <= float(mu.min()) and float(mu.max()) <= 1.0 and abs(float(mu.float().mean()) - 0.5) < 0.05
+    assert m["w0"].dtype == torch.float32 and -6.0 <= float(m["w0"].min()) and float(m["w0"].max()) <= -5.0
+    assert abs(float(m["w0"].mean()) + 5.5) < 0.05
+    # sample stds of 16k draws (LoRA), 512 (u), 262k (dense) within a few percent
+    for name in ("a_w", "b_w"):
+        assert abs(float(m[name].float().std()) / 0.01 - 1.0) < 0.03
+    assert m["u"].dtype == torch.float32 and abs(float(m["u"].std()) / 0.1 - 1.0) < 0.1
+    assert abs(float(m["wr"]["w"].float().std()) * d**0.5 - 1.0) < 0.02
+    assert abs(float(c["wv"]["w"].float().std()) * tcfg.d_ff**0.5 - 1.0) < 0.02
+    assert torch.equal(m["ln_scale"], torch.ones(d, dtype=torch.bfloat16))
+
+
+def test_rwkv_config_is_the_jax_config():
+    jm, tm = jget_arch(ARCH).model, get_arch(ARCH).model
+    for full_j, full_t in ((jm, tm), (jm.reduced(), tm.reduced())):
+        want = dataclasses.asdict(full_j)
+        for name, value in dataclasses.asdict(full_t).items():
+            assert value == want[name], name
+        assert full_t.layer_types() == full_j.layer_types() == ("rwkv+cmix",) * full_t.num_layers
+    assert get_arch(ARCH).fl.lr == jget_arch(ARCH).fl.lr == 2e-3
+    red = tm.reduced()
+    assert (red.num_layers, red.d_model, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim) == (2, 256, 4, 64)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_lm_loss_matches_jax(use_flash):
+    """The no-cache forward (the training path's) through the RWKV blocks;
+    ``use_flash`` sends the time mix through K7's plain version."""
+    jcfg, tcfg, jp, tp = _models(loss_chunk=5)
+    toks = np.random.default_rng(15).integers(0, tcfg.vocab_size, size=(2, 12)).astype(np.int32)
+    want = jT.lm_loss(jcfg, jp, jnp.asarray(toks))
+    with torch.no_grad():
+        got = tT.lm_loss(tcfg, tp, torch.from_numpy(toks), use_flash=use_flash)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)

@@ -131,7 +131,7 @@ def test_gumbel_rows_are_per_slot_streams():
 # ------------------------------------------------------------ the engine
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "gemma-7b", "internlm2-20b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma-7b", "internlm2-20b", "rwkv6-7b"])
 def test_scan_decode_bit_identical_to_legacy(arch):
     _, _, tcfg, tp = _models(arch)
     prompts = torch.from_numpy(_prompts(tcfg, 3, 6))
@@ -365,6 +365,37 @@ def test_serve_engine_matches_jax():
             assert _margins(jl[first]) <= MARGIN_REL * float(np.abs(jl).max()), (i, first)
 
 
+def test_rwkv_serve_engine_matches_jax():
+    """The RWKV-6 family through both engines, continuous greedy batching
+    with mixed budgets: per-slot recurrent states admitted row by row, and
+    inactive slots' states advancing on token 0 until admission overwrites
+    them.  The port runs the time mix through K7's plain version
+    (``use_flash``), JAX through its plain scan."""
+    jcfg, jp, tcfg, tp = _models("rwkv6-7b")
+    b, p, g, n = 3, 6, 7, 7
+    prompts = _prompts(tcfg, n, p, seed=8)
+    budgets = [g, 1, 3, g, 2, 5, 4]
+    jeng = JServeEngine(jcfg, JServeConfig(batch=b, cache_len=p + g, max_new=g, decode_chunk=3), jp, prompt_len=p)
+    teng = ServeEngine(tcfg, ServeConfig(batch=b, cache_len=p + g, max_new=g, decode_chunk=3, use_flash=True),
+                       tp, prompt_len=p)
+    for i in range(n):
+        jeng.submit(prompts[i], budgets[i])
+        teng.submit(prompts[i], budgets[i])
+    jfin = {f.seq_id: np.asarray(f.tokens) for f in jeng.run()}
+    tfin = {f.seq_id: f.tokens for f in teng.run()}
+    assert sorted(tfin) == sorted(jfin) == list(range(n))
+    assert teng.compile_counts() == {"decode_chunk": 1, "admit": 1}
+    wkv = teng.state.caches["unit"][0]["wkv"]
+    assert wkv.shape == (tcfg.num_layers, b, 4, 64, 64) and wkv.dtype == torch.float32
+    for i in range(n):
+        assert len(tfin[i]) == len(jfin[i]) == budgets[i]
+        np.testing.assert_array_equal(tfin[i], _solo(tcfg, tp, prompts[i], budgets[i]))
+        if not np.array_equal(tfin[i], jfin[i]):
+            jl = _jax_teacher_logits(jcfg, jp, prompts[i : i + 1], jfin[i][None], False)[0]
+            first = int(np.nonzero(tfin[i] != jfin[i])[0][0])
+            assert _margins(jl[first]) <= MARGIN_REL * float(np.abs(jl).max()), (i, first)
+
+
 # ------------------------------------------------------------ the driver
 
 
@@ -374,6 +405,19 @@ def test_cli_scan_check_and_continuous_on_the_cpu(capsys):
     assert "parity OK" in capsys.readouterr().out
     fin = tserve.main(["--arch", "gemma-7b", "--batch", "2", "--prompt-len", "4", "--gen", "8", "--continuous",
                        "--requests", "5", "--mixed", "--temperature", "0.7", "--flash", "--device", "cpu"])
+    assert sorted(f.seq_id for f in fin) == list(range(5))
+    assert all(2 <= len(f.tokens) <= 8 for f in fin)
+    assert "{'decode_chunk': 1, 'admit': 1}" in capsys.readouterr().out
+
+
+def test_cli_rwkv_scan_check_and_continuous_on_the_cpu(capsys):
+    toks = tserve.main(["--arch", "rwkv6-7b", "--batch", "2", "--prompt-len", "5", "--gen", "6", "--scan",
+                        "--check", "--device", "cpu"])
+    assert toks.shape == (2, 6)
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-7b (reduced, float32)" in out and "parity OK" in out
+    fin = tserve.main(["--arch", "rwkv6-7b", "--batch", "2", "--prompt-len", "4", "--gen", "8", "--continuous",
+                       "--requests", "5", "--mixed", "--flash", "--device", "cpu"])
     assert sorted(f.seq_id for f in fin) == list(range(5))
     assert all(2 <= len(f.tokens) <= 8 for f in fin)
     assert "{'decode_chunk': 1, 'admit': 1}" in capsys.readouterr().out
