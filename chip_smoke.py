@@ -16,12 +16,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    attention) at the LM path's refresh shape, three long bf16 shapes and
    the JAX test's five fp32 shapes, windows included, and K7 (the WKV6
    recurrence) at rwkv6-7b's decode and prefill shapes, two long shapes,
-   the JAX test's four fp32 shapes and its state hand-off.
+   the JAX test's four fp32 shapes and its state hand-off.  K3 (squared
+   distances) and K4 (XᵀX) the same way, at the JAX sweeps' shapes in both
+   types, the stage-wise path's shapes and three larger ones; K3 is also
+   held against an fp64 chain, no further from it than its plain version.
 3. The FL main path: five rounds of FL-DP³S at the paper's scale (C=100
    clients, 10 per round, 600 samples each, CNN (16, 32) with Q=128) through
    ``FLTrainer`` on ``cuda`` with the paper's config as it stands; checks
    that K1 and K2 ran on that path, that each cohort is 10 distinct clients and
-   that losses, accuracy and GEMD are finite and in range.
+   that losses, accuracy and GEMD are finite and in range.  Then the
+   stage-wise eq.-14 path, ``gram(similarity_matrix(P, use_kernel=True))``
+   (K3, then K4), on that run's FC-1 profiles (100 x 128) and on the Fig.-3
+   gradient (100 x 4096) and representative-gradient (100 x 1280) profiles,
+   each L held against the K1 + K2 kernel of the same profiles and against
+   an fp64 chain; and the paper's comparison of selection strategies:
+   fedavg, fl-dp3s, fedsae, power-of-choice and cluster, five rounds each
+   at the same scale, with every cohort checked (power-of-choice: the top
+   losses of its candidates; cluster: one client per fitted cluster).
 4. The serving main path: smollm-360m at full width (32 layers, bf16,
    random weights from seed 0) with ``use_flash=True``, in scan mode
    (batch 16, prompt 128, 64 tokens) and through ``ServeEngine`` (16 slots,
@@ -130,6 +141,21 @@ WKV_SHAPES = [
     (2, 33, 1, 64, "fp32"),
     (1, 16, 2, 8, "fp32"),
 ]
+# K3: (C, Q, dtype name); the FC-1 path's shape first, then the JAX sweep's
+# shapes (tests/test_kernels.py::test_pairwise_l2_sweep) in both types, and
+# two shapes whose bounds are above 0.05 ms.  K4: (M, N, dtype name); the
+# stage-wise path's S (C x C) first, the JAX test's shapes
+# (tests/test_gram_kernels.py), and one shape with a bound above 0.05 ms
+K3_SHAPES = [(100, 128, "fp32")] + [
+    (c, q, kind) for c, q in ((4, 3), (10, 7), (100, 128), (130, 257), (64, 512))
+    for kind in ("fp32", "bf16") if (c, q, kind) != (100, 128, "fp32")
+] + [(4096, 128, "fp32"), (4096, 512, "fp32")]
+K4_SHAPES = [
+    (100, 100, "fp32"), (5, 4, "fp32"), (64, 64, "fp32"), (130, 70, "fp32"), (33, 257, "fp32"),
+    (96, 40, "bf16"), (4096, 1024, "fp32"),
+]
+# the paper's baseline comparison: every strategy on the phase-3 data
+BASELINES = ("fedavg", "fl-dp3s", "fedsae", "power-of-choice", "cluster")
 # the LM client path (smollm-360m at full width)
 LM_ROUNDS, LM_CLIENTS, LM_PER_ROUND, LM_SEQ, LM_DOCS = 3, 10, 4, 512, 16
 PRETRAIN_STEPS = 6
@@ -475,6 +501,237 @@ def serve_phase(torch, dev, arch: str) -> int:
     _print_profile(torch, f"{arch} decode step at full width", decode, kernel, n=3,
                    wall_ms=t["t_decode"] / (g - 1) * 1e3)
     return scan_launches[kernel] + cont_launches[kernel]
+
+
+def check_k3(torch, f, what: str):
+    """K3 on ``f`` against its plain version with the JAX sweep's bounds,
+    its sign and diagonal, and an fp64 chain, from which it may be no
+    further than the plain version; returns (err, tol, e64, p64)."""
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops
+    from repro_torch.kernels.pairwise_l2 import ref as pw_ref
+
+    got = pw_ops.pairwise_sq_dists(f)
+    torch.cuda.synchronize()
+    want = pw_ref.pairwise_sq_dists_ref(f)
+    fd = f.double()
+    sq = torch.sum(fd * fd, dim=-1)
+    exact = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (fd @ fd.T), 0.0)
+    exact.fill_diagonal_(0.0)
+    err = float((got - want).abs().max())
+    # the JAX sweep's bounds: 1e-3 (fp32) or 5e-2 (bf16) of max(1, max)
+    tol = (5e-2 if f.dtype == torch.bfloat16 else 1e-3) * max(1.0, float(want.max()))
+    check(err <= tol, f"K3 off on {what}: {err} > {tol}")
+    check(bool((got >= 0).all()) and bool((torch.diagonal(got) == 0).all()), f"K3 sign/diagonal on {what}")
+    e64, p64 = float((got.double() - exact).abs().max()), float((want.double() - exact).abs().max())
+    check(e64 <= p64, f"K3 {e64} further from fp64 than the plain version {p64} on {what}")
+    return err, tol, e64, p64
+
+
+def k3_k4_rows(torch, dev) -> dict:
+    """K3 and K4 against their plain versions at ``K3_SHAPES`` and
+    ``K4_SHAPES``, with the JAX tests' tolerances, K3 also against an fp64
+    chain; returns each kernel's rows (errors, times, bounds) by shape."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops
+    from repro_torch.kernels.pairwise_l2 import ref as pw_ref
+
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    rows = {"pairwise_sq_dists": {}, "gram": {}}
+    for c, q, kind in K3_SHAPES:
+        g = torch.Generator().manual_seed(c * 7919 + q)
+        f = torch.randn(c, q, generator=g).to(dtypes[kind]).to(dev)
+        err, tol, e64, p64 = check_k3(torch, f, f"{c}x{q} {kind}")
+        ms = time_ms(torch, lambda: pw_ops.pairwise_sq_dists(f))
+        plain = time_ms(torch, lambda: pw_ref.pairwise_sq_dists_ref(f))
+        # torch.cdist's bf16 support varies by version: timed on fp32 only
+        lib = time_ms(torch, lambda: torch.cdist(f, f).square()) if kind == "fp32" else None
+        # least work as K1's: one triangle of dot products plus the c norms
+        b = bound(c * q * f.element_size() + c * c * 4, 1.0 * c * (c - 1) * q + 2.0 * c * q, "fp32")
+        rows["pairwise_sq_dists"][(c, q, kind)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+        )
+        print(
+            f"K3 C={c} Q={q} {kind}: err={err:.3e} (tol {tol:.3e}) vs fp64 {e64:.3e} "
+            f"(plain {p64:.3e}) ms={ms:.5f} plain={plain:.5f} "
+            f"cdist^2={'n/a' if lib is None else f'{lib:.5f}'} bound={b[0]:.6f} ({b[1]})"
+        )
+    for m, n, kind in K4_SHAPES:
+        g = torch.Generator().manual_seed(m * 7919 + n)
+        x = torch.randn(m, n, generator=g).to(dtypes[kind]).to(dev)
+        got = gram_ops.gram(x)
+        torch.cuda.synchronize()
+        want = gram_ref.gram_ref(x)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if kind == "bf16":
+            atol, rtol = 2e-2 * scale, 2e-2  # the JAX test's bf16 bound
+        elif m <= 130:
+            atol, rtol = 1e-5, 1e-5  # the JAX test's fp32 bound
+        else:
+            # sums of 4096 terms in another order: the error grows with the
+            # sum, so the absolute part scales with max|G| (about m)
+            atol, rtol = 1e-5 * scale, 1e-5
+        check(bool(torch.all((got - want).abs() <= atol + rtol * want.abs())), f"K4 off at {m}x{n} {kind}: {err}")
+        ms = time_ms(torch, lambda: gram_ops.gram(x))
+        plain = time_ms(torch, lambda: gram_ref.gram_ref(x))
+        # x.T @ x of bf16 gives bf16, another function: timed on fp32 only
+        lib = time_ms(torch, lambda: x.T @ x) if kind == "fp32" else None
+        # least work: one triangle of the symmetric product (a SYRK)
+        b = bound(m * n * x.element_size() + n * n * 4, 1.0 * n * (n + 1) * m, kind)
+        rows["gram"][(m, n, kind)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+        )
+        print(
+            f"K4 M={m} N={n} {kind}: err={err:.3e} (max|G|={scale:.4g}) ms={ms:.5f} plain={plain:.5f} "
+            f"x.T@x={'n/a' if lib is None else f'{lib:.5f}'} bound={b[0]:.6f} ({b[1]})"
+        )
+    return rows
+
+
+def stage_wise_phase(torch, dev, trainer, exp, params) -> dict:
+    """The stage-wise eq.-14 route, ``gram(similarity_matrix(P,
+    use_kernel=True))`` (K3, the plain sqrt and min-max, then K4), on the
+    trainer's FC-1 profiles and on the Fig.-3 gradient and representative
+    profiles of ``params``; each L held against the K1 + K2 kernel of the
+    same profiles and against an fp64 chain.  Returns the launches of the
+    route, counted from 0."""
+    from repro_torch.core import profiles, similarity
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.models import cnn
+
+    c = exp.num_clients
+    t0 = time.perf_counter()
+    xs, ys = trainer.client_xs, trainer.client_ys
+    grad = torch.stack([
+        profiles.gradient_profile(cnn.cnn_loss, params, xs[i], ys[i], layout=cnn.params_to_jax)
+        for i in range(c)
+    ])
+    rep = torch.stack([
+        profiles.representative_gradient_profile(cnn.cnn_loss, params, xs[i], ys[i], layout=cnn.params_to_jax)
+        for i in range(c)
+    ])
+    torch.cuda.synchronize()
+    print(f"Fig.-3 profiles of {c} clients: gradient {tuple(grad.shape)}, representative "
+          f"{tuple(rep.shape)} in {time.perf_counter() - t0:.2f} s")
+    check(tuple(grad.shape) == (c, 4096) and tuple(rep.shape) == (c, 10 * exp.fc1_dim), "Fig.-3 profile shapes")
+    check(bool(torch.isfinite(grad).all()) and bool(torch.isfinite(rep).all()), "non-finite gradient profiles")
+
+    cases = [("FC-1", trainer.round_state.profiles, trainer.round_state.kernel),
+             ("gradient", grad, None), ("representative", rep, None)]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    for name, prof, fused in cases:
+        stage = gram_ops.gram(similarity.similarity_matrix(prof, use_kernel=True))
+        if fused is None:
+            fused = similarity.kernel_from_profiles(prof, use_kernel=True)
+        torch.cuda.synchronize()
+        plain = similarity.kernel_from_profiles(prof)
+        exact = similarity.kernel_from_profiles(prof.double())
+        lmax = float(fused.abs().max())
+        d = float((stage - fused).abs().max())
+        e_stage = float((stage.double() - exact).abs().max())
+        e_fused = float((fused.double() - exact).abs().max())
+        e_plain = float((plain.double() - exact).abs().max())
+        print(
+            f"stage-wise L on {name} profiles {tuple(prof.shape)}: |K3+K4 - K1+K2| {d:.3e} "
+            f"(max|L| {lmax:.4g}); vs fp64 chain: K3+K4 {e_stage:.3e}, K1+K2 {e_fused:.3e}, plain {e_plain:.3e}"
+        )
+        check(tuple(stage.shape) == (c, c) and bool(torch.isfinite(stage).all()), f"stage-wise L on {name}")
+        check(d <= 1e-4 * lmax, f"stage-wise L off the K1 + K2 kernel on {name}: {d} > 1e-4 * {lmax}")
+        check(e_stage <= e_plain, f"stage-wise L {e_stage} further from fp64 than the plain chain {e_plain} on {name}")
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the stage-wise path: {launches}")
+    check(launches["pairwise_sq_dists"] == 3 and launches["gram"] == 3, f"K3/K4 launches {launches}")
+    # K3 itself at the path's shapes (min-max normalisation would hide a
+    # uniformly scaled D2 in L); these launches are not the path's
+    for name, prof, _ in cases:
+        err, tol, e64, p64 = check_k3(torch, prof, f"{name} profiles {tuple(prof.shape)}")
+        print(f"K3 on {name} profiles {tuple(prof.shape)}: err={err:.3e} (tol {tol:.3e}) "
+              f"vs fp64 {e64:.3e} (plain {p64:.3e})")
+    return launches
+
+
+def baselines_phase(torch, exp, client_xs, client_ys) -> None:
+    """The paper's comparison of selection strategies: ``FLTrainer.run`` at
+    the paper's scale for each of ``BASELINES``, ``ROUNDS`` rounds, on the
+    card; checks every cohort (and what each baseline promises of it) and
+    that every number is finite."""
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core import selection
+    from repro_torch.fl.trainer import FLTrainer
+    from repro_torch.models import cnn
+
+    cp = exp.clients_per_round
+    c = exp.num_clients
+
+    def recording(cls):
+        class Recording(cls):
+            """The strategy, keeping each draw's state, noise and cohort."""
+
+            def noise(self, generator, state, k):
+                self.last_noise = super().noise(generator, state, k)
+                return self.last_noise
+
+            def draw_fn(self, generator, state, k):
+                # the strategy's own draw_fn; noise() above sees its noise
+                self.last_noise = None
+                sel = super().draw_fn(generator, state, k)
+                self.draws.append((state, self.last_noise, sel))
+                return sel
+
+        return Recording
+
+    gemds = {}
+    for name in BASELINES:
+        strategy = recording(type(selection.make_strategy(name)))()
+        strategy.draws = []
+        params = cnn.init_cnn(
+            torch.Generator(device="cuda").manual_seed(0),
+            channels=exp.cnn_channels, fc1_dim=exp.fc1_dim,
+        )
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = FLTrainer(
+            paper_cnn.fl_config(exp, seed=0), params, cnn.cnn_loss, cnn.apply_with_features,
+            client_xs, client_ys, strategy, accuracy_fn=cnn.accuracy,
+        )
+        torch.cuda.synchronize()
+        print(f"[{name}] init on {trainer.device}: {time.perf_counter() - t0:.3f} s")
+        check(trainer.device.type == "cuda", f"{name}: the trainer did not run on the card")
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            hist = trainer.run(rounds=1)
+            torch.cuda.synchronize()
+            print(
+                f"[{name}] round {hist['round'][-1]}: {time.perf_counter() - t0:.3f} s "
+                f"cohort={strategy.draws[-1][2].tolist()} loss={hist['loss'][-1]:.4f} "
+                f"acc={hist['acc'][-1]:.4f} gemd={hist['gemd'][-1]:.4f}"
+            )
+        check(len(strategy.draws) == ROUNDS and hist["round"] == list(range(1, ROUNDS + 1)), f"{name} rounds")
+        for state, noise, sel in strategy.draws:
+            cohort = sel.tolist()
+            check(len(set(cohort)) == cp and all(0 <= i < c for i in cohort), f"{name}: bad cohort {cohort}")
+            if name == "power-of-choice":
+                # the top k losses of its candidates
+                cand = noise.tolist()
+                rest = [i for i in cand if i not in cohort]
+                losses = state.losses
+                check(set(cohort) <= set(cand), f"power-of-choice picked outside its candidates {cand}")
+                check(float(losses[sel.long()].min()) >= float(losses[rest].max()), "power-of-choice: not the top k")
+            if name == "cluster":
+                labels = state.cluster_labels
+                check(len(set(labels.tolist())) == cp, f"cluster labels {sorted(set(labels.tolist()))}")
+                # one client per cluster (every cluster is non-empty)
+                check(labels[sel.long()].tolist() == list(range(cp)), f"cluster cohort {cohort}")
+        check(all(math.isfinite(v) for v in hist["loss"] + hist["gemd"]), f"{name}: {hist}")
+        check(all(0.0 <= v <= 1.0 for v in hist["acc"]), f"{name}: accuracies {hist['acc']}")
+        check(bool(torch.isfinite(trainer.losses).all()), f"{name}: non-finite client losses")
+        if name == "cluster":
+            check(tuple(trainer.round_state.grad_profiles.shape) == (c, 10 * exp.fc1_dim), "cluster fingerprints")
+        gemds[name] = statistics.mean(hist["gemd"])
+    print("mean GEMD over " + f"{ROUNDS} rounds: " + ", ".join(f"{n} {g:.4f}" for n, g in gemds.items()))
 
 
 def _print_profile(torch, what: str, fn, mark: str, n: int = 1, wall_ms=None) -> None:
@@ -824,6 +1081,9 @@ def main() -> int:
             f"pipeline err={errp:.3e} (max|L|={lmax:.4g}) ms={pipe_ms:.5f}"
         )
 
+    # K3 and K4 on their own against their plain versions
+    rows.update(k3_k4_rows(torch, dev))
+
     # K5 on its own against its plain version, with SDPA as the yardstick
     import torch.nn.functional as F
 
@@ -1072,7 +1332,10 @@ def main() -> int:
     check(trainer.device.type == "cuda", "the trainer did not run on the card")
     for name in FL_KERNELS:
         check(init_launches[name] >= 1, f"{name} did not run during _init_profiles")
-    check(launches["flash_decode"] == 0 and launches["wkv6"] == 0, "K5 or K7 ran on the FL path")
+    check(
+        all(launches[n] == 0 for n in ("flash_decode", "wkv6", "pairwise_sq_dists", "gram")),
+        f"K3, K4, K5 or K7 ran on the FL path: {launches}",
+    )
     check(len(strategy.cohorts) == ROUNDS, "not one cohort per round")
     for cohort in strategy.cohorts:
         check(
@@ -1127,6 +1390,15 @@ def main() -> int:
         f"{cp} clients {t_local:.4f} s, accuracy over {xs_all.shape[0]} samples {t_eval:.4f} s"
     )
 
+    # ----------------------------- 3b. the stage-wise eq.-14 path (K3, K4)
+    stage_launches = stage_wise_phase(
+        torch, dev, trainer, exp,
+        cnn.init_cnn(torch.Generator(device=dev).manual_seed(0), channels=exp.cnn_channels, fc1_dim=exp.fc1_dim),
+    )
+
+    # ------------------------------------ 3c. the paper's baseline comparison
+    baselines_phase(torch, exp, client_xs, client_ys)
+
     # ------------------------------------------- 4. the serving main path
     serve_launches = serve_phase(torch, dev, "smollm-360m")
 
@@ -1152,6 +1424,16 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/gram.cu",
             "src/repro/kernels/gram/gram.py:104",
             rows["normalized_gram"][main_shape], launches["normalized_gram"],
+        ),
+        "pairwise_sq_dists": (
+            "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+            "src/repro/kernels/pairwise_l2/pairwise_l2.py:58",
+            rows["pairwise_sq_dists"][K3_SHAPES[0]], stage_launches["pairwise_sq_dists"],
+        ),
+        "gram": (
+            "src/repro_torch/kernels/csrc/gram.cu",
+            "src/repro/kernels/gram/gram.py:51",
+            rows["gram"][K4_SHAPES[0]], stage_launches["gram"],
         ),
         "flash_decode": (
             "src/repro_torch/kernels/csrc/flash_decode.cu",

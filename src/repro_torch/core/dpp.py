@@ -38,6 +38,7 @@ __all__ = [
     "kdpp_sampler_state",
     "log_det_subset",
     "greedy_map_kdpp",
+    "gumbel_noise",
     "sample_kdpp",
     "sample_kdpp_from_eigh",
     "sampler_dtype",
@@ -173,7 +174,9 @@ def _phase2_sample_items(
     return torch.stack(items).to(torch.int32)
 
 
-def _gumbel(shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+def gumbel_noise(shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` from ``generator``: -log(-log u)
+    with u uniform in [tiny, 1)."""
     tiny = torch.finfo(dtype).tiny
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return -torch.log(-torch.log(torch.clamp_min(u, tiny)))
@@ -199,7 +202,7 @@ def _sample_from_state(
     lam = state.lam
     n = state.num_items
     uniforms = torch.rand((n,), generator=generator, dtype=lam.dtype, device=lam.device)
-    gumbels = _gumbel((k, n), generator, lam.dtype, lam.device)
+    gumbels = gumbel_noise((k, n), generator, lam.dtype, lam.device)
     return _sample_from_noise(uniforms, gumbels, state, k)
 
 

@@ -11,9 +11,11 @@ Two execution paths:
 * **Kernels** (``use_kernel=True``): :func:`kernel_from_profiles` and
   :func:`candidate_kernel` run the chain as two CUDA launches, K1 then K2
   (``repro_torch.kernels.gram.ops``), on the profiles' device; the
-  similarity matrix never reaches device memory.  The stage-wise
-  :func:`pairwise_sq_dists` has its own kernel (K3), which is not ported
-  yet.
+  similarity matrix never reaches device memory.  The stage-wise helpers
+  (:func:`pairwise_sq_dists`, and :func:`pairwise_dists` and
+  :func:`similarity_matrix` through it) route just the distance stage
+  through its own kernel, K3 (``repro_torch.kernels.pairwise_l2.ops``);
+  ``kernels.gram.ops.gram`` (K4) then forms ``L = SᵀS`` of their ``S``.
 """
 
 from __future__ import annotations
@@ -32,13 +34,14 @@ __all__ = [
 
 def pairwise_sq_dists(f: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
     """Squared L2 distances between profile rows: (C, Q) -> (C, C), via the
-    expansion ``‖a‖² + ‖b‖² − 2 a·b``, clamped at 0 with a zero diagonal."""
+    expansion ``‖a‖² + ‖b‖² − 2 a·b``, clamped at 0 with a zero diagonal.
+
+    ``use_kernel=True`` runs K3 on ``f``'s device instead (fp32 out; on the
+    card it sums ``(a − b)²`` directly, which does not cancel)."""
     if use_kernel:
-        raise NotImplementedError(
-            "pairwise_sq_dists(use_kernel=True) needs K3 (repro/kernels/"
-            "pairwise_l2/pairwise_l2.py:pairwise_sq_dists_kernel), which is not "
-            "ported yet"
-        )
+        from repro_torch.kernels.pairwise_l2 import ops as _ops
+
+        return _ops.pairwise_sq_dists(f)
     sq = torch.sum(f * f, dim=-1)
     d2 = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (f @ f.T), 0.0)
     # the expansion is exact-zero-free on the diagonal only up to fp error;

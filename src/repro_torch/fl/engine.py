@@ -212,12 +212,12 @@ class ServerState:
     global_label_dist: torch.Tensor  # (num_classes,)
 
     def selection_state(self) -> selection_lib.SelectionState:
-        """The per-round draw's input: kernel, losses, sizes and the cache."""
-        return selection_lib.SelectionState(
-            kernel=self.kernel,
-            losses=self.losses,
-            client_sizes=self.client_sizes,
-            eig_state=self.eig_state,
+        """The per-round draw's input: kernel, losses, sizes and the cache
+        (and the neutral cluster labels: the engine runs no Cluster
+        baseline)."""
+        return selection_lib.selection_state(
+            self.losses.shape[0], self.eig_state.k, kernel=self.kernel,
+            losses=self.losses, client_sizes=self.client_sizes, eig_state=self.eig_state,
         )
 
 
@@ -245,7 +245,14 @@ def init_server_state(
     losses from the caller, builds the eq.-(14) kernel (through K1 + K2
     with ``cfg.use_pallas_kernel``) and, for a strategy that draws from it,
     the k-DPP spectral cache (the one O(C³) eigh), and seeds the server's
-    generator from ``cfg.seed``."""
+    generator from ``cfg.seed``.  The Cluster baseline is refused: its
+    labels, fitted here in the JAX engine, are not ported to the engine
+    (``FLTrainer`` runs it)."""
+    if isinstance(strategy, selection_lib.ClusterSelection):
+        raise NotImplementedError(
+            "the engine's cluster labels (ServerState.cluster_labels) are not "
+            "ported yet; FLTrainer runs the Cluster baseline"
+        )
     device = resolve_device(device)
     client_xs = torch.as_tensor(client_xs, device=device)
     client_ys = torch.as_tensor(client_ys, device=device)

@@ -12,6 +12,7 @@ engine is ``fl/engine.py``'s ``make_round_fn``.  Randomness comes from one
 
 Works for any model exposing ``loss_fn(params, x, y)`` and
 ``feature_fn(params, x) -> (logits, feats)``; the paper's CNN is the default.
+The Cluster baseline fingerprints clients by representative gradients.
 """
 
 from __future__ import annotations
@@ -119,6 +120,26 @@ class FLTrainer:
         # the spectral cache decomposes exactly this kernel — invalidate
         self._eig_state = None
         self._eig_kernel = None
+        # representative-gradient fingerprints for the Cluster baseline, in
+        # the parameter dict's own order and layouts (for the paper CNN,
+        # FC-2's weight as (out, in): JAX's (in, out) transposed, the same
+        # permutation for every client, which cosine clustering ignores)
+        if isinstance(self.strategy, selection_lib.ClusterSelection):
+            gp = [
+                profiles_lib.representative_gradient_profile(
+                    self.loss_fn, self.params, self.client_xs[c], self.client_ys[c]
+                )
+                for c in range(self.cfg.num_clients)
+            ]
+            self.round_state.grad_profiles = torch.stack(gp)
+
+    def _cluster_labels(self) -> torch.Tensor:
+        """Host-fitted cluster labels of the Cluster baseline (the fit is
+        cached on the fingerprints' content, so only a reprofile
+        re-clusters); zeros for every other strategy."""
+        if isinstance(self.strategy, selection_lib.ClusterSelection):
+            return self.strategy.labels_for(self.round_state, self.cfg.clients_per_round)
+        return torch.zeros((self.cfg.num_clients,), dtype=torch.int32, device=self.device)
 
     def _make_client_batches(self, sel: torch.Tensor):
         """Slice the selected clients' data into (C_p, steps, B, ...) batches."""
@@ -148,12 +169,12 @@ class FLTrainer:
 
     def selection_state(self) -> selection_lib.SelectionState:
         """The server's current knowledge as a draw's input, with the
-        memoised spectral cache."""
+        memoised spectral cache and the cluster labels."""
         rs = self.round_state
         return selection_lib.selection_state(
             self.cfg.num_clients, self.cfg.clients_per_round, kernel=rs.kernel,
             losses=rs.losses, client_sizes=rs.client_sizes,
-            eig_state=self.eig_state(),
+            cluster_labels=self._cluster_labels(), eig_state=self.eig_state(),
         )
 
     # ------------------------------------------------------------------

@@ -47,10 +47,12 @@ _SIGNATURES = {
     "pairwise_l2": {
         "pairwise_l2_tiles": (_I, [_I]),
         "pairwise_l2_dists_stats": (_I, [_P, _I, _I, _I, _P, _P, _P, _P]),
+        "pairwise_l2_sq_dists": (_I, [_P, _I, _I, _I, _P, _P]),
         "pairwise_l2_error_string": (ctypes.c_char_p, [_I]),
     },
     "gram": {
         "gram_normalized": (_I, [_P, _I, _I, _P, _P, _I, _P, _P]),
+        "gram_plain": (_I, [_P, _I, _I, _I, _I, _P, _P]),
         "gram_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_decode": {
@@ -68,8 +70,8 @@ _SIGNATURES = {
 }
 
 LAUNCHES: Dict[str, int] = {
-    "pairwise_dists_stats": 0, "normalized_gram": 0, "flash_decode": 0, "flash_attention": 0,
-    "wkv6": 0,
+    "pairwise_dists_stats": 0, "normalized_gram": 0, "pairwise_sq_dists": 0, "gram": 0,
+    "flash_decode": 0, "flash_attention": 0, "wkv6": 0,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,29 +1,39 @@
-// K2: the eq.-(14) normalise step fused into the Gram product L = S^T S.
+// K4: the Gram product X^T X, and K2: the eq.-(14) normalise step fused
+// into the Gram product L = S^T S.  One tiled loop, two loads.
 //
-// Replaces the TPU kernel
-//   src/repro/kernels/gram/gram.py:normalized_gram_kernel
-//   (body _norm_gram_body).
+// Replaces the TPU kernels
+//   K4  src/repro/kernels/gram/gram.py:gram_kernel (body _gram_body)
+//   K2  src/repro/kernels/gram/gram.py:normalized_gram_kernel
+//       (body _norm_gram_body)
 //
-// Takes the distance matrix S0 from K1 (row stride ld >= c; only its
+// K4 takes X (m, n), fp32 or bf16, row stride ld >= n, and writes
+// G[i, j] = sum_r X[r, i] X[r, j] as an (n, n) fp32 matrix.  bf16 values
+// are upcast as they are loaded: the product of two bf16 values is exact
+// in fp32 and the sum is fp32, as the TPU kernel's matrix unit gives with
+// preferred_element_type=float32.
+//
+// K2 takes the distance matrix S0 from K1 (row stride ld >= c; only its
 // leading c x c block is read) and the scalars lo and rng = max(hi - lo,
 // 1e-30), both read from device memory so that no host round trip sits
 // between the two launches.  Every S0 element is normalised as it is
-// loaded, S = 1 - (S0 - lo) / rng, rows r >= c are zero, and
-// L[i, j] = sum_r S[r, i] S[r, j] is written as a (c, c) fp32 matrix.  With
-// round_bf16 set (bf16 profiles) S is rounded to bf16 before the product,
-// as the TPU kernel feeds bf16 to its matrix unit; the product of two bf16
-// values is exact in fp32 and the sum is kept in fp32.
+// loaded, S = 1 - (S0 - lo) / rng, and L = S^T S is written as a (c, c)
+// fp32 matrix: K2 is K4 with a normalising load.  With round_bf16 set
+// (bf16 profiles) S is rounded to bf16 before the product, as the TPU
+// kernel feeds bf16 to its matrix unit; the sum is kept in fp32.
 //
-// Bound on an H100 at the main-path shape (c=100): 2 MFLOP and 80 KB of
-// traffic, far below a microsecond of either; what bounds the call is
+// Bound on an H100: at the main-path shape (c=100) K2 is 2 MFLOP and 80 KB
+// of traffic, far below a microsecond of either; what bounds the call is
 // launch latency.  The simple design keeps S out of device memory, so the
-// whole normalise-and-Gram chain is this one launch.
+// whole normalise-and-Gram chain is this one launch.  At (m, n) in the
+// thousands K4 is bound by its n^2 m fp32 FMAs on the CUDA cores (the
+// output is symmetric; this design computes both triangles).
 //
-// Design: each 256-thread block owns one 64x64 tile of L and walks the
-// rows r < c in slices of 16, staging S[r, i-tile] and S[r, j-tile] in
-// shared memory (both reads are contiguous along a row of S0), with a 4x4
-// fp32 register micro-tile per thread.  wgmma and TMA are left for a later
-// change.
+// Design: each 256-thread block owns one 64x64 output tile and walks the
+// rows r < m in slices of 16, staging X[r, i-tile] and X[r, j-tile] in
+// shared memory (both reads are contiguous along a row of X), with a 4x4
+// fp32 register micro-tile per thread.  Rows past m and columns past n are
+// masked to 0 in the load, so the ragged edge adds nothing and nothing is
+// padded in device memory.  wgmma and TMA are left for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,19 +46,44 @@ constexpr int kThreads = 16;
 constexpr int kMicro = kTile / kThreads;
 constexpr int kBlock = kThreads * kThreads;
 
-template <bool kRoundBf16>
-__device__ __forceinline__ float similarity(float s0, float lo, float rng) {
-  const float s = 1.f - (s0 - lo) / rng;
-  if (kRoundBf16) return __bfloat162float(__float2bfloat16(s));
-  return s;
-}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// K4's load: X[r, col] upcast to fp32.
+template <typename T>
+struct PlainLoad {
+  const T* x;
+  int ld;
+  __device__ void init() {}
+  __device__ float operator()(int r, int col) const {
+    return to_f32(x[(size_t)r * ld + col]);
+  }
+};
+
+// K2's load: the eq.-(14) similarity of S0[r, col], rounded to bf16 when
+// kRoundBf16; init() reads lo and rng once per thread.
 template <bool kRoundBf16>
+struct NormalizedLoad {
+  const float* s0;
+  int ld;
+  const float* lo_ptr;
+  const float* rng_ptr;
+  float lo;
+  float rng;
+  __device__ void init() {
+    lo = *lo_ptr;
+    rng = *rng_ptr;
+  }
+  __device__ float operator()(int r, int col) const {
+    const float s = 1.f - (s0[(size_t)r * ld + col] - lo) / rng;
+    if (kRoundBf16) return __bfloat162float(__float2bfloat16(s));
+    return s;
+  }
+};
+
+template <typename Load>
 __global__ void __launch_bounds__(kBlock)
-normalized_gram_kernel(const float* __restrict__ s0, int ld, int c,
-                       const float* __restrict__ lo_ptr,
-                       const float* __restrict__ rng_ptr,
-                       float* __restrict__ out) {
+gram_kernel(Load load, int m, int n, float* __restrict__ out) {
   __shared__ float as[kSlice][kTile];
   __shared__ float bs[kSlice][kTile];
 
@@ -57,16 +92,15 @@ normalized_gram_kernel(const float* __restrict__ s0, int ld, int c,
   const int tid = ty * kThreads + tx;
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
-  const float lo = *lo_ptr;
-  const float rng = *rng_ptr;
+  load.init();
 
   float acc[kMicro][kMicro];
 #pragma unroll
-  for (int m = 0; m < kMicro; ++m)
+  for (int a = 0; a < kMicro; ++a)
 #pragma unroll
-    for (int n = 0; n < kMicro; ++n) acc[m][n] = 0.f;
+    for (int b = 0; b < kMicro; ++b) acc[a][b] = 0.f;
 
-  for (int r0 = 0; r0 < c; r0 += kSlice) {
+  for (int r0 = 0; r0 < m; r0 += kSlice) {
 #pragma unroll
     for (int l = 0; l < kTile * kSlice / kBlock; ++l) {
       const int e = tid + l * kBlock;
@@ -75,13 +109,10 @@ normalized_gram_kernel(const float* __restrict__ s0, int ld, int c,
       const int r = r0 + rr;
       const int gi = i0 + x;
       const int gj = j0 + x;
-      // rows r >= c are zero, so the ragged edge adds nothing to L
-      as[rr][x] = (r < c && gi < c)
-                      ? similarity<kRoundBf16>(s0[(size_t)r * ld + gi], lo, rng)
-                      : 0.f;
-      bs[rr][x] = (r < c && gj < c)
-                      ? similarity<kRoundBf16>(s0[(size_t)r * ld + gj], lo, rng)
-                      : 0.f;
+      // rows r >= m and columns >= n are zero, so the ragged edge adds
+      // nothing to the product
+      as[rr][x] = (r < m && gi < n) ? load(r, gi) : 0.f;
+      bs[rr][x] = (r < m && gj < n) ? load(r, gj) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -89,46 +120,61 @@ normalized_gram_kernel(const float* __restrict__ s0, int ld, int c,
       float a[kMicro];
       float b[kMicro];
 #pragma unroll
-      for (int m = 0; m < kMicro; ++m) a[m] = as[rr][ty + m * kThreads];
+      for (int t = 0; t < kMicro; ++t) a[t] = as[rr][ty + t * kThreads];
 #pragma unroll
-      for (int n = 0; n < kMicro; ++n) b[n] = bs[rr][tx + n * kThreads];
+      for (int t = 0; t < kMicro; ++t) b[t] = bs[rr][tx + t * kThreads];
 #pragma unroll
-      for (int m = 0; m < kMicro; ++m)
+      for (int u = 0; u < kMicro; ++u)
 #pragma unroll
-        for (int n = 0; n < kMicro; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
+        for (int v = 0; v < kMicro; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int m = 0; m < kMicro; ++m) {
-    const int i = i0 + ty + m * kThreads;
+  for (int u = 0; u < kMicro; ++u) {
+    const int i = i0 + ty + u * kThreads;
 #pragma unroll
-    for (int n = 0; n < kMicro; ++n) {
-      const int j = j0 + tx + n * kThreads;
-      if (i < c && j < c) out[(size_t)i * c + j] = acc[m][n];
+    for (int v = 0; v < kMicro; ++v) {
+      const int j = j0 + tx + v * kThreads;
+      if (i < n && j < n) out[(size_t)i * n + j] = acc[u][v];
     }
   }
+}
+
+template <typename Load>
+int launch(const Load& load, int m, int n, float* out, void* stream) {
+  const int g = (n + kTile - 1) / kTile;
+  const dim3 grid(g, g);
+  const dim3 block(kThreads, kThreads);
+  gram_kernel<Load><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(load, m, n, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
+// Launches K4 on `stream`: x is (m, n) fp32 (is_bf16 = 0) or bf16
+// (is_bf16 = 1) with row stride ld, out is (n, n) fp32.  Returns the
+// cudaError_t of the launch.
+int gram_plain(const void* x, int is_bf16, int m, int n, int ld, float* out,
+               void* stream) {
+  if (is_bf16) {
+    return launch(PlainLoad<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), ld},
+                  m, n, out, stream);
+  }
+  return launch(PlainLoad<float>{static_cast<const float*>(x), ld}, m, n, out, stream);
+}
+
 // Launches K2 on `stream`.  Returns the cudaError_t of the launch.
 int gram_normalized(const float* s0, int ld, int c, const float* lo,
                     const float* rng, int round_bf16, float* out,
                     void* stream) {
-  const int g = (c + kTile - 1) / kTile;
-  const dim3 grid(g, g);
-  const dim3 block(kThreads, kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (round_bf16) {
-    normalized_gram_kernel<true><<<grid, block, 0, s>>>(s0, ld, c, lo, rng, out);
-  } else {
-    normalized_gram_kernel<false><<<grid, block, 0, s>>>(s0, ld, c, lo, rng, out);
+    return launch(NormalizedLoad<true>{s0, ld, lo, rng, 0.f, 0.f}, c, c, out, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(NormalizedLoad<false>{s0, ld, lo, rng, 0.f, 0.f}, c, c, out, stream);
 }
 
 const char* gram_error_string(int err) {

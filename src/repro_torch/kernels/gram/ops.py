@@ -1,9 +1,11 @@
-"""K2 wrapper and the two-launch profiles -> DPP-kernel pipeline.
+"""K4 and K2 wrappers and the two-launch profiles -> DPP-kernel pipeline.
 
 ``repro_torch.core.similarity`` routes through :func:`kernel_from_profiles`
 when ``use_kernel=True``.  On a CUDA device the pipeline is two kernel
 launches (K1, then K2) with a few tiny reductions between them on the
-device; on the CPU each wrapper runs its plain version.
+device; on the CPU each wrapper runs its plain version.  :func:`gram` (K4)
+is the plain Gram product ``XᵀX``, the last launch of the stage-wise route
+``gram(similarity_matrix(f, use_kernel=True))``.
 """
 
 from __future__ import annotations
@@ -14,10 +16,43 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels.gram.ref import normalized_gram_ref
+from repro_torch.kernels.gram.ref import gram_ref, normalized_gram_ref
 from repro_torch.kernels.pairwise_l2.ops import pairwise_dists_stats
 
-__all__ = ["normalized_gram", "kernel_from_profiles", "candidate_kernel_from_profiles"]
+__all__ = ["gram", "normalized_gram", "kernel_from_profiles", "candidate_kernel_from_profiles"]
+
+
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """X (M, N) fp32 or bf16 -> ``XᵀX`` (N, N) fp32 on X's device (K4).
+
+    bf16 values are upcast as they are loaded (their products are exact in
+    fp32) and every sum is fp32.  On a card, X may have a row stride (a
+    column slice of a wider matrix) but its elements must be contiguous
+    along a row.
+    """
+    if x.ndim != 2:
+        raise ValueError(f"gram expects a 2-D matrix, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gram takes float32 or bfloat16, got {x.dtype}")
+    m, n = x.shape
+    if m < 1 or n < 1:
+        raise ValueError(f"gram expects a non-empty matrix, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return gram_ref(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.stride(1) != 1 or x.stride(0) < n:
+        raise ValueError(f"x must be contiguous along its rows, got strides {x.stride()}")
+    lib = _build.library("gram")
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.gram_plain(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), m, n, x.stride(0),
+            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check("gram", err, "gram")
+    _build.LAUNCHES["gram"] += 1
+    return out
 
 
 def _scalar(x: torch.Tensor, name: str, device: torch.device) -> torch.Tensor:

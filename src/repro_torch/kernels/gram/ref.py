@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of K2 and of the two-launch pipeline."""
+"""Plain PyTorch versions of K4, K2 and the two-launch pipeline."""
 
 from __future__ import annotations
 
@@ -6,7 +6,13 @@ import torch
 
 from repro_torch.kernels.pairwise_l2.ref import pairwise_dists_stats_ref
 
-__all__ = ["normalized_gram_ref", "kernel_from_profiles_ref"]
+__all__ = ["gram_ref", "normalized_gram_ref", "kernel_from_profiles_ref"]
+
+
+def gram_ref(x: torch.Tensor) -> torch.Tensor:
+    """X (M, N) -> ``XᵀX`` (N, N), upcast to fp32 and multiplied in fp32."""
+    x = x.float()
+    return x.T @ x
 
 
 def normalized_gram_ref(

@@ -1,1 +1,2 @@
-"""K1: pairwise L2 distances with the eq.-(14) sqrt epilogue and min/max stats."""
+"""K1: pairwise L2 distances with the eq.-(14) sqrt epilogue and min/max
+stats; K3: clamped squared L2 distances (the stage-wise route)."""

@@ -31,6 +31,7 @@ __all__ = [
     "cnn_loss",
     "init_cnn",
     "params_from_jax",
+    "params_to_jax",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -133,6 +134,22 @@ def params_from_jax(np_params: Mapping, device=None) -> Params:
         out[f"{name}.bias"] = torch.tensor(
             np.asarray(np_params[name]["b"], np.float32), device=device
         )
+    return out
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Params]:
+    """The inverse of :func:`params_from_jax` on tensors: this module's
+    parameters (or their gradients) -> the JAX CNN's nested dict, with conv
+    kernels HWIO and linear weights (in, out), as views.  Flattened with
+    its keys sorted, it gives the leaves in ``jax.tree_util``'s order, which
+    the Fig.-3 gradient profiles (``core.profiles``) concatenate."""
+    out = {}
+    for name in ("conv1", "conv2", "fc1", "fc2"):
+        w = params[f"{name}.weight"]
+        out[name] = {
+            "w": w.permute(2, 3, 1, 0) if w.ndim == 4 else w.T,
+            "b": params[f"{name}.bias"],
+        }
     return out
 
 

@@ -63,9 +63,22 @@ def test_candidate_kernel_matches_jax(use_kernel):
     assert not np.allclose(got.numpy(), full[np.ix_(cand, cand)])
 
 
-def test_stage_wise_kernel_route_names_k3():
-    with pytest.raises(NotImplementedError, match="K3"):
-        tsim.pairwise_sq_dists(torch.zeros(3, 2), use_kernel=True)
+def test_stage_wise_kernel_route_names_k3(monkeypatch):
+    """``use_kernel=True`` on the stage-wise helpers routes the distance
+    stage through K3's wrapper (its plain version on the CPU) and matches
+    JAX's stage-wise Pallas route (interpret mode)."""
+    from repro_torch.kernels.pairwise_l2 import ops as tpw
+
+    calls = []
+    k3 = tpw.pairwise_sq_dists
+    monkeypatch.setattr(tpw, "pairwise_sq_dists", lambda f: calls.append(1) or k3(f))
+    f = _profiles(23, 9, seed=3)
+    for i, name in enumerate(("pairwise_sq_dists", "pairwise_dists", "similarity_matrix")):
+        want = np.asarray(getattr(jsim, name)(jnp.asarray(f), use_kernel=True))
+        got = getattr(tsim, name)(torch.from_numpy(f), use_kernel=True)
+        assert got.dtype == torch.float32 and len(calls) == i + 1
+        # the JAX sweep's fp32 bound, 1e-3 of max(1, max), on every stage
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-3 * max(1.0, np.abs(want).max()))
 
 
 # -------------------------------------------------------------- metrics
@@ -222,17 +235,29 @@ def test_sample_kdpp_rejects_mismatched_k():
 
 
 def test_make_strategy_names():
+    """Every name of the JAX registry builds the same strategy class, and
+    each draws k distinct clients through ``select``."""
+    from repro.core import selection as jsel
+
+    assert tsel.STRATEGY_NAMES == jsel.STRATEGY_NAMES
     assert isinstance(tsel.make_strategy("fedavg"), tsel.UniformSelection)
     assert tsel.make_strategy("fl-dp3s-map").mode == "map"
-    for name in ("cluster", "fedsae", "power-of-choice"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tsel.make_strategy(name)
+    assert tsel.make_strategy("power-of-choice", d=5).d == 5
     with pytest.raises(ValueError):
         tsel.make_strategy("nope")
-    sel = tsel.make_strategy("fedavg").select(
-        torch.Generator().manual_seed(0), tsel.RoundState(num_clients=9, losses=torch.ones(9)), 4
+    c, k = 9, 4
+    rng = np.random.default_rng(10)
+    state = tsel.RoundState(
+        num_clients=c, losses=torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32)),
+        kernel=torch.from_numpy(_kernel(c)), profiles=torch.from_numpy(_profiles(c, 5)),
+        client_sizes=torch.full((c,), 20.0),
     )
-    assert sel.dtype == torch.int32 and len(set(sel.tolist())) == 4
+    for name in jsel.STRATEGY_NAMES:
+        strat = tsel.make_strategy(name)
+        assert type(strat).__name__ == type(jsel.make_strategy(name)).__name__
+        sel = strat.select(torch.Generator().manual_seed(0), state, k)
+        assert sel.dtype == torch.int32 and sel.shape == (k,), name
+        assert len(set(sel.tolist())) == k and all(0 <= i < c for i in sel.tolist()), name
 
 
 # ------------------------------------------------ optimizers and eq. (6)

@@ -82,6 +82,94 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         gram_ops.normalized_gram(s0, torch.zeros(()), torch.ones((), device=card), 8)
 
 
+# ------------------------------------------------------------- K3 and K4
+
+from repro_torch.core import similarity as sim  # noqa: E402
+
+
+@pytest.mark.parametrize(
+    "c,q,dtype",
+    [(100, 128, torch.float32), (130, 257, torch.float32), (64, 512, torch.bfloat16),
+     (4, 3, torch.float32), (1000, 700, torch.bfloat16)],
+)
+def test_pairwise_sq_dists_kernel_matches_plain(card, c, q, dtype):
+    f = _profiles(c, q, dtype, card, seed=3)
+    before = _build.LAUNCHES["pairwise_sq_dists"]
+    got = pw_ops.pairwise_sq_dists(f)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pairwise_sq_dists"] == before + 1
+    assert got.shape == (c, c) and got.dtype == torch.float32
+    want = pw_ref.pairwise_sq_dists_ref(f)
+    # the JAX sweep's fp32 bound (both sides upcast bf16 exactly, so bf16
+    # inputs take it too); the direct sum and the expansion differ by ulps
+    tol = 1e-3 * max(1.0, float(want.max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert bool((got >= 0).all()) and bool((torch.diagonal(got) == 0).all())
+    # K1's distances: the square roots of the same sums, taken in fp32
+    s0, _, _ = pw_ops.pairwise_dists_stats(f)
+    torch.testing.assert_close(torch.sqrt(got), s0, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize(
+    "m,n,dtype",
+    [(5, 4, torch.float32), (64, 64, torch.float32), (130, 70, torch.float32),
+     (33, 257, torch.float32), (96, 40, torch.bfloat16), (1000, 300, torch.bfloat16)],
+)
+def test_gram_kernel_matches_plain(card, m, n, dtype):
+    x = _profiles(m, n, dtype, card, seed=4)
+    before = dict(_build.LAUNCHES)
+    got = gram_ops.gram(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gram"] == before["gram"] + 1
+    assert _build.LAUNCHES["normalized_gram"] == before["normalized_gram"]
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    want = gram_ref.gram_ref(x)
+    # the same exact products (bf16 x bf16 is exact in fp32), fp32 sums over
+    # m terms in another order: the JAX test's fp32 bound
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
+def test_gram_takes_a_row_stride(card):
+    wide = _profiles(70, 90, torch.float32, card, seed=5)
+    x = wide[:, 10:60]
+    assert not x.is_contiguous()
+    torch.testing.assert_close(gram_ops.gram(x), gram_ref.gram_ref(x), rtol=1e-5, atol=1e-4)
+
+
+def test_k3_and_k4_refuse_what_the_kernels_do_not_take(card):
+    f = _profiles(8, 6, torch.float32, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        pw_ops.pairwise_sq_dists(f.T)
+    with pytest.raises(ValueError):
+        pw_ops.pairwise_sq_dists(f[None])
+    with pytest.raises(TypeError):
+        pw_ops.pairwise_sq_dists(f.half())
+    with pytest.raises(ValueError, match="rows"):
+        gram_ops.gram(f.T)
+    with pytest.raises(ValueError):
+        gram_ops.gram(f[None])
+    with pytest.raises(TypeError):
+        gram_ops.gram(f.double())
+
+
+def test_stage_wise_route_launches_k3_then_k4(card):
+    """``similarity_matrix(use_kernel=True)`` launches K3 exactly once and
+    ``gram`` K4 exactly once, never K2; the stage-wise L agrees with the
+    K1 + K2 pipeline's."""
+    f = _profiles(100, 128, torch.float32, card, seed=6)
+    _build.reset_launches()
+    s = sim.similarity_matrix(f, use_kernel=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pairwise_sq_dists"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1
+    lk = gram_ops.gram(s)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gram"] == 1 and _build.LAUNCHES["normalized_gram"] == 0
+    assert sum(_build.LAUNCHES.values()) == 2
+    fused = gram_ops.kernel_from_profiles(f)
+    torch.testing.assert_close(lk, fused, rtol=0, atol=1e-4 * float(fused.abs().max()))
+
+
 # ------------------------------------------------------------------- K5
 
 from repro_torch.kernels.flash_attention import ops as fd_ops  # noqa: E402

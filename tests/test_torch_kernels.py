@@ -1,6 +1,6 @@
-"""The port's K1/K2 pipeline (``repro_torch.kernels``) against the JAX
-package's Pallas kernels, run in interpret mode on the CPU as the JAX tests
-run them.  On the CPU the port's wrappers run their plain versions; the
+"""The port's kernels' wrappers (``repro_torch.kernels``: the K1/K2
+pipeline, K3 and K4) against the JAX package's Pallas kernels, run in
+interpret mode on the CPU as the JAX tests run them.  On the CPU the port's wrappers run their plain versions; the
 CUDA kernels themselves are held against those plain versions by
 ``tests/test_torch_cuda.py`` on a card."""
 
@@ -10,14 +10,21 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
+from repro.core import similarity as jsim  # noqa: E402
 from repro.kernels.gram import ops as jgram  # noqa: E402
+from repro.kernels.pairwise_l2 import ops as jpw  # noqa: E402
 from repro.kernels.pairwise_l2.pairwise_l2 import pairwise_dists_stats_kernel  # noqa: E402
 
+from repro_torch.core import similarity as tsim  # noqa: E402
 from repro_torch.kernels.gram import ops as tgram  # noqa: E402
 from repro_torch.kernels.gram import ref as tgram_ref  # noqa: E402
 from repro_torch.kernels.pairwise_l2 import ops as tpw  # noqa: E402
 
 SHAPES = [(4, 3), (10, 7), (100, 128), (130, 257), (257, 33)]
+# the JAX tests' sweeps: tests/test_kernels.py::test_pairwise_l2_sweep (K3)
+# and tests/test_gram_kernels.py::test_gram_matches_ref (K4)
+K3_SHAPES = [(4, 3), (10, 7), (100, 128), (130, 257), (64, 512)]
+K4_SHAPES = [(5, 4), (64, 64), (130, 70), (33, 257)]
 
 
 def _profiles(c, q, seed=0):
@@ -83,6 +90,106 @@ def test_pipeline_matches_plain_chain():
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,q", K3_SHAPES)
+def test_pairwise_sq_dists_matches_pallas(c, q, dtype):
+    """K3's wrapper, and the stage-wise entry point that reaches it, against
+    the JAX package's K3 (Pallas, interpret mode), at the JAX sweep's
+    shapes and tolerances."""
+    f = np.random.default_rng(c * 1000 + q).normal(size=(c, q)).astype(np.float32)
+    jf = jnp.asarray(f).astype(dtype)
+    tf = torch.from_numpy(f).to(getattr(torch, dtype))
+    want = np.asarray(jpw.pairwise_sq_dists(jf))
+    scale = max(1.0, want.max())
+    tol = (5e-2 if dtype == "bfloat16" else 1e-3) * scale
+    for got in (tpw.pairwise_sq_dists(tf), tsim.pairwise_sq_dists(tf, use_kernel=True)):
+        assert got.shape == (c, c) and got.dtype == torch.float32
+        got = got.numpy()
+        np.testing.assert_allclose(got, want, atol=tol)
+        assert (got >= 0).all()
+        np.testing.assert_array_equal(np.diag(got), 0.0)
+    if dtype == "float32":
+        # the later stages on K3's distances, against JAX's on its K3's
+        for name in ("pairwise_dists", "similarity_matrix"):
+            want = np.asarray(getattr(jsim, name)(jf, use_kernel=True))
+            got = getattr(tsim, name)(tf, use_kernel=True).numpy()
+            np.testing.assert_allclose(got, want, atol=1e-3 * max(1.0, np.abs(want).max()))
+
+
+def _direct_sum(f: torch.Tensor, acc_dtype: torch.dtype) -> torch.Tensor:
+    """K3's arithmetic emulated on the CPU: sum_k (f_ik - f_jk)^2 in the
+    kernel's sequential k order, accumulated in ``acc_dtype`` and rounded
+    to fp32, diagonal 0.  The difference d is taken in ``acc_dtype``, as
+    the kernel takes it.  An fp32 step is fmaf(d, d, acc) up to a rare
+    double rounding: the product is exact in fp64, the sum is rounded to
+    fp64 and then to fp32."""
+    f = f.float().to(acc_dtype)
+    c, q = f.shape
+    acc = torch.zeros(c, c, dtype=acc_dtype)
+    for k in range(q):
+        d = (f[:, k, None] - f[None, :, k]).double()
+        acc = (d * d + acc.double()).to(acc_dtype)
+    out = acc.float()
+    out.fill_diagonal_(0.0)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,q", K3_SHAPES)
+def test_k3_accumulator_against_fp64(c, q, dtype):
+    """Why K3 accumulates in fp64: on the JAX sweep's random profiles (made
+    as ``chip_smoke.py`` makes them), the fp64 direct sum rounded once is no
+    further from an fp64 chain than the plain fp32 chain, while a
+    sequential fp32 direct sum (K1's accumulator) is further than the plain
+    chain once Q reaches 128.  ``pytest -s`` prints the three errors."""
+    f = torch.randn(c, q, generator=torch.Generator().manual_seed(c * 7919 + q))
+    f = f.to(getattr(torch, dtype))
+    fd = f.double()
+    sq = torch.sum(fd * fd, dim=-1)
+    exact = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (fd @ fd.T), 0.0)
+    exact.fill_diagonal_(0.0)
+    err = {
+        name: float((d2.double() - exact).abs().max())
+        for name, d2 in (
+            ("fp64 direct", _direct_sum(f, torch.float64)),
+            ("fp32 direct", _direct_sum(f, torch.float32)),
+            ("plain", tpw.pairwise_sq_dists(f)),
+        )
+    }
+    print(f"K3 {c}x{q} {dtype} max error vs fp64: {err}")
+    assert err["fp64 direct"] <= err["plain"]
+    if q >= 128:
+        assert err["fp32 direct"] > err["plain"]
+
+
+@pytest.mark.parametrize("m,n", K4_SHAPES)
+def test_gram_matches_pallas(m, n):
+    x = np.random.default_rng(m * 1000 + n).normal(size=(m, n)).astype(np.float32)
+    want = np.asarray(jgram.gram(jnp.asarray(x)))
+    got = tgram.gram(torch.from_numpy(x))
+    assert got.shape == (n, n) and got.dtype == torch.float32
+    # the JAX test's fp32 bound
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_gram_bf16_inputs_fp32_accumulation():
+    x = np.random.default_rng(7).normal(size=(96, 40)).astype(np.float32)
+    want = np.asarray(jgram.gram(jnp.asarray(x).astype(jnp.bfloat16)))
+    got = tgram.gram(torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.float32
+    # the JAX test's bf16 bound (both sides take exact bf16 products in fp32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2 * np.abs(want).max())
+
+
+def test_stage_wise_kernel_matches_the_pipeline():
+    """``gram(similarity_matrix(f, use_kernel=True))`` (K3, then K4) gives the
+    eq.-14 kernel of the two-launch pipeline (K1 + K2)."""
+    f = torch.from_numpy(_profiles(100, 128, seed=5))
+    stage = tgram.gram(tsim.similarity_matrix(f, use_kernel=True))
+    fused = tgram.kernel_from_profiles(f, device="cpu")
+    np.testing.assert_allclose(stage.numpy(), fused.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         tpw.pairwise_dists_stats(torch.zeros(3, 4, 5))
@@ -90,6 +197,16 @@ def test_wrappers_reject_bad_inputs():
         tpw.pairwise_dists_stats(torch.zeros(3, 4, dtype=torch.float64))
     with pytest.raises(ValueError):
         tpw.pairwise_dists_stats(torch.zeros(0, 4))
+    with pytest.raises(ValueError):
+        tpw.pairwise_sq_dists(torch.zeros(3))
+    with pytest.raises(TypeError):
+        tpw.pairwise_sq_dists(torch.zeros(3, 4, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        tgram.gram(torch.zeros(3, 4, 5))
+    with pytest.raises(TypeError):
+        tgram.gram(torch.zeros(3, 4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tgram.gram(torch.zeros(3, 0))
     s0 = torch.zeros(4, 4)
     with pytest.raises(ValueError):
         tgram.normalized_gram(s0, torch.zeros(()), torch.ones(()), 5)

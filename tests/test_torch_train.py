@@ -291,6 +291,21 @@ def test_launcher_runs_both_modes_on_the_cpu(capsys):
     assert capsys.readouterr().out.count("[pretrain] step") == 3
 
 
+@pytest.mark.parametrize("selection", ["fedsae", "power-of-choice", "cluster"])
+def test_launcher_runs_the_loss_baselines_and_refuses_cluster(capsys, selection):
+    """The engine's rounds draw with the loss-driven baselines; the Cluster
+    baseline, whose labels the engine does not fit yet, is refused."""
+    argv = ["--mode", "fl", "--rounds", "2", "--clients", "4", "--per-round", "2",
+            "--docs-per-client", "3", "--local-steps", "1", "--local-batch", "2",
+            "--seq", "10", "--log-every", "1", "--selection", selection, "--device", "cpu"]
+    if selection == "cluster":
+        with pytest.raises(NotImplementedError, match="cluster labels"):
+            ttrain.main(argv)
+        return
+    ttrain.main(argv)
+    assert capsys.readouterr().out.count(f"[fl:{selection}] round") == 4
+
+
 def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for mode in ("fl", "pretrain"):
