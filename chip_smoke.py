@@ -6,11 +6,14 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. Card and build: prints the card's name and power limit, turns TF32 off
-   for matmuls and cuDNN, and builds every CUDA kernel from the sources in
-   this checkout (``nvcc`` for ``sm_90a``).
+   for matmuls and cuDNN, builds every CUDA kernel from the sources in
+   this checkout (``nvcc`` for ``sm_90a``), and counts the tensor-core
+   instructions (``K6_TC_OP``) in K6's built library with ``cuobjdump``.
 2. K1 and K2 against their plain PyTorch versions on the card, at the
-   FL and LM paths' shapes and three larger ones, with the tolerances stated below;
-   prints errors and the kernel, plain and library times.  Then K5
+   FL and LM paths' shapes and three larger ones, with the tolerances stated below,
+   K2 also for exact symmetry; prints errors, the wrapper's time, the
+   kernel's device time per launch (``device_ms``, from torch.profiler)
+   and the plain and library times.  Then K5
    (flash-decode) the same way, at the serving path's shape, two long
    shapes and the JAX test's three fp32 shapes, and K6 (causal flash
    attention) at the LM path's refresh shape, three long bf16 shapes and
@@ -73,6 +76,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +120,8 @@ SERVE_PATHS = {
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 64
 SERVE_REQUESTS, SERVE_BUDGETS, SERVE_CHUNK = 48, (32, 128), 8
 FL_KERNELS = ("pairwise_dists_stats", "normalized_gram")
+# the SASS instruction of K6's bf16 kernel (wgmma on the tensor cores)
+K6_TC_OP = "HGMMA"
 # K6: (B, S, H, Hk, hd, dtype name, window); the LM path's refresh shape first
 ATTN_SHAPES = [
     (16, 512, 15, 5, 64, "bf16", None),
@@ -188,6 +194,33 @@ def time_ms(torch, fn, launches: int = 50, repeats: int = 5, warmup: int = 5) ->
         end.synchronize()
         per_call.append(start.elapsed_time(end) / launches)
     return statistics.median(per_call)
+
+
+def device_ms(torch, fn, mark: str, calls: int = 20):
+    """Device time (ms) per call of the kernel whose name holds ``mark``:
+    ``calls`` calls under torch.profiler after one warm-up call.  A session
+    that does not record exactly one such event per call (the profiler
+    drops a session's events now and then) is repeated once; None when the
+    repeat misses too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and mark in e.name]
+        if len(us) == calls:
+            return sum(us) / 1e3 / calls
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -543,17 +576,19 @@ def k3_k4_rows(torch, dev) -> dict:
         f = torch.randn(c, q, generator=g).to(dtypes[kind]).to(dev)
         err, tol, e64, p64 = check_k3(torch, f, f"{c}x{q} {kind}")
         ms = time_ms(torch, lambda: pw_ops.pairwise_sq_dists(f))
+        dev_ms = device_ms(torch, lambda: pw_ops.pairwise_sq_dists(f), "pairwise")
         plain = time_ms(torch, lambda: pw_ref.pairwise_sq_dists_ref(f))
         # torch.cdist's bf16 support varies by version: timed on fp32 only
         lib = time_ms(torch, lambda: torch.cdist(f, f).square()) if kind == "fp32" else None
         # least work as K1's: one triangle of dot products plus the c norms
         b = bound(c * q * f.element_size() + c * c * 4, 1.0 * c * (c - 1) * q + 2.0 * c * q, "fp32")
         rows["pairwise_sq_dists"][(c, q, kind)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+            bound_ms=b[0], bound_by=b[1],
         )
         print(
             f"K3 C={c} Q={q} {kind}: err={err:.3e} (tol {tol:.3e}) vs fp64 {e64:.3e} "
-            f"(plain {p64:.3e}) ms={ms:.5f} plain={plain:.5f} "
+            f"(plain {p64:.3e}) ms={ms:.5f} device_ms={fmt_ms(dev_ms)} plain={plain:.5f} "
             f"cdist^2={'n/a' if lib is None else f'{lib:.5f}'} bound={b[0]:.6f} ({b[1]})"
         )
     for m, n, kind in K4_SHAPES:
@@ -573,17 +608,21 @@ def k3_k4_rows(torch, dev) -> dict:
             # sum, so the absolute part scales with max|G| (about m)
             atol, rtol = 1e-5 * scale, 1e-5
         check(bool(torch.all((got - want).abs() <= atol + rtol * want.abs())), f"K4 off at {m}x{n} {kind}: {err}")
+        check(torch.equal(got, got.T), f"K4 not exactly symmetric at {m}x{n} {kind}")
         ms = time_ms(torch, lambda: gram_ops.gram(x))
+        dev_ms = device_ms(torch, lambda: gram_ops.gram(x), "gram")
         plain = time_ms(torch, lambda: gram_ref.gram_ref(x))
         # x.T @ x of bf16 gives bf16, another function: timed on fp32 only
         lib = time_ms(torch, lambda: x.T @ x) if kind == "fp32" else None
         # least work: one triangle of the symmetric product (a SYRK)
         b = bound(m * n * x.element_size() + n * n * 4, 1.0 * n * (n + 1) * m, kind)
         rows["gram"][(m, n, kind)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0], bound_by=b[1],
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+            bound_ms=b[0], bound_by=b[1],
         )
         print(
-            f"K4 M={m} N={n} {kind}: err={err:.3e} (max|G|={scale:.4g}) ms={ms:.5f} plain={plain:.5f} "
+            f"K4 M={m} N={n} {kind}: err={err:.3e} (max|G|={scale:.4g}) ms={ms:.5f} "
+            f"device_ms={fmt_ms(dev_ms)} plain={plain:.5f} "
             f"x.T@x={'n/a' if lib is None else f'{lib:.5f}'} bound={b[0]:.6f} ({b[1]})"
         )
     return rows
@@ -990,8 +1029,15 @@ def main() -> int:
     print(f"built {list(_build.SOURCES)} for sm_90a in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
+    # K6's bf16 kernel runs on the tensor cores: its SASS holds K6_TC_OP
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    ops = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+    print(f"K6 SASS ({cuobjdump.name} -sass): " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    check(ops[K6_TC_OP] > 0, f"no {K6_TC_OP} in K6's SASS: the bf16 kernel is off the tensor cores")
 
     # ------------------------------------- 2. kernels against plain versions
     dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -1022,6 +1068,7 @@ def main() -> int:
         err2 = float((lk - wl).abs().max())
         # the same rounded S on both sides; fp32 sums over c terms in another order
         check(err2 <= 1e-5 + 1e-4 * float(wl.abs().max()), f"K2 off at {c}x{q}: {err2}")
+        check(torch.equal(lk, lk.T), f"K2 not exactly symmetric at {c}x{q}")
 
         # the two-launch pipeline against the plain chain
         lp = gram_ops.kernel_from_profiles(f)
@@ -1045,9 +1092,11 @@ def main() -> int:
         # times: wrapper as the main path calls it, its plain version, and
         # one PyTorch call computing the same function where there is one
         k1_ms = time_ms(torch, lambda: pw_ops.pairwise_dists_stats(f))
+        k1_dev = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise")
         k1_plain = time_ms(torch, lambda: pw_ref.pairwise_dists_stats_ref(f))
         k1_lib = time_ms(torch, lambda: torch.cdist(f, f))
         k2_ms = time_ms(torch, lambda: gram_ops.normalized_gram(ws0, wlo, rng, c, compute))
+        k2_dev = device_ms(torch, lambda: gram_ops.normalized_gram(ws0, wlo, rng, c, compute), "gram")
         k2_plain = time_ms(torch, lambda: gram_ref.normalized_gram_ref(ws0, wlo, rng, c, compute))
         s = (1.0 - (ws0 - wlo) / rng).to(compute)
         k2_lib = time_ms(torch, lambda: torch.mm(s.T, s))
@@ -1065,18 +1114,18 @@ def main() -> int:
         )
         b2 = bound(c * c * 4 + 8 + c * c * 4, 1.0 * c * c * (c + 1) + 3.0 * c * c, kind)
         rows["pairwise_dists_stats"][(c, q, kind)] = dict(
-            max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib,
+            max_abs_err=err1, ms=k1_ms, device_ms=k1_dev, plain_ms=k1_plain, library_ms=k1_lib,
             bound_ms=b1[0], bound_by=b1[1],
         )
         rows["normalized_gram"][(c, q, kind)] = dict(
-            max_abs_err=err2, ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
+            max_abs_err=err2, ms=k2_ms, device_ms=k2_dev, plain_ms=k2_plain, library_ms=k2_lib,
             bound_ms=b2[0], bound_by=b2[1],
         )
         print(
             f"kernels C={c} Q={q} {kind}: "
-            f"K1 err={err1:.3e} ms={k1_ms:.5f} plain={k1_plain:.5f} cdist={k1_lib:.5f} "
-            f"bound={b1[0]:.6f} ({b1[1]}) | "
-            f"K2 err={err2:.3e} ms={k2_ms:.5f} plain={k2_plain:.5f} mm={k2_lib:.5f} "
+            f"K1 err={err1:.3e} ms={k1_ms:.5f} device_ms={fmt_ms(k1_dev)} plain={k1_plain:.5f} "
+            f"cdist={k1_lib:.5f} bound={b1[0]:.6f} ({b1[1]}) | "
+            f"K2 err={err2:.3e} ms={k2_ms:.5f} device_ms={fmt_ms(k2_dev)} plain={k2_plain:.5f} mm={k2_lib:.5f} "
             f"bound={b2[0]:.6f} ({b2[1]}) | "
             f"pipeline err={errp:.3e} (max|L|={lmax:.4g}) ms={pipe_ms:.5f}"
         )
@@ -1123,6 +1172,7 @@ def main() -> int:
         mask = (torch.arange(s, device=dev)[None, :] < ln[:, None])[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         k5_ms = time_ms(torch, lambda: fd_ops.flash_decode(q, k, v, ln))
+        k5_dev = device_ms(torch, lambda: fd_ops.flash_decode(q, k, v, ln), "flash_decode")
         k5_plain = time_ms(torch, lambda: fd_ref.decode_attention_ref(q, k, v, ln))
         k5_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True))
@@ -1133,12 +1183,13 @@ def main() -> int:
         b5 = bound(valid * hk * hd * 2 * esize + 2 * b * h * hd * esize + 4 * b,
                    4.0 * valid * h * hd, "fp32")
         decode_rows[(b, s, kind)] = dict(
-            max_abs_err=err, ms=k5_ms, plain_ms=k5_plain, library_ms=k5_lib,
+            max_abs_err=err, ms=k5_ms, device_ms=k5_dev, plain_ms=k5_plain, library_ms=k5_lib,
             bound_ms=b5[0], bound_by=b5[1],
         )
         print(
             f"K5 B={b} S={s} H={h} Hk={hk} hd={hd} {kind} valid={valid}: err={err:.3e} "
-            f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k5_ms:.5f} plain={k5_plain:.5f} sdpa={k5_lib:.5f} "
+            f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k5_ms:.5f} "
+            f"device_ms={fmt_ms(k5_dev)} plain={k5_plain:.5f} sdpa={k5_lib:.5f} "
             f"bound={b5[0]:.6f} ({b5[1]})"
         )
 
@@ -1159,10 +1210,15 @@ def main() -> int:
             tol = 1e-5  # fp32 sums in another order
             check(err <= tol, f"K6 off at {(b, s, h, hk, hd, kind, window)}: {err} > {tol}")
         else:
-            # one bf16 step of each output element (<= 2^-7 of |out|), plus
-            # the fp32 sums' order near 0, within 2^-8 of the largest output
-            # of the same query row (per row: row 0 returns v[0] itself, a
-            # late row of a long sequence outputs far smaller values)
+            # the kernel takes bf16 products with fp32 sums on the tensor
+            # cores and carries the unnormalised probabilities (each <= 1)
+            # into the PV product as two bf16 halves, which hold them to
+            # 2^-17; the plain version is fp32 throughout.  Both round the
+            # output once: one bf16 step of each output element (<= 2^-7 of
+            # |out|), plus the sums' order near 0, within 2^-8 of the
+            # largest output of the same query row (per row: row 0 returns
+            # v[0] itself, a late row of a long sequence outputs far smaller
+            # values)
             wf = want.float()
             atol = 2.0**-8 * wf.abs().amax(dim=-1, keepdim=True)
             tol = float(atol.max())
@@ -1180,6 +1236,8 @@ def main() -> int:
         big = b * s * s * h * hd > 3e10  # the hd-256 shape: fewer timed calls
         reps = dict(launches=10, repeats=3, warmup=2) if big else {}
         k6_ms = time_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), **reps)
+        k6_dev = device_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), "flash_attention",
+                           calls=reps.get("launches", 20))
         k6_plain = time_ms(torch, lambda: fd_ref.attention_ref(q, k, v, window=window), **reps)
         k6_lib = time_ms(torch, sdpa, **reps)
         # least work: q, k, v read once and out written once; 4 FLOPs per
@@ -1189,13 +1247,13 @@ def main() -> int:
         esize = q.element_size()
         b6 = bound(2 * b * s * (h + hk) * hd * esize, 4.0 * b * h * hd * pairs, kind)
         attn_rows[(b, s, kind, window)] = dict(
-            max_abs_err=err, ms=k6_ms, plain_ms=k6_plain, library_ms=k6_lib,
+            max_abs_err=err, ms=k6_ms, device_ms=k6_dev, plain_ms=k6_plain, library_ms=k6_lib,
             bound_ms=b6[0], bound_by=b6[1],
         )
         print(
             f"K6 B={b} S={s} H={h} Hk={hk} hd={hd} {kind} window={window}: err={err:.3e} "
             f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k6_ms:.5f} "
-            f"plain={k6_plain:.5f} sdpa={k6_lib:.5f} bound={b6[0]:.6f} ({b6[1]}) "
+            f"device_ms={fmt_ms(k6_dev)} plain={k6_plain:.5f} sdpa={k6_lib:.5f} bound={b6[0]:.6f} ({b6[1]}) "
             f"= {b6[0] / k6_ms:.4f} of the kernel's time"
         )
 
@@ -1237,6 +1295,7 @@ def main() -> int:
             check(bad == 0 and bad_s == 0,
                   f"K7 off at {(b, t, h, hd, kind)}: {bad} y elements (max {err_y}), {bad_s} S elements (max {err_s})")
         k7_ms = time_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0))
+        k7_dev = device_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0), "wkv6")
         # the plain loop launches ~6 kernels per token: fewer timed calls
         reps = dict(launches=1, repeats=3, warmup=1) if t > 16 else {}
         k7_plain = time_ms(torch, lambda: wkv_ref.wkv6_scan_ref(r, k, v, w, u, s0), **reps)
@@ -1249,13 +1308,14 @@ def main() -> int:
         b7 = bound(seq * (4 * esize + 4) + 2 * b * h * hd * hd * 4 + h * hd * 4,
                    (5.0 * hd * hd + 4.0 * hd) * h * b * t, "fp32")
         wkv_rows[(b, t, kind)] = dict(
-            max_abs_err=err_y, ms=k7_ms, plain_ms=k7_plain, library_ms=None,
+            max_abs_err=err_y, ms=k7_ms, device_ms=k7_dev, plain_ms=k7_plain, library_ms=None,
             bound_ms=b7[0], bound_by=b7[1],
         )
         print(
             f"K7 B={b} T={t} H={h} hd={hd} {kind}: err y={err_y:.3e} S={err_s:.3e} "
             f"(tol {'2^-7*|y| + at most ' if kind == 'bf16' else ''}{tol:.3e}{'' if kind == 'fp32' else ', S 1e-5*max|S| of the head'}) "
-            f"ms={k7_ms:.5f} plain={k7_plain:.5f} library=none bound={b7[0]:.6f} ({b7[1]}) "
+            f"ms={k7_ms:.5f} device_ms={fmt_ms(k7_dev)} plain={k7_plain:.5f} library=none "
+            f"bound={b7[0]:.6f} ({b7[1]}) "
             f"= {b7[0] / k7_ms:.4f} of the kernel's time"
         )
     # the state hand-off: two halves == one shot, at the JAX test's bound
@@ -1458,7 +1518,7 @@ def main() -> int:
     for name, (source, replaces, r, n) in sources.items():
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))

@@ -12,11 +12,15 @@ machines that may have no ``nvcc``.  The first CUDA launch builds what it
 needs.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else.  ``on_device`` and ``stream`` are the
+wrappers' launch context: the device guard switches the current CUDA device
+only when the tensors lie on another one, and ``stream`` is the handle of
+PyTorch's current stream on a device, read without building a Stream object.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +29,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["LAUNCHES", "SOURCES", "build_all", "check", "library", "reset_launches"]
+__all__ = ["LAUNCHES", "SOURCES", "build_all", "check", "library", "on_device", "reset_launches", "stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -74,11 +78,31 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode": 0, "flash_attention": 0, "wkv6": 0,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_CURRENT = contextlib.nullcontext()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def on_device(device):
+    """``torch.cuda.device(device)``, or a no-op context when ``device`` is
+    already the current CUDA device (the usual case: the switch and the
+    switch back cost more host time than a small kernel's launch)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
+
+
+def stream(device) -> int:
+    """The raw handle of PyTorch's current stream on CUDA ``device``, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _nvcc() -> str:

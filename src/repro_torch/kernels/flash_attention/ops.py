@@ -26,7 +26,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal GQA softmax attention -> (B, S, H, hd) in q's dtype.  Query
     head h reads KV head h // (H / Hk); position i attends j <= i, and
-    j > i - window with a window.  fp32 math, scale hd^-0.5 on q.
+    j > i - window with a window; scale hd^-0.5.  On a card the inputs'
+    dtype picks the kernel: bf16 runs on the tensor cores (bf16 products,
+    fp32 sums and softmax, the unnormalised probabilities carried into the
+    PV product as two bf16 halves), fp32 on the CUDA cores in fp32.  On the
+    CPU, the plain version computes in fp32.
 
     Forward only, like the TPU kernel it replaces (no VJP there, no
     backward here): it raises when grad is enabled and an input requires
@@ -66,12 +70,12 @@ def flash_attention(
         raise ValueError(f"batch {b} and heads {h} must each be <= {MAX_GRID_YZ}")
     lib = _build.library("flash_attention")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, s, h, k.shape[2], hd,
             0 if window is None else int(window), hd**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _build.stream(q.device),
         )
     _build.check("flash_attention", err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
@@ -118,11 +122,11 @@ def flash_decode(
     s, hk = k.shape[1], k.shape[2]
     lib = _build.library("flash_decode")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = lib.flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, s, h, hk, hd, hd**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _build.stream(q.device),
         )
     _build.check("flash_decode", err, "flash_decode")
     _build.LAUNCHES["flash_decode"] += 1

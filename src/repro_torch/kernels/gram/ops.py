@@ -45,10 +45,10 @@ def gram(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be contiguous along its rows, got strides {x.stride()}")
     lib = _build.library("gram")
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.gram_plain(
             x.data_ptr(), int(x.dtype == torch.bfloat16), m, n, x.stride(0),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+            out.data_ptr(), _build.stream(x.device),
         )
     _build.check("gram", err, "gram")
     _build.LAUNCHES["gram"] += 1
@@ -56,9 +56,10 @@ def gram(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar(x: torch.Tensor, name: str, device: torch.device) -> torch.Tensor:
+    """``x`` as a 0-d fp32 tensor on ``device`` (always contiguous)."""
     if x.numel() != 1 or x.dtype != torch.float32 or x.device != device:
         raise ValueError(f"{name} must be one fp32 value on {device}")
-    return x.reshape(())
+    return x if x.ndim == 0 else x.reshape(())
 
 
 def normalized_gram(
@@ -77,21 +78,21 @@ def normalized_gram(
         raise ValueError(f"c={c} must be in [1, {s0.shape[0]}]")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
-    lo = _scalar(lo, "lo", s0.device)
-    rng = _scalar(rng, "rng", s0.device)
-    if s0.device.type == "cpu":
+    device = s0.device
+    lo = _scalar(lo, "lo", device)
+    rng = _scalar(rng, "rng", device)
+    if device.type == "cpu":
         return normalized_gram_ref(s0, lo, rng, c, compute_dtype)
-    if s0.device.type != "cuda":
-        raise ValueError(f"no kernel for device {s0.device}")
-    if not (s0.is_contiguous() and lo.is_contiguous() and rng.is_contiguous()):
-        raise ValueError("s0, lo and rng must be contiguous")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    if not s0.is_contiguous():
+        raise ValueError("s0 must be contiguous")
     lib = _build.library("gram")
-    out = torch.empty((c, c), dtype=torch.float32, device=s0.device)
-    with torch.cuda.device(s0.device):
+    out = s0.new_empty((c, c))
+    with _build.on_device(device):
         err = lib.gram_normalized(
             s0.data_ptr(), s0.shape[1], c, lo.data_ptr(), rng.data_ptr(),
-            int(compute_dtype == torch.bfloat16), out.data_ptr(),
-            torch.cuda.current_stream(s0.device).cuda_stream,
+            int(compute_dtype == torch.bfloat16), out.data_ptr(), _build.stream(device),
         )
     _build.check("gram", err, "normalized_gram")
     _build.LAUNCHES["normalized_gram"] += 1

@@ -39,10 +39,10 @@ def pairwise_sq_dists(f: torch.Tensor) -> torch.Tensor:
     c, q = f.shape
     lib = _build.library("pairwise_l2")
     d2 = torch.empty((c, c), dtype=torch.float32, device=f.device)
-    with torch.cuda.device(f.device):
+    with _build.on_device(f.device):
         err = lib.pairwise_l2_sq_dists(
             f.data_ptr(), int(f.dtype == torch.bfloat16), c, q, d2.data_ptr(),
-            torch.cuda.current_stream(f.device).cuda_stream,
+            _build.stream(f.device),
         )
     _build.check("pairwise_l2", err, "pairwise_sq_dists")
     _build.LAUNCHES["pairwise_sq_dists"] += 1
@@ -64,11 +64,11 @@ def pairwise_dists_stats(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, t
     tiles = lib.pairwise_l2_tiles(c)
     s0 = torch.empty((c, c), dtype=torch.float32, device=f.device)
     stats = torch.empty((2, tiles, tiles), dtype=torch.float32, device=f.device)
-    with torch.cuda.device(f.device):
+    with _build.on_device(f.device):
         err = lib.pairwise_l2_dists_stats(
             f.data_ptr(), int(f.dtype == torch.bfloat16), c, q,
             s0.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            torch.cuda.current_stream(f.device).cuda_stream,
+            _build.stream(f.device),
         )
     _build.check("pairwise_l2", err, "pairwise_dists_stats")
     _build.LAUNCHES["pairwise_dists_stats"] += 1

@@ -70,12 +70,12 @@ def wkv6(
     lib = _build.library("wkv6")
     y = torch.empty_like(r)
     s_out = torch.empty_like(s0)
-    with torch.cuda.device(r.device):
+    with _build.on_device(r.device):
         err = lib.wkv6(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
             int(r.dtype == torch.bfloat16), b, t, h, hd,
-            torch.cuda.current_stream(r.device).cuda_stream,
+            _build.stream(r.device),
         )
     _build.check("wkv6", err, "wkv6")
     _build.LAUNCHES["wkv6"] += 1

@@ -9,7 +9,8 @@ decay, and r/k/v/w/g formed from token-shift interpolations of x.
 
 The JAX package's module as plain PyTorch, with its layouts and dtype
 points: ``w0`` and ``u`` stay fp32 whatever ``cfg.param_dtype``, the decay
-and the WKV state are fp32, the group norm computes in fp32 and casts back.
+and the WKV state are fp32, the group norm computes in fp32 and casts back,
+and the gates' sigmoid and SiLU round where JAX's do (``_sigmoid``).
 
 The state of a layer is ``{"tm_x", "cm_x": (B, D), "wkv": (B, H, hd, hd)
 fp32, "pos": () | (B,)}`` (``init_rwkv_state``).  With a state,
@@ -108,6 +109,18 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it: 1 / (1 + exp(−x)), each of the
+    three operations rounded to x's dtype.  In bf16 this parts from
+    ``torch.sigmoid`` (one rounding) in about a third of elements."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x times its sigmoid rounded to x's dtype."""
+    return x * _sigmoid(x)
+
+
 def wkv6_scan_ref(
     r: torch.Tensor,  # (B, T, H, hd)
     k: torch.Tensor,
@@ -158,7 +171,7 @@ def apply_rwkv_tmix(
     r = L.dense(p["wr"], xr).reshape(b, t, h, hd)
     k = L.dense(p["wk"], xk).reshape(b, t, h, hd)
     v = L.dense(p["wv"], xv).reshape(b, t, h, hd)
-    g = F.silu(L.dense(p["wg"], xg))
+    g = _silu(L.dense(p["wg"], xg))
     # data-dependent decay (Finch): w = exp(−exp(w0 + tanh(x̃ A) B)), fp32
     dd = torch.tanh(xw @ p["a_w"]) @ p["b_w"]
     logw = -torch.exp(torch.clamp(p["w0"].float() + dd.float(), -20.0, 8.0))
@@ -195,7 +208,7 @@ def apply_rwkv_cmix(
     xk = x + delta * p["mu_k"]
     xr = x + delta * p["mu_r"]
     kk = torch.square(F.relu(L.dense(p["wk"], xk)))
-    out = torch.sigmoid(L.dense(p["wr"], xr)) * L.dense(p["wv"], kk)
+    out = _sigmoid(L.dense(p["wr"], xr)) * L.dense(p["wv"], kk)
     if state is not None:
         state["cm_x"].copy_(x[:, -1])
         state = dict(state)

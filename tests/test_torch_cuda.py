@@ -65,6 +65,21 @@ def test_normalized_gram_kernel_matches_plain(card, c, q, dtype):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("c", [1, 15, 16, 17, 100, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normalized_gram_kernel_is_exactly_symmetric(card, c, dtype):
+    """K2 at and around its 16-wide tiles (one upper-triangle loop for c <=
+    128, the 64 x 64 loop above): L equals its transpose bit for bit, and
+    the plain version within the bound above, in both rounding modes."""
+    s0, lo, hi = pw_ref.pairwise_dists_stats_ref(_profiles(c, 24, dtype, card, seed=7))
+    rng = torch.clamp_min(hi - lo, 1e-30)
+    got = gram_ops.normalized_gram(s0, lo, rng, c, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.T)
+    want = gram_ref.normalized_gram_ref(s0, lo, rng, c, dtype)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * float(want.abs().max()))
+
+
 def test_kernel_pipeline_on_the_card_matches_plain_chain(card):
     f = _profiles(300, 64, torch.float32, card, seed=2)
     got = gram_ops.kernel_from_profiles(f)
@@ -280,11 +295,14 @@ def _seq_qkv(b, s, h, hk, hd, dtype, device, seed=0):
 
 
 def _assert_one_bf16_step(got, want):
-    """Both compute in fp32 from the same bf16 inputs and round once at the
-    end: they differ by at most one bf16 step of each output element (<=
-    2^-7 of |out|), plus the fp32 sums' order near 0, bounded by 2^-8 of
-    the largest output of the same query row (row 0 returns v[0] itself, a
-    late row of a long sequence outputs far smaller values)."""
+    """K6's bf16 kernel multiplies the bf16 inputs on the tensor cores with
+    fp32 sums and carries the unnormalised probabilities (each <= 1) into
+    the PV product as two bf16 halves, hi + lo, which hold them to 2^-17;
+    the plain version is fp32 throughout.  Both round the output once, so
+    they differ by at most one bf16 step of each output element (<= 2^-7 of
+    |out|), plus the sums' order near 0, bounded by 2^-8 of the largest
+    output of the same query row (row 0 returns v[0] itself, a late row of
+    a long sequence outputs far smaller values)."""
     wf = want.float()
     diff = (got.float() - wf).abs()
     bad = diff > 2.0**-7 * wf.abs() + 2.0**-8 * wf.abs().amax(dim=-1, keepdim=True)
@@ -304,6 +322,16 @@ def _assert_one_bf16_step(got, want):
         (1, 300, 16, 16, 256, 100, torch.bfloat16),
         (2, 200, 6, 3, 40, None, torch.bfloat16),  # hd not a multiple of 64
         (3, 77, 4, 2, 24, 5, torch.float32),
+        # the bf16 kernel's edges: S below one tile and one past it, hd 8,
+        # 16 and 256 (zero-padded to the tile's width), G in {1, 3, 6},
+        # windows shorter than a tile (1: each row attends itself)
+        (2, 40, 6, 6, 64, None, torch.bfloat16),
+        (1, 65, 6, 2, 64, None, torch.bfloat16),
+        (2, 100, 6, 1, 8, None, torch.bfloat16),
+        (1, 130, 4, 4, 16, 10, torch.bfloat16),
+        (1, 257, 6, 2, 256, None, torch.bfloat16),
+        (2, 90, 12, 2, 128, 7, torch.bfloat16),
+        (3, 33, 3, 1, 32, 1, torch.bfloat16),
     ],
 )
 def test_flash_attention_kernel_matches_plain(card, b, s, h, hk, hd, window, dtype):

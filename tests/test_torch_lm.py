@@ -81,6 +81,73 @@ def test_flash_attention_plain_route_bf16_matches_pallas():
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=3e-2)
 
 
+def _k6_bf16_emulation(q, k, v, window=None):
+    """K6's bf16 tensor-core arithmetic (``csrc/flash_attention.cu``) in
+    plain torch on the CPU: KV tiles of the kernel's width (64 positions,
+    32 for hd > 128); scores as fp32 sums of the bf16 products, scaled in
+    fp32 by hd^-0.5 * log2(e) and masked; the online softmax in exp2; the
+    unnormalised P of each tile carried into the PV product as two bf16
+    halves, hi = P rounded to bf16 and lo = P - hi cut to bf16, the row sum
+    l taken from the fp32 P; O in fp32, divided by l once at the end and
+    rounded to bf16."""
+    b, s, h, hd = q.shape
+    hk = k.shape[2]
+    bk = 64 if hd <= 128 else 32
+    qf = q.float().reshape(b, s, hk, h // hk, hd)
+    kf, vf = k.float(), v.float()
+    scale_log2 = torch.tensor(hd**-0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634)
+    pos = torch.arange(s)
+    m = torch.full((b, hk, h // hk, s), -torch.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(b, hk, h // hk, s, hd)
+    for k0 in range(0, s, bk):
+        kp = pos[k0 : k0 + bk]
+        mask = kp[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= kp[None, :] > pos[:, None] - window
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, k0 : k0 + bk]) * scale_log2
+        sc = torch.where(mask, sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(sc - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        lo = ((p - hi).view(torch.int32) & -65536).view(torch.float32)  # cut to bf16
+        p2 = hi + lo  # exact in fp32
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p2, vf[:, k0 : k0 + bk])
+        o = o * alpha[..., None] + pv
+        m = m_new
+    out = o / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).bfloat16()
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,hd,window",
+    [(1, 512, 3, 1, 64, None), (2, 200, 6, 3, 40, None), (1, 300, 4, 4, 128, 100)],
+)
+def test_k6_bf16_arithmetic_fits_the_cards_bound(b, s, h, hk, hd, window):
+    """The rounding of K6's bf16 kernel, emulated on the CPU, against JAX's
+    Pallas K6 (interpret mode) and JAX's and the port's ``attention_ref``
+    (fp32 throughout), on the same bf16 inputs, at the bound the card holds
+    the kernel to (``tests/test_torch_cuda.py``): |got - want| <= 2^-7
+    |want| + 2^-8 max|want of the row|."""
+    q, k, v = (_normal(shape, 30 + i) for i, shape in enumerate(((b, s, h, hd), (b, s, hk, hd), (b, s, hk, hd))))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    jargs = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (tq, tk, tv)]
+    got = _k6_bf16_emulation(tq, tk, tv, window=window).float()
+    wants = {
+        "pallas": np.asarray(flash_attention_kernel(*jargs, window=window, interpret=True), np.float32),
+        "jax ref": np.asarray(jflash_ref.attention_ref(*jargs, window=window), np.float32),
+        "port ref": tflash.flash_attention(tq, tk, tv, window=window).float().numpy(),
+    }
+    for name, want in wants.items():
+        want = torch.from_numpy(want)
+        diff = (got - want).abs()
+        bad = diff > 2.0**-7 * want.abs() + 2.0**-8 * want.abs().amax(dim=-1, keepdim=True)
+        assert not bool(bad.any()), f"{name}: {int(bad.sum())} elements off, max {float(diff.max())}"
+
+
 def test_flash_attention_wrapper_refuses_bad_inputs():
     q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="multiple"):

@@ -364,3 +364,51 @@ def test_lm_loss_matches_jax(use_flash):
     with torch.no_grad():
         got = tT.lm_loss(tcfg, tp, torch.from_numpy(toks), use_flash=use_flash)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ bf16
+
+
+def test_gate_sigmoid_and_silu_round_as_jax_does():
+    """The time mix's SiLU gate and the channel mix's sigmoid gate round
+    where JAX's do: XLA evaluates a bf16 ``jax.nn.sigmoid`` as 1 / (1 +
+    exp(−x)) with exp(−x) rounded to bf16, and ``jax.nn.silu`` as x times
+    that sigmoid rounded to bf16.  Bit for bit on bf16 inputs."""
+    x = np.random.default_rng(17).normal(scale=4.0, size=(4096,)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(x).bfloat16()
+    for jfn, tfn in ((jax.nn.sigmoid, trwkv._sigmoid), (jax.nn.silu, trwkv._silu)):
+        got = tfn(xt)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(jfn(xj).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("num_layers", [2, 4])
+def test_bf16_forward_parts_from_jax_no_further_than_from_fp32(num_layers):
+    """JAX's bf16 ``forward`` against the port's plain bf16 path on the same
+    ``params_from_jax`` weights and token ids, with the port's fp32 copy of
+    the model as the yardstick: the port's bf16 logits may part from JAX's
+    no further than from its own fp32 logits, by the largest element and
+    by the Frobenius norm.  Both bf16 paths keep their remaining
+    differences below that: the WKV's fp32 sums taken in another order and
+    fp32 ``exp`` ulps in the decay flip single bf16 roundings."""
+    kw = dict(param_dtype="bfloat16", dtype="bfloat16", remat=False, num_layers=num_layers)
+    jcfg, tcfg = jget_arch(ARCH).model.reduced(**kw), get_arch(ARCH).model.reduced(**kw)
+    jp = jT.init_params(jax.random.key(13), jcfg)
+    tp = tT.params_from_jax(_np(jp), tcfg, device="cpu")
+    cfg32 = dataclasses.replace(tcfg, dtype="float32", param_dtype="float32")
+    tp32 = jax.tree_util.tree_map(lambda a: a.float(), tp)
+    toks = np.random.default_rng(16).integers(0, tcfg.vocab_size, size=(2, 16)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16)).copy()
+
+    jh, _, _ = jT.forward(jcfg, jp, jnp.asarray(toks), jnp.asarray(pos))
+    want = np.asarray(jT.logits_from_hidden(jcfg, jp, jh).astype(jnp.float32))
+    with torch.no_grad():
+        logits = {}
+        for name, (c, p) in {"bf16": (tcfg, tp), "fp32": (cfg32, tp32)}.items():
+            h, _, _ = tT.forward(c, p, torch.from_numpy(toks), torch.from_numpy(pos))
+            logits[name] = tT.logits_from_hidden(c, p, h).float().numpy()
+    assert logits["bf16"].shape == want.shape and np.isfinite(logits["bf16"]).all()
+    to_jax, to_fp32 = logits["bf16"] - want, logits["bf16"] - logits["fp32"]
+    assert np.abs(to_jax).max() <= np.abs(to_fp32).max()
+    assert np.linalg.norm(to_jax) <= np.linalg.norm(to_fp32)
