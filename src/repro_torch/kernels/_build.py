@@ -56,11 +56,13 @@ _SIGNATURES = {
     },
     "gram": {
         "gram_normalized": (_I, [_P, _I, _I, _P, _P, _I, _P, _P]),
-        "gram_plain": (_I, [_P, _I, _I, _I, _I, _P, _P]),
+        "gram_workspace": (ctypes.c_longlong, [_I, _I, _I]),
+        "gram_plain": (_I, [_P, _I, _I, _I, _I, _P, _P, _P]),
         "gram_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_decode": {
-        "flash_decode": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        "flash_decode_plan": (_I, [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]),
+        "flash_decode": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
         "flash_decode_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {

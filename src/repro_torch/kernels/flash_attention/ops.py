@@ -5,17 +5,19 @@ forward with ``use_flash=True`` and no window."""
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_attention_ref
 
-__all__ = ["flash_attention", "flash_decode"]
+__all__ = ["decode_plan", "flash_attention", "flash_decode"]
 
 MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535  # K6's grid holds the query heads in y and the batch in z
+_PLANS = {}  # K5's (splits, positions per split) by (B, S, H, Hk, hd, bf16)
 
 
 def flash_attention(
@@ -82,6 +84,20 @@ def flash_attention(
     return out
 
 
+def decode_plan(b: int, s: int, h: int, hk: int, hd: int, bf16: bool) -> Tuple[int, int]:
+    """K5's split of the KV axis at this shape on the current card: (number
+    of splits, positions per split), from the kernel's own library; cached
+    by shape."""
+    key = (b, s, h, hk, hd, bf16)
+    plan = _PLANS.get(key)
+    if plan is None:
+        split_len = ctypes.c_int()
+        ns = _build.library("flash_decode").flash_decode_plan(
+            b, s, h, hk, hd, int(bf16), ctypes.byref(split_len))
+        plan = _PLANS[key] = (ns, split_len.value)
+    return plan
+
+
 def flash_decode(
     q: torch.Tensor,  # (B, 1, H, hd)
     k: torch.Tensor,  # (B, S, Hk, hd) cached keys
@@ -90,7 +106,10 @@ def flash_decode(
 ) -> torch.Tensor:
     """Single-query GQA attention of each slot against its first
     ``lengths[b]`` cache entries -> (B, 1, H, hd) in q's dtype.  fp32 math;
-    a slot of length 0 gives zeros."""
+    a slot of length 0 gives zeros.  On a card the KV axis is split across
+    blocks (:func:`decode_plan`); with more than one split the partial
+    results go through an fp32 workspace allocated here, and a second
+    kernel merges them within the same launch call."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q/k/v must be (B, 1|S, H|Hk, head_dim)")
     if q.shape[1] != 1:
@@ -108,25 +127,29 @@ def flash_decode(
         raise ValueError(f"head_dim={hd} must be in [1, {MAX_HEAD_DIM}]")
     if min(b, k.shape[1]) < 1:
         raise ValueError("q/k/v must be non-empty")
-    devices = {t.device for t in (q, k, v, lengths)}
-    if len(devices) != 1:
+    device = q.device
+    if k.device != device or v.device != device or lengths.device != device:
+        devices = {t.device for t in (q, k, v, lengths)}
         raise ValueError(f"q, k, v and lengths must share one device, got {devices}")
-    if q.device.type == "cpu":
+    if device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32 on the card, got {lengths.dtype}")
-    if not all(t.is_contiguous() for t in (q, k, v, lengths)):
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("q, k, v and lengths must be contiguous")
     s, hk = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
     lib = _build.library("flash_decode")
+    ns, _ = decode_plan(b, s, h, hk, hd, bf16)
     out = torch.empty_like(q)
-    with _build.on_device(q.device):
+    ws = q.new_empty(b * h * ns * (hd + 2), dtype=torch.float32) if ns > 1 else None
+    with _build.on_device(device):
         err = lib.flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, s, h, hk, hd, hd**-0.5,
-            _build.stream(q.device),
+            None if ws is None else ws.data_ptr(), int(bf16), b, s, h, hk, hd, hd**-0.5,
+            _build.stream(device),
         )
     _build.check("flash_decode", err, "flash_decode")
     _build.LAUNCHES["flash_decode"] += 1

@@ -21,34 +21,48 @@ from repro_torch.kernels.pairwise_l2.ops import pairwise_dists_stats
 
 __all__ = ["gram", "normalized_gram", "kernel_from_profiles", "candidate_kernel_from_profiles"]
 
+_WORKSPACE = {}  # K4's workspace length (fp32 elements) by (M, N, bf16)
+
 
 def gram(x: torch.Tensor) -> torch.Tensor:
     """X (M, N) fp32 or bf16 -> ``XᵀX`` (N, N) fp32 on X's device (K4).
 
-    bf16 values are upcast as they are loaded (their products are exact in
-    fp32) and every sum is fp32.  On a card, X may have a row stride (a
-    column slice of a wider matrix) but its elements must be contiguous
-    along a row.
+    On a card, N <= 128 takes the upper-triangle CUDA-core loop that K2
+    shares (bf16 upcast as loaded, fp32 sums), larger N a SYRK on the
+    tensor cores: bf16 products with fp32 sums, or 3xTF32 for fp32 X (each
+    element split in two TF32 halves, three products).  The result is
+    exactly symmetric.  X may have a row stride (a column slice of a wider
+    matrix) but its elements must be contiguous along a row.  On the CPU,
+    the plain version multiplies in fp32.
     """
     if x.ndim != 2:
         raise ValueError(f"gram expects a 2-D matrix, got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gram takes float32 or bfloat16, got {x.dtype}")
+    dtype = x.dtype
+    if dtype != torch.float32 and dtype != torch.bfloat16:
+        raise TypeError(f"gram takes float32 or bfloat16, got {dtype}")
     m, n = x.shape
     if m < 1 or n < 1:
         raise ValueError(f"gram expects a non-empty matrix, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return gram_ref(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.stride(1) != 1 or x.stride(0) < n:
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    ld, step = x.stride()
+    if step != 1 or ld < n:
         raise ValueError(f"x must be contiguous along its rows, got strides {x.stride()}")
+    bf16 = dtype == torch.bfloat16
     lib = _build.library("gram")
-    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    with _build.on_device(x.device):
+    key = (m, n, bf16)
+    ws_len = _WORKSPACE.get(key)
+    if ws_len is None:
+        ws_len = _WORKSPACE[key] = lib.gram_workspace(m, n, int(bf16))
+    out = x.new_empty((n, n), dtype=torch.float32)
+    ws = out.new_empty(ws_len) if ws_len else None
+    with _build.on_device(device):
         err = lib.gram_plain(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), m, n, x.stride(0),
-            out.data_ptr(), _build.stream(x.device),
+            x.data_ptr(), int(bf16), m, n, ld, out.data_ptr(),
+            None if ws is None else ws.data_ptr(), _build.stream(device),
         )
     _build.check("gram", err, "gram")
     _build.LAUNCHES["gram"] += 1

@@ -4,15 +4,17 @@ Plain init/apply pairs over dicts of tensors, as in the JAX package, with
 its layouts: activations (B, S, D), a dense weight (d_in, d_out) applied as
 ``x @ w``.  The dtype points are the JAX package's: norms compute in fp32
 and cast back, RoPE rotates in fp32 and casts back, MLPs stay in the
-activation dtype.
+activation dtype, and their activations round where XLA's do (``sigmoid``,
+``silu``, ``gelu_tanh``).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -23,6 +25,9 @@ __all__ = [
     "apply_norm",
     "rope_freqs",
     "apply_rope",
+    "sigmoid",
+    "silu",
+    "gelu_tanh",
     "init_mlp",
     "apply_mlp",
     "init_dense",
@@ -121,14 +126,43 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str, 
     return p
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it: 1 / (1 + exp(−x)), each of the
+    three operations rounded to x's dtype.  In bf16 this parts from
+    ``torch.sigmoid`` (one rounding) in about a third of elements."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x times its sigmoid rounded to x's dtype."""
+    return x * sigmoid(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a product with it
+    rounds as a product with a constant of that dtype does."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` as XLA expands it: x · 0.5 (1 +
+    tanh(c (x + a x³))), each operation rounded to x's dtype, with c =
+    √(2/π) and a = 0.044715 rounded to that dtype first (a Python float
+    would enter the products unrounded).  In bf16 this parts from
+    ``F.gelu(approximate="tanh")`` in about a third of elements."""
+    c = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
+    a = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
 def apply_mlp(cfg: ModelConfig, p: Dict[str, Params], x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_variant == "swiglu":
-        h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+        h = silu(dense(p["wg"], x)) * dense(p["wi"], x)
     elif cfg.mlp_variant == "geglu":
-        h = F.gelu(dense(p["wg"], x), approximate="tanh") * dense(p["wi"], x)
+        h = gelu_tanh(dense(p["wg"], x)) * dense(p["wi"], x)
     elif cfg.mlp_variant == "gelu":
-        h = F.gelu(dense(p["wi"], x), approximate="tanh")
+        h = gelu_tanh(dense(p["wi"], x))
     else:
         raise ValueError(f"unknown mlp_variant {cfg.mlp_variant!r}")
     return dense(p["wo"], h)
-

@@ -10,7 +10,7 @@ decay, and r/k/v/w/g formed from token-shift interpolations of x.
 The JAX package's module as plain PyTorch, with its layouts and dtype
 points: ``w0`` and ``u`` stay fp32 whatever ``cfg.param_dtype``, the decay
 and the WKV state are fp32, the group norm computes in fp32 and casts back,
-and the gates' sigmoid and SiLU round where JAX's do (``_sigmoid``).
+and the gates' sigmoid and SiLU round where JAX's do (``layers.sigmoid``).
 
 The state of a layer is ``{"tm_x", "cm_x": (B, D), "wkv": (B, H, hd, hd)
 fp32, "pos": () | (B,)}`` (``init_rwkv_state``).  With a state,
@@ -33,6 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.layers import sigmoid as _sigmoid
+from repro_torch.models.layers import silu as _silu
 
 __all__ = [
     "init_rwkv_tmix",
@@ -107,18 +109,6 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
     last token, at t = 0)."""
     pad = torch.zeros_like(x[:, :1]) if last is None else last[:, None].to(x.dtype)
     return torch.cat([pad, x[:, :-1]], dim=1)
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` as XLA expands it: 1 / (1 + exp(−x)), each of the
-    three operations rounded to x's dtype.  In bf16 this parts from
-    ``torch.sigmoid`` (one rounding) in about a third of elements."""
-    return 1.0 / (1.0 + torch.exp(-x))
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: x times its sigmoid rounded to x's dtype."""
-    return x * _sigmoid(x)
 
 
 def wkv6_scan_ref(

@@ -68,9 +68,9 @@ def test_normalized_gram_kernel_matches_plain(card, c, q, dtype):
 @pytest.mark.parametrize("c", [1, 15, 16, 17, 100, 130])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_normalized_gram_kernel_is_exactly_symmetric(card, c, dtype):
-    """K2 at and around its 16-wide tiles (one upper-triangle loop for c <=
-    128, the 64 x 64 loop above): L equals its transpose bit for bit, and
-    the plain version within the bound above, in both rounding modes."""
+    """K2 at and around its 16-wide tiles (one upper-triangle loop at every
+    c): L equals its transpose bit for bit, and the plain version within
+    the bound above, in both rounding modes."""
     s0, lo, hi = pw_ref.pairwise_dists_stats_ref(_profiles(c, 24, dtype, card, seed=7))
     rng = torch.clamp_min(hi - lo, 1e-30)
     got = gram_ops.normalized_gram(s0, lo, rng, c, dtype)
@@ -151,6 +151,38 @@ def test_gram_takes_a_row_stride(card):
     torch.testing.assert_close(gram_ops.gram(x), gram_ref.gram_ref(x), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize(
+    "m,n,dtype,cols",
+    [(4096, 1024, torch.float32, None), (4096, 1024, torch.bfloat16, None),
+     (3000, 777, torch.float32, None), (3000, 777, torch.bfloat16, None),  # rows not 16-byte aligned
+     (2000, 520, torch.float32, None), (2000, 520, torch.bfloat16, None),  # a ragged last tile
+     (3000, 784, torch.float32, 777)],  # a row stride: the last 16-byte chunk half in
+)
+def test_gram_tensor_core_syrk_is_symmetric_repeatable_and_in_bounds(card, m, n, dtype, cols):
+    """K4 for N > 128 (the tensor-core SYRK): exactly symmetric, the same
+    bits on two runs (deterministic row-slice sums), and within
+    ``chip_smoke.py``'s large-shape bound of the plain fp32 product, rtol
+    1e-5 plus atol 1e-5 * max|G|, in both types (bf16 products are exact
+    in fp32, so the plain version sums the same products); the result with
+    one stage of rows dropped must break that bound."""
+    x = torch.randn(m, n, generator=torch.Generator().manual_seed(m * 7919 + n)).to(dtype).to(card)
+    if cols is not None:
+        x = x[:, :cols]
+    before = _build.LAUNCHES["gram"]
+    got = gram_ops.gram(x)
+    again = gram_ops.gram(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gram"] == before + 2
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, again)
+    want = gram_ref.gram_ref(x)
+    tol = 1e-5 * float(want.abs().max()) + 1e-5 * want.abs()
+    diff = (got - want).abs()
+    assert bool(torch.all(diff <= tol)), f"max {float(diff.max())}"
+    stage = 64 if dtype == torch.bfloat16 else 32
+    assert not bool(torch.all((got - gram_ref.gram_ref(x[:stage]) - want).abs() <= tol))
+
+
 def test_k3_and_k4_refuse_what_the_kernels_do_not_take(card):
     f = _profiles(8, 6, torch.float32, card)
     with pytest.raises(ValueError, match="contiguous"):
@@ -221,10 +253,13 @@ def test_flash_decode_kernel_matches_plain(card, b, s, h, hk, hd, lengths, dtype
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_decode"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = fd_ref.decode_attention_ref(q, k, v, ln)
-    empty = ln == 0
-    assert torch.all(got[empty] == 0)
-    if dtype == torch.float32:
+    _check_decode(got, fd_ref.decode_attention_ref(q, k, v, ln), ln)
+
+
+def _check_decode(got, want, ln):
+    """K5's bounds against its plain version; empty slots exactly zero."""
+    assert torch.all(got[ln == 0] == 0)
+    if got.dtype == torch.float32:
         # fp32 sums in another order: the JAX test's bound
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:
@@ -237,6 +272,53 @@ def test_flash_decode_kernel_matches_plain(card, b, s, h, hk, hd, lengths, dtype
         diff = (got.float() - wf).abs()
         bad = diff > 2.0**-7 * wf.abs() + atol
         assert not bool(bad.any()), f"{int(bad.sum())} elements off, max {float(diff.max())}"
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,hd,dtype,lengths",
+    [
+        (6, 1000, 15, 5, 64, torch.bfloat16, "boundaries"),
+        (6, 1000, 15, 5, 64, torch.float32, "boundaries"),
+        (6, 300, 32, 2, 128, torch.bfloat16, "boundaries"),  # G = 16: two row groups
+        (6, 2000, 16, 1, 64, torch.float32, "boundaries"),  # G = 16
+        (1, 32768, 15, 5, 64, torch.bfloat16, "full"),
+        (16, 4096, 15, 5, 64, torch.bfloat16, "ragged"),
+    ],
+)
+def test_flash_decode_split_kv_matches_plain(card, b, s, h, hk, hd, dtype, lengths):
+    """K5 with its KV axis split across blocks (``decode_plan``) and the
+    partials merged by its second kernel: at lengths 0, 1, on the first two
+    split boundaries, one past the start of the last split and S (not a
+    multiple of the split); a slot of 32768 positions; and a ragged
+    (16, 4096) batch with an empty and a full slot.  One wrapper call adds
+    exactly 1 to the launch count."""
+    q, k, v = _qkv(b, s, h, hk, hd, dtype, card, seed=s)
+    ns, split = fd_ops.decode_plan(b, s, h, hk, hd, dtype == torch.bfloat16)
+    assert ns > 1 and split * (ns - 1) < s <= split * ns
+    if lengths == "boundaries":
+        assert s % split
+        lengths = [0, 1, split, 2 * split, split * (ns - 1) + 1, s]
+    elif lengths == "full":
+        lengths = [s] * b
+    else:
+        gen = torch.Generator().manual_seed(2)
+        lengths = [0, s] + [int(x) for x in torch.randint(1, s, (b - 2,), generator=gen)]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = _build.LAUNCHES["flash_decode"]
+    got = fd_ops.flash_decode(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_decode"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _check_decode(got, fd_ref.decode_attention_ref(q, k, v, ln), ln)
+
+
+def test_flash_decode_all_empty_batch_is_zero(card):
+    """Every split of every row empty: the merge gives zeros."""
+    q, k, v = _qkv(4, 512, 15, 5, 64, torch.bfloat16, card)
+    assert fd_ops.decode_plan(4, 512, 15, 5, 64, True)[0] > 1
+    got = fd_ops.flash_decode(q, k, v, torch.zeros(4, dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    assert bool(torch.all(got == 0))
 
 
 def test_flash_decode_refuses_what_the_kernel_does_not_take(card):

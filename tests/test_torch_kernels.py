@@ -12,6 +12,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import similarity as jsim  # noqa: E402
 from repro.kernels.gram import ops as jgram  # noqa: E402
+from repro.kernels.gram.gram import gram_kernel  # noqa: E402
 from repro.kernels.pairwise_l2 import ops as jpw  # noqa: E402
 from repro.kernels.pairwise_l2.pairwise_l2 import pairwise_dists_stats_kernel  # noqa: E402
 
@@ -170,6 +171,49 @@ def test_gram_matches_pallas(m, n):
     assert got.shape == (n, n) and got.dtype == torch.float32
     # the JAX test's fp32 bound
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _tf32(x):
+    """fp32 -> TF32 by clearing the 13 low mantissa bits of the float32 bit
+    pattern (toward zero), as K4 forms hi and as the tensor cores read an
+    fp32 register given as TF32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _gram_3xtf32(x, hi_only=False):
+    """K4's fp32 arithmetic on the tensor cores: hi = tf32(x), lo = x - hi
+    (exact), read by the tensor cores as tf32(lo); XᵀX as lo·hi + hi·lo +
+    hi·hi with fp32 sums (lo·lo dropped).  ``hi_only`` (the control):
+    hi·hi alone, plain TF32."""
+    hi = _tf32(x)
+    if hi_only:
+        return hi.T @ hi
+    lo = _tf32(x - hi)
+    return (lo.T @ hi + hi.T @ lo) + hi.T @ hi
+
+
+@pytest.mark.parametrize("m,n", K4_SHAPES)
+def test_k4_3xtf32_matches_pallas(m, n):
+    """3xTF32 at the JAX test's fp32 shapes and bound (1e-5) against the
+    Pallas K4 in interpret mode; TF32 alone (the control) breaks it."""
+    x = np.random.default_rng(m * 1000 + n).normal(size=(m, n)).astype(np.float32)
+    want = np.asarray(gram_kernel(jnp.asarray(x), interpret=True))
+    got = _gram_3xtf32(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    control = _gram_3xtf32(torch.from_numpy(x), hi_only=True).numpy()
+    assert not np.allclose(control, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k4_3xtf32_against_fp64_at_the_large_shape_bound():
+    """At (1024, 256), made as ``chip_smoke.py`` makes its inputs, 3xTF32
+    holds ``chip_smoke.py``'s large-shape fp32 bound (rtol 1e-5 plus atol
+    1e-5 * max|G|) against an fp64 product; TF32 alone breaks it."""
+    m, n = 1024, 256
+    x = torch.randn(m, n, generator=torch.Generator().manual_seed(m * 7919 + n))
+    exact = x.double().T @ x.double()
+    tol = 1e-5 * exact.abs().max() + 1e-5 * exact.abs()
+    assert bool(torch.all((_gram_3xtf32(x).double() - exact).abs() <= tol))
+    assert not bool(torch.all((_gram_3xtf32(x, hi_only=True).double() - exact).abs() <= tol))
 
 
 def test_gram_bf16_inputs_fp32_accumulation():

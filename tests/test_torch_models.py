@@ -111,16 +111,97 @@ def test_apply_rope_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("variant", ["swiglu", "geglu", "gelu"])
-def test_apply_mlp_matches_jax(variant):
-    jcfg, tcfg = _cfgs("smollm-360m", mlp_variant=variant)
-    jp = jlayers.init_mlp(jax.random.key(5), jcfg)
-    x = _normal((2, 4, jcfg.d_model), 6)
-    want = jlayers.apply_mlp(jcfg, jp, jnp.asarray(x))
-    tp = _t(_np(jp))
-    assert set(tp) == ({"wi", "wo"} if variant == "gelu" else {"wi", "wg", "wo"})
-    got = tlayers.apply_mlp(tcfg, tp, torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+def _exact_mlp_weights(cfg, variant, seed):
+    """bf16 MLP weights (numpy fp32 holding bf16 values) on which every GEMM
+    sum is exact in fp32, whatever its order: wi and wg are multiples of
+    2^-5 in [-1/4, 1/4] (with inputs that are multiples of 2^-2 in [-2, 2],
+    a product is a multiple of 2^-7 and a sum of d_model of them stays
+    under 2^24 of those steps), and wo is a signed permutation, so h @ wo
+    adds one product to zeros.  The frameworks' GEMMs take their sums in
+    other orders, and on general weights that flips one bf16 rounding in a
+    few thousand outputs; here only the activation can part them."""
+    rng = np.random.default_rng(seed)
+    d, ff = cfg.d_model, cfg.d_ff
+    assert ff == d  # wo is a permutation: every h element reaches the output
+    p = {"wi": {"w": rng.integers(-8, 9, size=(d, ff)) * 2.0**-5}}
+    if variant != "gelu":
+        p["wg"] = {"w": rng.integers(-8, 9, size=(d, ff)) * 2.0**-5}
+    wo = np.zeros((ff, d))
+    wo[rng.permutation(ff), np.arange(d)] = rng.choice([-1.0, 1.0], size=d)
+    p["wo"] = {"w": wo}
+    return jax.tree_util.tree_map(lambda a: a.astype(np.float32), p)
+
+
+def _mlp_rounding_once(variant, p, x):
+    """The bf16 MLP with PyTorch's fused activations, each rounding once."""
+    import torch.nn.functional as F
+
+    if variant == "swiglu":
+        h = F.silu(x @ p["wg"]["w"]) * (x @ p["wi"]["w"])
+    elif variant == "geglu":
+        h = F.gelu(x @ p["wg"]["w"], approximate="tanh") * (x @ p["wi"]["w"])
+    else:
+        h = F.gelu(x @ p["wi"]["w"], approximate="tanh")
+    return h @ p["wo"]["w"]
+
+
+@pytest.mark.parametrize(
+    "variant,dtype",
+    [pytest.param(v, "float32", id=v) for v in ("swiglu", "geglu", "gelu")]
+    + [pytest.param(v, "bfloat16", id=f"{v}-bf16") for v in ("swiglu", "geglu", "gelu")],
+)
+def test_apply_mlp_matches_jax(variant, dtype):
+    """fp32: at 1e-5.  bf16: bit for bit, on the same bf16 weights and
+    inputs (``_exact_mlp_weights``), because the port's activations round
+    each operation as XLA's expansion of ``jax.nn.silu`` and
+    ``jax.nn.gelu(approximate=True)`` does; the same MLP with
+    ``F.silu``/``F.gelu`` (one rounding) parts from JAX's on these inputs."""
+    if dtype == "float32":
+        jcfg, tcfg = _cfgs("smollm-360m", mlp_variant=variant)
+        jp = jlayers.init_mlp(jax.random.key(5), jcfg)
+        x = _normal((2, 4, jcfg.d_model), 6)
+        want = jlayers.apply_mlp(jcfg, jp, jnp.asarray(x))
+        tp = _t(_np(jp))
+        assert set(tp) == ({"wi", "wo"} if variant == "gelu" else {"wi", "wg", "wo"})
+        got = tlayers.apply_mlp(tcfg, tp, torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
+    kw = dict(param_dtype="bfloat16", dtype="bfloat16", remat=False, mlp_variant=variant, d_ff=256)
+    jcfg, tcfg = jget_arch("smollm-360m").model.reduced(**kw), get_arch("smollm-360m").model.reduced(**kw)
+    p = _exact_mlp_weights(jcfg, variant, 5)
+    x = np.random.default_rng(6).integers(-8, 9, size=(2, 8, jcfg.d_model)).astype(np.float32) / 4
+    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), p)
+    want = np.asarray(jlayers.apply_mlp(jcfg, jp, jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    tp = jax.tree_util.tree_map(lambda a: torch.from_numpy(a).bfloat16(), p)
+    xt = torch.from_numpy(x).bfloat16()
+    got = tlayers.apply_mlp(tcfg, tp, xt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert (_mlp_rounding_once(variant, tp, xt).float().numpy() != want).mean() > 0.05
+
+
+def test_activations_round_as_jax_does():
+    """``layers.sigmoid``, ``silu`` and ``gelu_tanh`` against
+    ``jax.nn.sigmoid``, ``jax.nn.silu`` and ``jax.nn.gelu(approximate=True)``
+    on a bf16 sweep of N(0, 4²), bit for bit; PyTorch's fused ``F.silu`` and
+    ``F.gelu(approximate="tanh")`` round once and part from JAX's in about
+    a third of elements (the control).  In fp32 at 1e-5."""
+    import torch.nn.functional as F
+
+    x = np.random.default_rng(18).normal(scale=4.0, size=(65536,)).astype(np.float32)
+    pairs = (
+        (jax.nn.sigmoid, tlayers.sigmoid, torch.sigmoid),
+        (jax.nn.silu, tlayers.silu, F.silu),
+        (lambda v: jax.nn.gelu(v, approximate=True), tlayers.gelu_tanh,
+         lambda v: F.gelu(v, approximate="tanh")),
+    )
+    for jfn, tfn, fused in pairs:
+        want = np.asarray(jfn(jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+        got = tfn(torch.from_numpy(x).bfloat16())
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        assert (fused(torch.from_numpy(x).bfloat16()).float().numpy() != want).mean() > 0.2
+        np.testing.assert_allclose(tfn(torch.from_numpy(x)).numpy(), np.asarray(jfn(jnp.asarray(x))), **TOL)
 
 
 def test_init_mlp_shapes_and_scale():
@@ -158,6 +239,77 @@ def test_flash_decode_matches_pallas_and_ref(b, s, h, hk, hd, bk, lengths):
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(jref), atol=1e-5)
     assert np.all(got.numpy()[ln == 0] == 0)
+
+
+def _split_decode(q, k, v, lengths, split, rescale=True):
+    """K5's split-KV arithmetic in torch on the CPU.  The KV axis is cut
+    into splits of ``split`` positions; each split gives a partial per
+    (slot, query head): the row max m of its scores in log2 units (scaled
+    by hd^-0.5 * log2(e)), the sum l of exp2(score - m) and the
+    unnormalised P.V sum, or an empty partial (m = -inf, l = 0) where the
+    split starts at or past the slot's length.  The partials are merged
+    with the log-sum-exp rescale, skipping empty ones; a row whose every
+    split is empty gives zeros.  ``rescale=False`` (the control) adds the
+    partials without it."""
+    b, _, h, hd = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    qs = q[:, 0].float().reshape(b, hk, h // hk, hd) * (hd**-0.5 * 1.4426950408889634)
+    parts = []
+    for lo in range(0, s, split):
+        hi = min(lo + split, s)
+        kt, vt = (t[:, lo:hi].float().permute(0, 2, 1, 3) for t in (k, v))  # (B, Hk, n, hd)
+        valid = (torch.arange(lo, hi)[None, :] < lengths[:, None].long())[:, None, None, :]
+        sc = torch.where(valid, qs @ kt.transpose(-1, -2), -torch.inf)  # (B, Hk, G, n)
+        m = sc.amax(-1)
+        p = torch.where(valid, torch.exp2(sc - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), p @ vt))
+    m, l, acc = (torch.stack(t) for t in zip(*parts))
+    if rescale:
+        big = torch.where(l > 0, m, -torch.inf).amax(0)
+        w = torch.where(l > 0, torch.exp2(m - big), 0.0)
+    else:
+        w = (l > 0).float()
+    lsum, out = (l * w).sum(0), (acc * w[..., None]).sum(0)
+    out = torch.where(lsum[..., None] > 0, out / lsum[..., None], 0.0)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hk,hd,split,lengths",
+    [
+        (5, 40, 4, 2, 32, 16, [0, 1, 7, 33, 40]),  # the JAX test's three shapes
+        (5, 40, 4, 2, 32, 7, [0, 1, 7, 33, 40]),
+        (2, 64, 4, 4, 16, 32, [64, 50]),
+        (2, 64, 4, 4, 16, 5, [64, 50]),
+        (3, 16, 4, 1, 64, 64, [16, 3, 9]),
+        (3, 16, 4, 1, 64, 1, [16, 3, 9]),
+        # 0; 1; on a split boundary (16, 32); inside the last split (49);
+        # S = 50 not a multiple of the split; smollm's heads
+        (6, 50, 15, 5, 64, 16, [0, 1, 16, 32, 49, 50]),
+        (3, 24, 4, 2, 32, 8, [0, 0, 0]),  # a batch that is all empty
+    ],
+)
+def test_k5_split_and_merge_match_pallas_and_ref(b, s, h, hk, hd, split, lengths):
+    """The split-KV arithmetic of K5's CUDA kernel (``_split_decode``) at
+    the JAX test's bound, 1e-5, against the Pallas kernel in interpret mode
+    and the plain version; a merge without the rescale (the control) breaks
+    it wherever a row has two non-empty splits."""
+    rng = np.random.default_rng(b * 100 + s + split)
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((b, 1, h, hd), (b, s, hk, hd), (b, s, hk, hd)))
+    ln = np.asarray(lengths, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, ln)]
+    pallas = np.asarray(flash_decode_kernel(*jargs, block_k=16, interpret=True))
+    targs = [torch.from_numpy(a) for a in (q, k, v, ln)]
+    got = _split_decode(*targs, split)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), tflash_ref.decode_attention_ref(*targs).numpy(), atol=1e-5)
+    assert np.all(got.numpy()[ln == 0] == 0)
+    control = _split_decode(*targs, split, rescale=False).numpy()
+    if any(x > split for x in lengths):
+        assert np.abs(control - pallas).max() > 1e-2
+    else:
+        np.testing.assert_allclose(control, pallas, atol=1e-5)
 
 
 def test_attention_ref_matches_jax():
