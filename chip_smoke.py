@@ -20,7 +20,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    attention) at the LM path's refresh shape, three long bf16 shapes and
    the JAX test's five fp32 shapes, windows included, and K7 (the WKV6
    recurrence) at rwkv6-7b's decode and prefill shapes, two long shapes,
-   the JAX test's four fp32 shapes and its state hand-off.  K3 (squared
+   its admission prefill with decays exactly 0 and at 1 - 1e-7, the JAX
+   test's four fp32 shapes and its state hand-off, each with the design
+   the shape takes (recurrent, or chunked with its value slices).  K3 (squared
    distances) and K4 (XᵀX) the same way, at the JAX sweeps' shapes in both
    types, the stage-wise path's shapes and four larger ones; K3 is also
    held against an fp64 chain, no further from it than its plain version.
@@ -72,7 +74,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with its sums reordered, and one bf16 step added in layer 0) show how
    far correct bf16 paths part, and K7's bf16 logits are held to them.  The
    continuous tokens are held on an engine over the fp32 copy.
-7. Prints one JSON line describing every kernel, then the device line
+7. Prints, for each shape the RWKV path gave K7, its launches there
+   beside that shape's cold device time and bound; then one JSON line
+   describing every kernel, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and imports nothing of JAX.
@@ -146,18 +150,22 @@ ATTN_SHAPES = [
     (1, 128, 4, 1, 64, "fp32", 32),
     (1, 32, 2, 2, 8, "fp32", None),
 ]
-# K7: (B, T, H, hd, dtype name); rwkv6-7b's decode step first, then its
-# prefill of one admitted request and of the scan batch
+# K7: (B, T, H, hd, dtype name, decays); rwkv6-7b's decode step first,
+# then its prefill of one admitted request and of the scan batch.  Decays:
+# None = the JAX test's (fp32) or the model's law (bf16); "edge" = the
+# model's law with a fifth of the channels exactly 0 (its exponent clamped
+# at 8) and a fifth at 1 - 1e-7 (its slowest)
 WKV_SHAPES = [
-    (16, 1, 64, 64, "bf16"),
-    (1, 128, 64, 64, "bf16"),
-    (16, 128, 64, 64, "bf16"),
-    (4, 2048, 64, 64, "bf16"),
-    (1, 4096, 64, 64, "bf16"),
-    (2, 64, 2, 16, "fp32"),  # the JAX test's shapes
-    (1, 100, 3, 32, "fp32"),
-    (2, 33, 1, 64, "fp32"),
-    (1, 16, 2, 8, "fp32"),
+    (16, 1, 64, 64, "bf16", None),
+    (1, 128, 64, 64, "bf16", None),
+    (16, 128, 64, 64, "bf16", None),
+    (4, 2048, 64, 64, "bf16", None),
+    (1, 4096, 64, 64, "bf16", None),
+    (1, 128, 64, 64, "bf16", "edge"),
+    (2, 64, 2, 16, "fp32", None),  # the JAX test's shapes
+    (1, 100, 3, 32, "fp32", None),
+    (2, 33, 1, 64, "fp32", None),
+    (1, 16, 2, 8, "fp32", None),
 ]
 # K3: (C, Q, dtype name); the FC-1 path's shape first, then the JAX sweep's
 # shapes (tests/test_kernels.py::test_pairwise_l2_sweep) in both types, and
@@ -272,10 +280,13 @@ def bound(nbytes: float, flops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def serve_phase(torch, dev, arch: str) -> int:
+def serve_phase(torch, dev, arch: str):
     """The serving main path of ``arch`` at full width through its kernel
     (``SERVE_PATHS``), which runs once per layer at every decode step and,
-    for K7, at every prefill; returns the kernel's launches on the path."""
+    for K7, at every prefill; returns the kernel's launches on the path
+    and, for K7, its calls there by input shape (B, T), whose sum is held
+    to the launch count."""
+    import collections
     import dataclasses
 
     import numpy as np
@@ -301,6 +312,19 @@ def serve_phase(torch, dev, arch: str) -> int:
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p), dtype=np.int32), device=dev)
     # warm-up (cuBLAS handles, allocator pools), outside the counted runs
     serve_launch.run_scan_mode(cfg, params, prompts[:, :8], 4, use_flash=True)
+
+    # K7's calls by input shape over the two counted runs
+    shapes = collections.Counter()
+    if kernel == "wkv6":
+        from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+
+        real_wkv6 = wkv_ops.wkv6
+
+        def recorded(r, *rest):
+            shapes[tuple(r.shape[:2])] += 1
+            return real_wkv6(r, *rest)
+
+        wkv_ops.wkv6 = recorded
 
     # scan mode through the kernel
     _build.reset_launches()
@@ -352,6 +376,10 @@ def serve_phase(torch, dev, arch: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     cont_launches = dict(_build.LAUNCHES)
+    if kernel == "wkv6":
+        wkv_ops.wkv6 = real_wkv6
+        check(sum(shapes.values()) == scan_launches[kernel] + cont_launches[kernel],
+              f"{label} calls by shape {dict(shapes)} against its launches")
     steps = eng.state.step
     tokens = sum(len(f.tokens) for f in finished)
     ttft = np.asarray(sorted(eng.ttft.values())) * 1e3
@@ -593,7 +621,7 @@ def serve_phase(torch, dev, arch: str) -> int:
             f"{t_ours * 1e3:.2f} us a call, the fused op {t_fused * 1e3:.2f} us; "
             f"{cfg.num_layers} calls a decode step"
         )
-    return scan_launches[kernel] + cont_launches[kernel]
+    return scan_launches[kernel] + cont_launches[kernel], dict(shapes)
 
 
 def check_k3(torch, f, what: str):
@@ -1351,18 +1379,24 @@ def main() -> int:
 
     # K7 on its own against its plain version; no PyTorch call computes WKV6
     wkv_rows = {}
-    for b, t, h, hd, kind in WKV_SHAPES:
+    for b, t, h, hd, kind, decays in WKV_SHAPES:
         gen = torch.Generator().manual_seed(b * 7919 + t + hd)
         r, k, v = (torch.randn(b, t, h, hd, generator=gen).to(dtypes[kind]).to(dev) for _ in range(3))
         if kind == "fp32":  # the JAX test's decays
             w = 0.4 + 0.59 * torch.rand(b, t, h, hd, generator=gen)
         else:  # the model's law, exp(-exp(z)), from its fastest decays to its slowest
             w = torch.exp(-torch.exp(torch.rand(b, t, h, hd, generator=gen) * 6.0 - 6.0))
+        if decays == "edge":
+            w[..., 0::5] = torch.exp(-torch.exp(torch.tensor(8.0)))
+            w[..., 1::5] = 1.0 - 1e-7
+            check(bool((w[..., 0::5] == 0).all()), "the clamped decay is not exactly 0 in fp32")
         u = torch.randn(h, hd, generator=gen)
         s0 = torch.randn(b, h, hd, hd, generator=gen)  # a state carried in from earlier tokens
         w, u, s0 = w.to(dev), u.to(dev), s0.to(dev)
         got_y, got_s = wkv_ops.wkv6(r, k, v, w, u, s0)
         torch.cuda.synchronize()
+        check(bool(torch.isfinite(got_y.float()).all() and torch.isfinite(got_s).all()),
+              f"K7 non-finite at {(b, t, h, hd, kind, decays)}")
         want_y, want_s = wkv_ref.wkv6_scan_ref(r, k, v, w, u, s0)
         want_y = want_y.to(r.dtype)
         dy = (got_y.float() - want_y.float()).abs()
@@ -1387,28 +1421,45 @@ def main() -> int:
             check(bad == 0 and bad_s == 0,
                   f"K7 off at {(b, t, h, hd, kind)}: {bad} y elements (max {err_y}), {bad_s} S elements (max {err_s})")
         k7_ms = time_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0))
-        k7_hot = device_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0), "wkv6")
-        k7_dev = device_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0), "wkv6", cold=True)
+        # the chunked design with more than one slice launches two kernels
+        # (A of every chunk, then the chunks in order); with one slice, or
+        # the recurrent design, one
+        slices = wkv_ops.design(b, t, h, hd)
+        kernels = 2 if slices > 1 else 1
+        k7_hot = device_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0), "wkv6", per_call=kernels)
+        k7_dev = device_ms(torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0), "wkv6", per_call=kernels,
+                           cold=True)
+        # the chunked design's two kernels apart, cold
+        split = "" if kernels == 1 else " (triangle {}, chunks {})".format(*(fmt_ms(device_ms(
+            torch, lambda: wkv_ops.wkv6(r, k, v, w, u, s0), mark, cold=True))
+            for mark in ("wkv6_triangle", "wkv6_chunked")))
         # the plain loop launches ~6 kernels per token: fewer timed calls
         reps = dict(launches=1, repeats=3, warmup=1) if t > 16 else {}
         k7_plain = time_ms(torch, lambda: wkv_ref.wkv6_scan_ref(r, k, v, w, u, s0), **reps)
         # least work: r, k, v and w read once, y written once, the state
         # read and written once, u read once.  Per (b, t, h) the recurrence
         # needs 5 hd^2 fp32 FLOPs, r^T S (2 hd^2) and w_i S_ij + k_i v_j
-        # (3 hd^2), and 4 hd for the bonus taken as (r . (u * k)) v
+        # (3 hd^2), and 4 hd for the bonus taken as (r . (u * k)) v.  Where
+        # the chunked design runs, its two products (R~ S and K~^T V, 2 hd^2
+        # each) on the tensor cores may take less: 3xTF32 for R~ S, and two
+        # TF32 products (bf16 v, exact in TF32) or three (fp32 v) for K~^T
+        # V, at TF32's peak; the smaller of the two counts
         esize = r.element_size()
         seq = b * t * h * hd
-        b7 = bound(seq * (4 * esize + 4) + 2 * b * h * hd * hd * 4 + h * hd * 4,
-                   (5.0 * hd * hd + 4.0 * hd) * h * b * t, "fp32")
-        wkv_rows[(b, t, kind)] = dict(
+        nbytes = seq * (4 * esize + 4) + 2 * b * h * hd * hd * 4 + h * hd * 4
+        b7 = bound(nbytes, (5.0 * hd * hd + 4.0 * hd) * h * b * t, "fp32")
+        if slices:
+            b7 = min(b7, bound(nbytes, (3 + (2 if kind == "bf16" else 3)) * 2.0 * hd * hd * h * b * t, "tf32"))
+        wkv_rows[(b, t, kind, decays)] = dict(
             max_abs_err=err_y, ms=k7_ms, device_ms=k7_dev, plain_ms=k7_plain,
-            library_ms=None, bound_ms=b7[0], bound_by=b7[1],
+            library_ms=None, bound_ms=b7[0], bound_by=b7[1], design=slices,
         )
         print(
-            f"K7 B={b} T={t} H={h} hd={hd} {kind}: err y={err_y:.3e} S={err_s:.3e} "
+            f"K7 B={b} T={t} H={h} hd={hd} {kind}{' decays ' + decays if decays else ''} "
+            f"{f'chunked x{slices} slices' if slices else 'recurrent'}: err y={err_y:.3e} S={err_s:.3e} "
             f"(tol {'2^-7*|y| + at most ' if kind == 'bf16' else ''}{tol:.3e}{'' if kind == 'fp32' else ', S 1e-5*max|S| of the head'}) "
-            f"ms={k7_ms:.5f} device_ms cold={fmt_ms(k7_dev)} hot (L2-resident, not held to the bound)={fmt_ms(k7_hot)} plain={k7_plain:.5f} "
-            f"library=none bound={b7[0]:.6f} ({b7[1]}){share(b7[0], k7_dev, f"K7 {(b, t, kind)}")}"
+            f"ms={k7_ms:.5f} device_ms cold={fmt_ms(k7_dev)}{split} hot (L2-resident, not held to the bound)={fmt_ms(k7_hot)} plain={k7_plain:.5f} "
+            f"library=none bound={b7[0]:.6f} ({b7[1]}){share(b7[0], k7_dev, f"K7 {(b, t, kind, decays)}")}"
         )
     # the state hand-off: two halves == one shot, at the JAX test's bound
     gen = torch.Generator().manual_seed(17)
@@ -1552,7 +1603,7 @@ def main() -> int:
     baselines_phase(torch, exp, client_xs, client_ys)
 
     # ------------------------------------------- 4. the serving main path
-    serve_launches = serve_phase(torch, dev, "smollm-360m")
+    serve_launches, _ = serve_phase(torch, dev, "smollm-360m")
 
     # ------------------------------------------------ 5. the LM client path
     lm_launches = lm_phase(torch, dev)
@@ -1562,7 +1613,7 @@ def main() -> int:
     # before the 15 GB model and its 30 GB fp32 copy
     gc.collect()
     torch.cuda.empty_cache()
-    rwkv_launches = serve_phase(torch, dev, "rwkv6-7b")
+    rwkv_launches, rwkv_shapes = serve_phase(torch, dev, "rwkv6-7b")
 
     # ---------------------------------------------------------- 7. results
     main_shape = SHAPES[0]
@@ -1602,10 +1653,23 @@ def main() -> int:
         "wkv6": (
             "src/repro_torch/kernels/csrc/wkv6.cu",
             "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:63",
-            wkv_rows[WKV_SHAPES[0][0], WKV_SHAPES[0][1], WKV_SHAPES[0][4]],
+            wkv_rows[tuple(WKV_SHAPES[0][i] for i in (0, 1, 4, 5))],
             rwkv_launches,
         ),
     }
+    # K7 at each shape the RWKV serving path gave it: its launches there
+    # beside the shape's cold device time and bound (from the rows above)
+    for (b, t), n in sorted(rwkv_shapes.items()):
+        r = wkv_rows.get((b, t, "bf16", None))
+        check(r is not None, f"K7 path shape {(b, t)} is not among WKV_SHAPES")
+        print(
+            f"K7 path shape B={b} T={t}: launches {n}, "
+            f"{f'chunked x{r['design']} slices' if r['design'] else 'recurrent'}, device_ms cold "
+            f"{fmt_ms(r['device_ms'])}, bound {r['bound_ms']:.6f} ({r['bound_by']})"
+            f"{'' if r['device_ms'] is None else f' = {r['bound_ms'] / r['device_ms']:.4f} of it'}, "
+            f"plain {r['plain_ms']:.5f}, lost to the bound "
+            f"{'not measured' if r['device_ms'] is None else f'{n * (r['device_ms'] - r['bound_ms']):.3f} ms'}"
+        )
     table = []
     for name, (source, replaces, r, n) in sources.items():
         table.append(dict(

@@ -70,7 +70,9 @@ _SIGNATURES = {
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "wkv6": {
-        "wkv6": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "wkv6_plan": (_I, [_I, _I, _I, _I]),
+        "wkv6_workspace": (ctypes.c_longlong, [_I, _I, _I, _I]),
+        "wkv6": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "wkv6_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -10,9 +10,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
 
-__all__ = ["wkv6"]
+__all__ = ["design", "wkv6"]
 
 HEAD_DIMS = (8, 16, 32, 64)  # the kernel's templates
+CHUNK = 16  # tokens per chunk of the chunked design (kL in wkv6.cu)
+
+
+def design(b: int, t: int, h: int, hd: int) -> int:
+    """The CUDA design a call of this shape takes (``wkv6_plan``): 0 for the
+    recurrent kernel, else the number of value slices of the chunked one.
+    Needs a card: the slices follow its SM count."""
+    return int(_build.library("wkv6").wkv6_plan(b, t, h, hd))
 
 
 def wkv6(
@@ -28,6 +36,16 @@ def wkv6(
     Per (b, h): ``y_t = r_tᵀ (S + diag(u ⊙ k_t) v_tᵀ)``, then
     ``S ← diag(w_t) S + k_t v_tᵀ``, in fp32 from ``S = s0``.  On the card
     r/k/v are all fp32 or all bf16, and w, u and s0 fp32.
+
+    Two designs on the card, chosen by shape alone (``csrc/wkv6.cu``; a
+    call counts one launch in ``LAUNCHES`` whichever runs): fp32 or bf16
+    alike, T < 16 (the decode step) and
+    hd = 8 take the recurrent kernel, one block per (b, h); T >= 16 with hd
+    in {16, 32, 64} (rwkv6-7b's bf16 hd-64 prefill) takes the chunked one,
+    chunks of 16 tokens with the products on the tensor cores, one block
+    per (b, h, slice of the value columns) running the chunks in order.
+    With more than one slice a first kernel forms each chunk's intra-chunk
+    matrix A once, in a workspace allocated here.
 
     Forward only, like the TPU kernel it replaces (no VJP there, no
     backward here): it raises when grad is enabled and an input requires
@@ -70,10 +88,13 @@ def wkv6(
     lib = _build.library("wkv6")
     y = torch.empty_like(r)
     s_out = torch.empty_like(s0)
+    # A of every chunk, for the chunked design with more than one slice
+    nbytes = lib.wkv6_workspace(b, t, h, hd)
+    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=r.device) if nbytes else None
     with _build.on_device(r.device):
         err = lib.wkv6(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+            s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), None if ws is None else ws.data_ptr(),
             int(r.dtype == torch.bfloat16), b, t, h, hd,
             _build.stream(r.device),
         )

@@ -547,6 +547,12 @@ def assert_wkv6_close(got, want, atol=None):
         (4, 2048, 64, 64, torch.bfloat16),
         (1, 4096, 64, 64, torch.bfloat16),
         (3, 45, 5, 32, torch.float32),  # T not a multiple of the staged chunk
+        (16, 128, 64, 64, torch.bfloat16),  # rwkv6-7b's scan prefill
+        (2, 15, 4, 64, torch.bfloat16),  # T on each side of the chunked design's 16
+        (2, 17, 4, 64, torch.bfloat16),
+        (3, 15, 2, 32, torch.float32),
+        (3, 16, 2, 32, torch.float32),
+        (2, 37, 72, 32, torch.float32),  # one slice: A formed in the chunks' kernel
     ],
 )
 def test_wkv6_kernel_matches_plain(card, b, t, h, hd, dtype):
@@ -559,9 +565,60 @@ def test_wkv6_kernel_matches_plain(card, b, t, h, hd, dtype):
     assert _build.LAUNCHES["wkv6"] == before + 1
     assert torch.equal(args[5], s0)  # s0 is read, not written
     assert got[0].shape == args[0].shape and got[1].shape == s0.shape
+    # the design follows the shape alone: chunked from T = 16 at hd >= 16
+    chunked = t >= wkv_ops.CHUNK and hd >= 16
+    assert (wkv_ops.design(b, t, h, hd) > 0) == chunked
     y, s = wkv_ref.wkv6_scan_ref(*args)
     # the JAX sweep's bound for fp32
     assert_wkv6_close(got, (y.to(dtype), s), atol=5e-4 if dtype == torch.float32 else None)
+
+
+def _edge_decays(w):
+    """w with every fifth channel exactly 0 (the model's exponent clamped at
+    8: exp(-exp(8)) is 0 in fp32) and every fifth from the second 1 - 1e-7
+    (its slowest decay)."""
+    w = w.clone()
+    w[..., 0::5] = 0.0
+    w[..., 1::5] = 1.0 - 1e-7
+    return w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_prefill_with_exact_zero_and_slowest_decays(card, dtype):
+    """rwkv6-7b's admission prefill shape with decays that are exactly 0 and
+    1 - 1e-7: the chunked design's running products give 0 where the
+    recurrence does, and no NaN."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, 128, 64, 64, dtype, card, seed=11, w_range=None)
+    w = _edge_decays(w)
+    before = _build.LAUNCHES["wkv6"]
+    got = wkv_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv6"] == before + 1
+    assert wkv_ops.design(1, 128, 64, 64) > 0
+    assert bool(torch.isfinite(got[0].float()).all()) and bool(torch.isfinite(got[1]).all())
+    y, s = wkv_ref.wkv6_scan_ref(r, k, v, w, u, s0)
+    assert_wkv6_close(got, (y.to(dtype), s), atol=5e-4 if dtype == torch.float32 else None)
+
+
+@pytest.mark.parametrize("b,t,h", [(2, 40, 4), (3, 20, 48)])  # four slices; one
+def test_wkv6_chunked_kernel_takes_unaligned_inputs(card, b, t, h):
+    """Inputs that start 2 bytes past a 16-byte boundary take the chunked
+    kernels' ordinary loads in place of cp.async, with the same result."""
+    args = _wkv_inputs(b, t, h, 64, torch.bfloat16, card, seed=3, w_range=None)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+        out = buf[1 : 1 + x.numel()].view(x.shape)
+        out.copy_(x)
+        return out
+
+    r, k, v, w = (shifted(x) for x in args[:4])
+    assert r.data_ptr() % 16 != 0 and r.is_contiguous()
+    got = wkv_ops.wkv6(r, k, v, w, *args[4:])
+    torch.cuda.synchronize()
+    assert_wkv6_close(got, wkv_ops.wkv6(*args))
+    y, s = wkv_ref.wkv6_scan_ref(*args)
+    assert_wkv6_close(got, (y.to(torch.bfloat16), s))
 
 
 def test_wkv6_kernel_state_handoff_equals_one_shot(card):

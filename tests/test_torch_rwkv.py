@@ -94,6 +94,174 @@ def test_plain_wkv6_matches_pallas_and_jax_ref(b, t, h, hd, bt):
     assert torch.equal(wy, ty) and torch.equal(ws, ts)
 
 
+# ------------------------------------------- K7's chunked design on the CPU
+
+
+def _tf32(x):
+    """fp32 -> TF32 by clearing the 13 low mantissa bits of the float32 bit
+    pattern (toward zero), as K7 forms hi and as the tensor cores read an
+    fp32 register given as TF32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mma(a, b, exact_b=False, hi_only=False):
+    """a (.., M, K) @ b (.., K, N) as K7's ``mma_3x``: each k-step of 8 is a
+    fresh fp32 sum lo·hi + hi·lo + hi·hi of the exact splits x = hi + lo
+    (lo read as TF32; no hi·lo where b is exact in TF32), added to the fp32
+    total.  ``hi_only`` (a control): hi·hi alone, one TF32 pass."""
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        ak, bk = a[..., k0 : k0 + 8], b[..., k0 : k0 + 8, :]
+        ahi, bhi = _tf32(ak), _tf32(bk)
+        d = torch.zeros_like(out) if hi_only else _tf32(ak - ahi) @ bhi
+        if not (exact_b or hi_only):
+            d = d + ahi @ _tf32(bk - bhi)
+        out = out + (d + ahi @ bhi)
+    return out
+
+
+def _chunked_wkv6(r, k, v, w, u, s0, exact_v=False, control=None):
+    """K7's chunked arithmetic (``csrc/wkv6.cu``) in torch on the CPU.
+    Chunks of ``CHUNK`` tokens, a last partial one padded with r = k = v =
+    0 and w = 1.  Per chunk: prefix products P_t = Π_{m<t} w_m give r̃ = r ⊙
+    P and the chunk decay D = P_CHUNK; suffix products give k̃_s = k_s ⊙
+    Π_{s<m<CHUNK} w_m; the triangle A_ts = Σ_i r_ti k_si Π_{s<m<t} w_mi
+    (s < t) keeps k_s times its running product, and A_tt is the bonus Σ_i
+    r_ti u_i k_ti.  Then y = R̃ S + A V and S ← diag(D) S + K̃ᵀ V, the
+    products taken as the tensor cores take them (``_mma``; ``exact_v``:
+    v holds bf16 values).  ``control``: "prefix_through_t" takes P_t
+    through w_t, "no_chunk_decay" drops D, "tf32_only" takes each product
+    in one TF32 pass."""
+    b, t, h, hd = r.shape
+    n = twkv.CHUNK
+    r, k, v, w = (x.float().permute(0, 2, 1, 3) for x in (r, k, v, w))  # (B, H, T, hd)
+    s = s0.float().clone()
+    ys = []
+    for c0 in range(0, t, n):
+        tc = min(n, t - c0)
+        rc, kc, vc, wc = (x[:, :, c0 : c0 + tc] for x in (r, k, v, w))
+        if tc < n:
+            pad = torch.zeros(b, h, n - tc, hd)
+            rc, kc, vc = (torch.cat([x, pad], 2) for x in (rc, kc, vc))
+            wc = torch.cat([wc, torch.ones(b, h, n - tc, hd)], 2)
+        rt, kt = torch.empty_like(rc), torch.empty_like(kc)
+        p = torch.ones(b, h, hd)
+        for i in range(n):
+            if control == "prefix_through_t":
+                p = p * wc[:, :, i]
+            rt[:, :, i] = rc[:, :, i] * p
+            if control != "prefix_through_t":
+                p = p * wc[:, :, i]
+        dec = torch.ones_like(p) if control == "no_chunk_decay" else p
+        p = torch.ones(b, h, hd)
+        for i in reversed(range(n)):
+            kt[:, :, i] = kc[:, :, i] * p
+            p = p * wc[:, :, i]
+        a = torch.zeros(b, h, n, n)
+        kp = kc.clone()
+        for i in range(n):
+            a[:, :, i, i] = (rc[:, :, i] * u[None] * kc[:, :, i]).sum(-1)
+            if i:
+                a[:, :, i, :i] = (rc[:, :, i, None, :] * kp[:, :, :i]).sum(-1)
+                kp[:, :, :i] = kp[:, :, :i] * wc[:, :, i, None, :]
+        one_pass = control == "tf32_only"
+        y = _mma(rt, s, hi_only=one_pass) + _mma(a, vc, exact_b=exact_v, hi_only=one_pass)
+        s = dec[..., None] * s + _mma(kt.transpose(-1, -2), vc, exact_b=exact_v, hi_only=one_pass)
+        ys.append(y[:, :, :tc])
+    return torch.cat(ys, 2).permute(0, 2, 1, 3), s
+
+
+def _scan64(r, k, v, w, u, s):
+    """The recurrence in fp64 (the plain version's loop, without its fp32)."""
+    r, k, v, w, u, s = (torch.from_numpy(np.asarray(x, np.float64)) for x in (r, k, v, w, u, s))
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + u[None, :, :, None] * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(ys, 1), s
+
+
+def _chunked_inputs(b, t, h, hd, decays, seed):
+    """numpy inputs.  "jax": fp32 r/k/v and the JAX sweep's decays in [0.4,
+    0.99); "law": r/k/v rounded to bf16 (the main path's) and the model's
+    law exp(-exp(z)), z ~ U(-6, 0); "edge": the same with a fifth of the
+    channels at exactly 0 (the exponent clamped at 8), a fifth at 1 - 1e-7
+    and a fifth at exactly 1 (clamped at -20)."""
+    if decays == "jax":
+        return _wkv_inputs(b, t, h, hd, seed)
+    rng = np.random.default_rng(seed)
+    to_bf16 = lambda x: torch.from_numpy(x).bfloat16().float().numpy()  # noqa: E731
+    r, k, v = (to_bf16(rng.normal(size=(b, t, h, hd)).astype(np.float32)) for _ in range(3))
+    w = np.exp(-np.exp(rng.uniform(-6.0, 0.0, size=(b, t, h, hd)))).astype(np.float32)
+    if decays == "edge":
+        w[..., 0::5] = np.exp(-np.exp(np.float32(8.0)))
+        w[..., 1::5] = np.float32(1.0 - 1e-7)
+        w[..., 2::5] = np.exp(-np.exp(np.float32(-20.0)))
+        assert np.all(w[..., 0::5] == 0) and np.all(w[..., 2::5] == 1)
+    u = rng.normal(size=(h, hd)).astype(np.float32)
+    s0 = rng.normal(size=(b, h, hd, hd)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _within_k7_bounds(y, s, want_y, want_s, decays):
+    """The bounds K7 is held to on the card: S within 1e-5 of its (b, h)
+    head's largest |S|; y within 5e-4 on fp32 inputs ("jax", the JAX
+    sweep's bound), else rounded to bf16 within 2^-7 |y| + 2^-8 of the
+    largest |y| of its (b, t, h) row."""
+    want_y, want_s = (torch.from_numpy(np.array(x, np.float32)) for x in (want_y, want_s))
+    s_ok = bool(((s - want_s).abs() <= 1e-5 * want_s.abs().amax(dim=(2, 3), keepdim=True)).all())
+    if decays == "jax":
+        return s_ok and bool(((y - want_y).abs() <= 5e-4).all())
+    yb, wb = y.bfloat16().float(), want_y.bfloat16().float()
+    tol = 2.0**-7 * wb.abs() + 2.0**-8 * wb.abs().amax(dim=-1, keepdim=True)
+    return s_ok and bool(((yb - wb).abs() <= tol).all())
+
+
+CHUNKED_CASES = [
+    (2, 5, 2, 16, "jax"),  # T < CHUNK
+    (1, 16, 2, 32, "law"),  # T = CHUNK
+    (2, 45, 2, 64, "law"),  # T not a multiple of CHUNK
+    (1, 100, 3, 32, "jax"),
+    (1, 100, 2, 16, "law"),
+    (2, 64, 2, 16, "jax"),
+    (1, 128, 2, 64, "edge"),  # exact zeros, 1 - 1e-7 and exact ones
+    (2, 45, 2, 32, "edge"),
+]
+
+
+@pytest.mark.parametrize("b,t,h,hd,decays", CHUNKED_CASES)
+def test_k7_chunked_form_matches_pallas_ref_and_fp64(b, t, h, hd, decays):
+    """K7's chunked arithmetic with its TF32 splits (``_chunked_wkv6``)
+    within the card's bounds of the Pallas kernel in interpret mode and of
+    the plain scan, and against an fp64 recurrence: S within 1e-5 of its
+    head's max, y within 2e-6 of the largest |y|."""
+    args = _chunked_inputs(b, t, h, hd, decays, seed=b * 1000 + t + hd)
+    py, ps = wkv6_kernel(*(jnp.asarray(a) for a in args), block_t=16, interpret=True)
+    targs = [torch.from_numpy(a) for a in args]
+    ry, rs = twkv_ref.wkv6_scan_ref(*targs)
+    y, s = _chunked_wkv6(*targs, exact_v=decays != "jax")
+    assert y.shape == (b, t, h, hd) and s.shape == (b, h, hd, hd)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    assert _within_k7_bounds(y, s, py, ps, decays)
+    assert _within_k7_bounds(y, s, ry, rs, decays)
+    y64, s64 = _scan64(*args)
+    assert float((y.double() - y64).abs().max()) <= 2e-6 * float(y64.abs().max())
+    assert bool(((s.double() - s64).abs() <= 1e-5 * s64.abs().amax(dim=(2, 3), keepdim=True)).all())
+
+
+@pytest.mark.parametrize("control", ["prefix_through_t", "no_chunk_decay", "tf32_only"])
+def test_k7_chunked_form_control_breaks_the_bounds(control):
+    """r̃ with its prefix products taken through t, S without the chunk's
+    decay, or the products in one TF32 pass without the lo halves, is
+    outside the bounds the chunked form meets."""
+    args = _chunked_inputs(2, 45, 2, 64, "law", seed=7)
+    targs = [torch.from_numpy(a) for a in args]
+    want = twkv_ref.wkv6_scan_ref(*targs)
+    assert _within_k7_bounds(*_chunked_wkv6(*targs, exact_v=True), *want, "law")
+    assert not _within_k7_bounds(*_chunked_wkv6(*targs, exact_v=True, control=control), *want, "law")
+
+
 def test_plain_wkv6_state_handoff_equals_one_shot_and_jax():
     """Two halves with the state handed over == one shot (the decode path),
     as ``tests/test_kernels.py::test_rwkv6_state_handoff_equals_one_shot``."""
