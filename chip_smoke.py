@@ -7,15 +7,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. Card and build: prints the card's name and power limit, turns TF32 off
    for matmuls and cuDNN, builds every CUDA kernel from the sources in
-   this checkout (``nvcc`` for ``sm_90a``), and counts the tensor-core
+   this checkout (``nvcc`` for ``sm_90a``, and K1's host binding with the
+   host compiler, all at once), and counts the tensor-core
    instructions (``K6_TC_OP``) in K6's built library with ``cuobjdump``.
 2. K1 and K2 against their plain PyTorch versions on the card, at the
    FL and LM paths' shapes and three larger ones, with the tolerances stated below,
-   K2 also for exact symmetry; prints errors, the wrapper's time, the
-   kernel's device time per call (``device_ms``, from torch.profiler,
-   summed over the kernels one call launches) and the plain and library
-   times.  Then K5 (flash-decode, with its split of the KV axis) the same
-   way, at the serving path's shape, three long shapes (one ragged) and
+   K2 also for exact symmetry; K1 (and K3 below) also for its plan (the
+   library's ``pairwise_l2_plan`` against the Python mirror), one device
+   kernel a call, exact symmetry and the same bits on a second call, and
+   K1's range against ``clamp_min(hi - lo, 1e-30)`` bit for bit; the
+   profiles -> DPP-kernel pipeline must be two device kernels (a call's
+   device work counted in a CUDA graph captured from it).  Prints
+   errors, the wrapper's time (K1's and K3's interleaved with their
+   library call's), the kernel's device time per call (``device_ms``,
+   from torch.profiler, summed over the kernels one call launches) and the
+   plain and library times.  Then K5 (flash-decode, with its split of the
+   KV axis) the same way, at the serving path's shape, three long shapes (one ragged) and
    the JAX test's three fp32 shapes, and K6 (causal flash
    attention) at the LM path's refresh shape, three long bf16 shapes and
    the JAX test's five fp32 shapes, windows included, and K7 (the WKV6
@@ -23,13 +30,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    its admission prefill with decays exactly 0 and at 1 - 1e-7, the JAX
    test's four fp32 shapes and its state hand-off, each with the design
    the shape takes (recurrent, or chunked with its value slices).  K3 (squared
-   distances) and K4 (XᵀX) the same way, at the JAX sweeps' shapes in both
-   types, the stage-wise path's shapes and four larger ones; K3 is also
+   distances) and K4 (XᵀX) the same way, at the stage-wise path's shapes,
+   the JAX sweeps' shapes in both types and four larger ones; K3 is also
    held against an fp64 chain, no further from it than its plain version.
-   K5's and K7's device times are taken twice: hot, back to back, and
-   cold, with ``FLUSH_BYTES`` written before each call (their inputs are
-   cold on the serving paths); the cold one is set against the bound and
-   fails below it, the hot one (L2-resident) is printed only.  No
+   K1's, K3's, K5's and K7's device times are taken twice: hot, back to
+   back, and cold, with ``FLUSH_BYTES`` written before each call (their
+   inputs are cold on the serving paths); the cold one is set against the
+   bound and fails below it, the hot one (L2-resident) is printed only.  No
    kernel's device time in the ``kernels`` line may be below its bound.
 3. The FL main path: five rounds of FL-DP³S at the paper's scale (C=100
    clients, 10 per round, 600 samples each, CNN (16, 32) with Q=128) through
@@ -74,8 +81,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with its sums reordered, and one bf16 step added in layer 0) show how
    far correct bf16 paths part, and K7's bf16 logits are held to them.  The
    continuous tokens are held on an engine over the fp32 copy.
-7. Prints, for each shape the RWKV path gave K7, its launches there
-   beside that shape's cold device time and bound; then one JSON line
+7. Prints, for each shape a path gives K1 or K3 and each shape the RWKV
+   path gave K7, its launches there beside that shape's cold device time
+   and bound (K1 and K3 also their plan and library time); then one JSON line
    describing every kernel, then the device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -167,12 +175,13 @@ WKV_SHAPES = [
     (2, 33, 1, 64, "fp32", None),
     (1, 16, 2, 8, "fp32", None),
 ]
-# K3: (C, Q, dtype name); the FC-1 path's shape first, then the JAX sweep's
+# K3: (C, Q, dtype name); the FC-1 path's shape first, then the stage-wise
+# route's other two (representative and gradient profiles), the JAX sweep's
 # shapes (tests/test_kernels.py::test_pairwise_l2_sweep) in both types, and
 # two shapes whose bounds are above 0.05 ms.  K4: (M, N, dtype name); the
 # stage-wise path's S (C x C) first, the JAX test's shapes
 # (tests/test_gram_kernels.py), and one shape with a bound above 0.05 ms
-K3_SHAPES = [(100, 128, "fp32")] + [
+K3_SHAPES = [(100, 128, "fp32"), (100, 1280, "fp32"), (100, 4096, "fp32")] + [
     (c, q, kind) for c, q in ((4, 3), (10, 7), (100, 128), (130, 257), (64, 512))
     for kind in ("fp32", "bf16") if (c, q, kind) != (100, 128, "fp32")
 ] + [(4096, 128, "fp32"), (4096, 512, "fp32")]
@@ -257,6 +266,58 @@ def device_ms(torch, fn, mark: str, calls: int = 20, per_call: int = 1, cold: bo
         if len(us) == calls * per_call:
             return sum(us) / 1e3 / calls
     return None
+
+
+def device_kernels(torch, fn) -> list:
+    """The device work (kernels, copies, fills) that one call of ``fn``
+    puts on its stream: one label per node of a CUDA graph captured from
+    the call, as the graph's DOT dump gives it (a kernel node's label holds
+    the kernel's name).  A capture records every launch, where
+    torch.profiler drops a session's device events now and then.  One call
+    on the capture stream comes first, so that what a wrapper allocates
+    and caches per stream (K1's ticket) exists before the capture."""
+    import os
+    import tempfile
+    import warnings
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump, never run
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        with warnings.catch_warnings():  # the dump's own notices
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        dot = Path(path).read_text()
+    del graph
+    # a node's statement starts with its quoted name and a '[' (an edge's
+    # with the name and '->'); its label runs to the next node's statement
+    starts = [m.start() for m in re.finditer(r'^"graph_\d+_node_\d+"\s*\[', dot, flags=re.M)]
+    return [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
+
+
+def check_pairwise_call(torch, fn, c: int, q: int, what: str) -> str:
+    """K1 or K3 (``fn``) at (c, q): the launch takes the plan of the Python
+    mirror, is one device kernel, and gives an exactly symmetric result,
+    the same bits on a second call; returns the plan as printed."""
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops
+
+    p = pw_ops.cuda_plan(c, q)
+    check(p == pw_ops.plan(c, q), f"{what}: plan {p} is not the Python mirror's {pw_ops.plan(c, q)}")
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    check(torch.equal(a[0], a[0].T), f"{what}: not exactly symmetric")
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{what}: two calls differ")
+    nodes = device_kernels(torch, fn)
+    check(len(nodes) == 1 and "pairwise" in nodes[0], f"{what}: a call's graph holds {nodes}")
+    return f"tile {p.tile}, {p.tiles} tiles x S={p.ranks} = {p.blocks} blocks"
 
 
 def fmt_ms(ms) -> str:
@@ -664,21 +725,27 @@ def k3_k4_rows(torch, dev) -> dict:
         g = torch.Generator().manual_seed(c * 7919 + q)
         f = torch.randn(c, q, generator=g).to(dtypes[kind]).to(dev)
         err, tol, e64, p64 = check_k3(torch, f, f"{c}x{q} {kind}")
-        ms = time_ms(torch, lambda: pw_ops.pairwise_sq_dists(f))
-        dev_ms = device_ms(torch, lambda: pw_ops.pairwise_sq_dists(f), "pairwise")
+        plan = check_pairwise_call(torch, lambda: pw_ops.pairwise_sq_dists(f), c, q, f"K3 {c}x{q} {kind}")
+        hot = device_ms(torch, lambda: pw_ops.pairwise_sq_dists(f), "pairwise")
+        dev_ms = device_ms(torch, lambda: pw_ops.pairwise_sq_dists(f), "pairwise", cold=True)
         plain = time_ms(torch, lambda: pw_ref.pairwise_sq_dists_ref(f))
-        # torch.cdist's bf16 support varies by version: timed on fp32 only
-        lib = time_ms(torch, lambda: torch.cdist(f, f).square()) if kind == "fp32" else None
+        # torch.cdist's bf16 support varies by version: timed on fp32 only,
+        # interleaved with the wrapper (both are host-bound at small C)
+        if kind == "fp32":
+            ms, lib = time_pair(torch, lambda: pw_ops.pairwise_sq_dists(f), lambda: torch.cdist(f, f).square())
+        else:
+            ms, lib = time_ms(torch, lambda: pw_ops.pairwise_sq_dists(f)), None
         # least work as K1's: one triangle of dot products plus the c norms
         b = bound(c * q * f.element_size() + c * c * 4, 1.0 * c * (c - 1) * q + 2.0 * c * q, "fp32")
         rows["pairwise_sq_dists"][(c, q, kind)] = dict(
-            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-            bound_ms=b[0], bound_by=b[1],
+            max_abs_err=err, ms=ms, device_ms=dev_ms, device_ms_hot=hot, plain_ms=plain,
+            library_ms=lib, bound_ms=b[0], bound_by=b[1], plan=plan,
         )
         print(
-            f"K3 C={c} Q={q} {kind}: err={err:.3e} (tol {tol:.3e}) vs fp64 {e64:.3e} "
-            f"(plain {p64:.3e}) ms={ms:.5f} device_ms={fmt_ms(dev_ms)} plain={plain:.5f} "
-            f"cdist^2={'n/a' if lib is None else f'{lib:.5f}'} bound={b[0]:.6f} ({b[1]})"
+            f"K3 C={c} Q={q} {kind}: {plan}; err={err:.3e} (tol {tol:.3e}) vs fp64 {e64:.3e} "
+            f"(plain {p64:.3e}) ms={ms:.5f} device_ms cold={fmt_ms(dev_ms)} hot={fmt_ms(hot)} "
+            f"plain={plain:.5f} cdist^2={'n/a' if lib is None else f'{lib:.5f}'} "
+            f"bound={b[0]:.6f} ({b[1]}){share(b[0], dev_ms, f'K3 {c}x{q} {kind}')}"
         )
     for m, n, kind in K4_SHAPES:
         g = torch.Generator().manual_seed(m * 7919 + n)
@@ -776,7 +843,9 @@ def stage_wise_phase(torch, dev, trainer, exp, params) -> dict:
     _build.reset_launches()
     torch.cuda.synchronize()
     for name, prof, fused in cases:
+        before = _build.LAUNCHES["pairwise_sq_dists"]
         stage = gram_ops.gram(similarity.similarity_matrix(prof, use_kernel=True))
+        check(_build.LAUNCHES["pairwise_sq_dists"] == before + 1, f"K3 not once on {name}")
         if fused is None:
             fused = similarity.kernel_from_profiles(prof, use_kernel=True)
         torch.cuda.synchronize()
@@ -1140,7 +1209,9 @@ def main() -> int:
     logs = _build.build_all()
     for name in _build.SOURCES:
         _build.library(name)
-    print(f"built {list(_build.SOURCES)} for sm_90a in {time.perf_counter() - t0:.2f} s")
+    for name in _build.BINDINGS:
+        _build.binding(name)
+    print(f"built {list(_build.SOURCES)} for sm_90a and {list(_build.BINDINGS)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
@@ -1174,6 +1245,11 @@ def main() -> int:
             f"K1 S0 off at {c}x{q}: {err1}",
         )
 
+        # one launch, symmetric and repeatable; the range K1 writes for K2
+        k1_plan = check_pairwise_call(torch, lambda: pw_ops.pairwise_dists_stats(f), c, q, f"K1 {c}x{q} {kind}")
+        _, klo, khi, krng = pw_ops.pairwise_dists_range(f)
+        check(torch.equal(krng, torch.clamp_min(khi - klo, 1e-30)), f"K1 range at {c}x{q}")
+
         # K2 on its own, on the same inputs as its plain version
         rng = torch.clamp_min(whi - wlo, 1e-30)
         lk = gram_ops.normalized_gram(ws0, wlo, rng, c, compute)
@@ -1205,16 +1281,18 @@ def main() -> int:
 
         # times: wrapper as the main path calls it, its plain version, and
         # one PyTorch call computing the same function where there is one
-        k1_ms = time_ms(torch, lambda: pw_ops.pairwise_dists_stats(f))
-        k1_dev = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise")
+        k1_ms, k1_lib = time_pair(torch, lambda: pw_ops.pairwise_dists_stats(f), lambda: torch.cdist(f, f))
+        k1_hot = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise")
+        k1_dev = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise", cold=True)
         k1_plain = time_ms(torch, lambda: pw_ref.pairwise_dists_stats_ref(f))
-        k1_lib = time_ms(torch, lambda: torch.cdist(f, f))
         k2_ms = time_ms(torch, lambda: gram_ops.normalized_gram(ws0, wlo, rng, c, compute))
         k2_dev = device_ms(torch, lambda: gram_ops.normalized_gram(ws0, wlo, rng, c, compute), "gram")
         k2_plain = time_ms(torch, lambda: gram_ref.normalized_gram_ref(ws0, wlo, rng, c, compute))
         s = (1.0 - (ws0 - wlo) / rng).to(compute)
         k2_lib = time_ms(torch, lambda: torch.mm(s.T, s))
         pipe_ms = time_ms(torch, lambda: gram_ops.kernel_from_profiles(f))
+        pipe = device_kernels(torch, lambda: gram_ops.kernel_from_profiles(f))
+        check(len(pipe) == 2, f"kernel_from_profiles at {c}x{q} launched {pipe}")
 
         # least work: both outputs are symmetric, so K1 needs one triangle of
         # dot products (c(c-1)/2 of q FMAs, in fp32 whatever F's type) plus
@@ -1228,8 +1306,8 @@ def main() -> int:
         )
         b2 = bound(c * c * 4 + 8 + c * c * 4, 1.0 * c * c * (c + 1) + 3.0 * c * c, kind)
         rows["pairwise_dists_stats"][(c, q, kind)] = dict(
-            max_abs_err=err1, ms=k1_ms, device_ms=k1_dev, plain_ms=k1_plain, library_ms=k1_lib,
-            bound_ms=b1[0], bound_by=b1[1],
+            max_abs_err=err1, ms=k1_ms, device_ms=k1_dev, device_ms_hot=k1_hot, plain_ms=k1_plain,
+            library_ms=k1_lib, bound_ms=b1[0], bound_by=b1[1], plan=k1_plan,
         )
         rows["normalized_gram"][(c, q, kind)] = dict(
             max_abs_err=err2, ms=k2_ms, device_ms=k2_dev, plain_ms=k2_plain, library_ms=k2_lib,
@@ -1237,11 +1315,12 @@ def main() -> int:
         )
         print(
             f"kernels C={c} Q={q} {kind}: "
-            f"K1 err={err1:.3e} ms={k1_ms:.5f} device_ms={fmt_ms(k1_dev)} plain={k1_plain:.5f} "
-            f"cdist={k1_lib:.5f} bound={b1[0]:.6f} ({b1[1]}) | "
+            f"K1 {k1_plan}; err={err1:.3e} ms={k1_ms:.5f} device_ms cold={fmt_ms(k1_dev)} "
+            f"hot={fmt_ms(k1_hot)} plain={k1_plain:.5f} cdist={k1_lib:.5f} bound={b1[0]:.6f} ({b1[1]})"
+            f"{share(b1[0], k1_dev, f'K1 {c}x{q} {kind}')} | "
             f"K2 err={err2:.3e} ms={k2_ms:.5f} device_ms={fmt_ms(k2_dev)} plain={k2_plain:.5f} mm={k2_lib:.5f} "
             f"bound={b2[0]:.6f} ({b2[1]}) | "
-            f"pipeline err={errp:.3e} (max|L|={lmax:.4g}) ms={pipe_ms:.5f}"
+            f"pipeline err={errp:.3e} (max|L|={lmax:.4g}) ms={pipe_ms:.5f} ({len(pipe)} kernels)"
         )
 
     # K3 and K4 on their own against their plain versions
@@ -1657,6 +1736,24 @@ def main() -> int:
             rwkv_launches,
         ),
     }
+    # K1 and K3 at each shape a path gives them: launches there beside the
+    # shape's plan, cold device time, bound and library call (the LM path's
+    # one K1 launch and the stage-wise route's one K3 launch a profile set
+    # are checked in their phases)
+    for label, name, shape, n, path in (
+        ("K1", "pairwise_dists_stats", SHAPES[0], launches["pairwise_dists_stats"], "CNN FL"),
+        ("K1", "pairwise_dists_stats", SHAPES[1], 1, "LM FL"),
+        ("K3", "pairwise_sq_dists", K3_SHAPES[0], 1, "stage-wise, FC-1 profiles"),
+        ("K3", "pairwise_sq_dists", K3_SHAPES[1], 1, "stage-wise, representative profiles"),
+        ("K3", "pairwise_sq_dists", K3_SHAPES[2], 1, "stage-wise, gradient profiles"),
+    ):
+        r = rows[name][shape]
+        print(
+            f"{label} path shape C={shape[0]} Q={shape[1]} ({path}): launches {n}, {r['plan']}, "
+            f"ms {r['ms']:.5f} (library {r['library_ms']:.5f}, {r['ms'] / r['library_ms']:.3f} of it), "
+            f"device_ms cold {fmt_ms(r['device_ms'])} hot {fmt_ms(r['device_ms_hot'])}, "
+            f"bound {r['bound_ms']:.7f} ({r['bound_by']}), plain {r['plain_ms']:.5f}"
+        )
     # K7 at each shape the RWKV serving path gave it: its launches there
     # beside the shape's cold device time and bound (from the rows above)
     for (b, t), n in sorted(rwkv_shapes.items()):

@@ -7,6 +7,11 @@ library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded.  All missing
 libraries are compiled together, one ``nvcc`` process per source.
 
+``BINDINGS`` are C++ files compiled by the host compiler against
+PyTorch's headers into Python modules (``binding``), in the same parallel
+build: a wrapper whose tensors cost more host time in Python than its
+kernel takes on the device makes them there (K1's, ``pairwise_l2_bind``).
+
 Nothing here runs at import time: the CPU tests import every module, on
 machines that may have no ``nvcc``.  The first CUDA launch builds what it
 needs.
@@ -26,10 +31,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 from pathlib import Path
-from typing import Dict
+from types import ModuleType
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["LAUNCHES", "SOURCES", "build_all", "check", "library", "on_device", "reset_launches", "stream"]
+__all__ = [
+    "BINDINGS", "LAUNCHES", "SOURCES", "binding", "build_all", "check", "library", "on_device",
+    "reset_launches", "stream",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -43,13 +53,15 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 SOURCES = ("pairwise_l2", "gram", "flash_decode", "flash_attention", "wkv6")
+BINDINGS = ("pairwise_l2_bind",)
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 # C signatures: name -> (restype, argtypes).  Pointers and the stream are
 # c_void_p so that ctypes does not cut them to 32 bits.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pairwise_l2": {
-        "pairwise_l2_tiles": (_I, [_I]),
+        "pairwise_l2_plan": (_I, [_I, _I, ctypes.POINTER(_I)]),
         "pairwise_l2_dists_stats": (_I, [_P, _I, _I, _I, _P, _P, _P, _P]),
         "pairwise_l2_sq_dists": (_I, [_P, _I, _I, _I, _P, _P]),
         "pairwise_l2_error_string": (ctypes.c_char_p, [_I]),
@@ -82,6 +94,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode": 0, "flash_attention": 0, "wkv6": 0,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_MODULES: Dict[str, ModuleType] = {}
 _CURRENT = contextlib.nullcontext()
 
 
@@ -96,7 +109,7 @@ def on_device(device):
     switch back cost more host time than a small kernel's launch)."""
     import torch
 
-    if device.index is None or device.index == torch.cuda.current_device():
+    if device.index is None or device.index == torch._C._cuda_getDevice():
         return _CURRENT
     return torch.cuda.device(device)
 
@@ -124,26 +137,53 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    if name in BINDINGS:  # keyed by the source, flags and PyTorch it was built for
+        import torch
+
+        digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+        digest.update(" ".join((*CXX_FLAGS, torch.__version__)).encode())
+        return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}{sysconfig.get_config_var('EXT_SUFFIX')}"
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every source whose library is missing, all ``nvcc`` processes
-    started together.  Returns each compiled source's compiler output
-    (``-Xptxas=-v`` register and shared-memory report); raises with the
-    output of every failed compile."""
+def _command(name: str, out: Path) -> List[str]:
+    """The compile of ``name``: ``nvcc`` for a kernel source; for a binding,
+    the host compiler with PyTorch's and Python's headers and libraries, as
+    ``torch.utils.cpp_extension`` gives them."""
+    if name not in BINDINGS:
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    import torch
+    from torch.utils import cpp_extension
+
+    libs = cpp_extension.library_paths()
+    return [
+        os.environ.get("CXX") or "c++", *CXX_FLAGS,
+        *(f"-I{p}" for p in cpp_extension.include_paths()), f"-I{sysconfig.get_paths()['include']}",
+        f"-DTORCH_EXTENSION_NAME={name}", f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+        "-o", str(out), str(CSRC / f"{name}.cpp"),
+        *(f"-L{p}" for p in libs), *(f"-Wl,-rpath,{p}" for p in libs),
+        "-lc10", "-ltorch", "-ltorch_cpu", "-ltorch_python",
+    ]
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile each of ``names`` (default: every source and binding) whose
+    library is missing, all compiler processes started together.  Returns
+    each one's compiler output (for a kernel source, ``-Xptxas=-v``'s
+    register and shared-memory report); raises with the output of every
+    failed compile."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    pending = [n for n in SOURCES if not _target(n).exists()]
+    names = (*SOURCES, *BINDINGS) if names is None else names
+    pending = [n for n in names if not _target(n).exists()]
     if not pending:
         return {}
-    nvcc = _nvcc()
     procs = []
     for name in pending:
         out = _target(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = _command(name, tmp)
         procs.append(
             (name, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -154,7 +194,7 @@ def build_all() -> Dict[str, str]:
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            failed.append(f"compiling {name} failed ({proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)  # atomic: a reader never sees half a library
@@ -175,6 +215,21 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
         _LIBS[name] = lib
     return lib
+
+
+def binding(name: str) -> ModuleType:
+    """The loaded Python module of ``csrc/<name>.cpp``, built on first use."""
+    mod = _MODULES.get(name)
+    if mod is None:
+        import importlib.util
+
+        if not _target(name).exists():
+            build_all((name,))
+        spec = importlib.util.spec_from_file_location(name, _target(name))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _MODULES[name] = mod
+    return mod
 
 
 def check(name: str, err: int, kernel: str) -> None:

@@ -2,10 +2,10 @@
 
 ``repro_torch.core.similarity`` routes through :func:`kernel_from_profiles`
 when ``use_kernel=True``.  On a CUDA device the pipeline is two kernel
-launches (K1, then K2) with a few tiny reductions between them on the
-device; on the CPU each wrapper runs its plain version.  :func:`gram` (K4)
-is the plain Gram product ``XᵀX``, the last launch of the stage-wise route
-``gram(similarity_matrix(f, use_kernel=True))``.
+launches, K1 then K2, and nothing between them: K1 writes the min-max
+range that K2 reads.  On the CPU each wrapper runs its plain version.
+:func:`gram` (K4) is the plain Gram product ``XᵀX``, the last launch of
+the stage-wise route ``gram(similarity_matrix(f, use_kernel=True))``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.gram.ref import gram_ref, normalized_gram_ref
-from repro_torch.kernels.pairwise_l2.ops import pairwise_dists_stats
+from repro_torch.kernels.pairwise_l2.ops import pairwise_dists_range
 
 __all__ = ["gram", "normalized_gram", "kernel_from_profiles", "candidate_kernel_from_profiles"]
 
@@ -120,13 +120,12 @@ def kernel_from_profiles(
 
     Runs on ``device`` (default ``cuda``; raises when there is no CUDA
     device, unless ``device="cpu"``), moving ``f`` there first.  Launch 1
-    (K1) gives the distances and the min/max; ``rng = max(hi − lo, 1e-30)``
-    is formed on the device; launch 2 (K2) normalises and forms ``SᵀS``.
+    (K1) gives the distances, their min and ``rng = max(hi − lo, 1e-30)``;
+    launch 2 (K2) normalises and forms ``SᵀS``.
     bf16 profiles give bf16 products with fp32 sums.
     """
     f = f.to(resolve_device(device))
-    s0, lo, hi = pairwise_dists_stats(f)
-    rng = torch.clamp_min(hi - lo, 1e-30)
+    s0, lo, _, rng = pairwise_dists_range(f)
     compute_dtype = torch.bfloat16 if f.dtype == torch.bfloat16 else torch.float32
     return normalized_gram(s0, lo, rng, f.shape[0], compute_dtype)
 

@@ -5,6 +5,10 @@ file imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+import tempfile
+import warnings
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,16 +35,26 @@ def _profiles(c, q, dtype, device, seed=0):
     return torch.randn(c, q, generator=g).to(dtype).to(device)
 
 
+# K1's and K3's path shapes: the FL paths' K1 (FC-1 and LM profiles) and
+# the stage-wise route's K3 (FC-1, representative and gradient profiles)
+PAIRWISE_PATH_SHAPES = [(10, 960, torch.float32), (100, 1280, torch.float32), (100, 4096, torch.float32)]
+
+
 @pytest.mark.parametrize(
     "c,q,dtype",
-    [(100, 128, torch.float32), (1000, 700, torch.float32), (513, 257, torch.bfloat16), (5, 3, torch.float32)],
+    [(100, 128, torch.float32), (1000, 700, torch.float32), (513, 257, torch.bfloat16), (5, 3, torch.float32)]
+    + PAIRWISE_PATH_SHAPES,
 )
 def test_pairwise_dists_stats_kernel_matches_plain(card, c, q, dtype):
     f = _profiles(c, q, dtype, card)
     before = _build.LAUNCHES["pairwise_dists_stats"]
     s0, lo, hi = pw_ops.pairwise_dists_stats(f)
+    again = pw_ops.pairwise_dists_stats(f)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["pairwise_dists_stats"] == before + 1
+    assert _build.LAUNCHES["pairwise_dists_stats"] == before + 2
+    # one upper triangle mirrored, and every order of addition fixed
+    assert torch.equal(s0, s0.T)
+    assert all(torch.equal(x, y) for x, y in zip((s0, lo, hi), again))
     ws0, wlo, whi = pw_ref.pairwise_dists_stats_ref(f)
     assert float(lo) == float(wlo) == 0.0
     torch.testing.assert_close(hi, whi, rtol=1e-5, atol=0.0)
@@ -105,15 +119,17 @@ from repro_torch.core import similarity as sim  # noqa: E402
 @pytest.mark.parametrize(
     "c,q,dtype",
     [(100, 128, torch.float32), (130, 257, torch.float32), (64, 512, torch.bfloat16),
-     (4, 3, torch.float32), (1000, 700, torch.bfloat16)],
+     (4, 3, torch.float32), (1000, 700, torch.bfloat16)] + PAIRWISE_PATH_SHAPES,
 )
 def test_pairwise_sq_dists_kernel_matches_plain(card, c, q, dtype):
     f = _profiles(c, q, dtype, card, seed=3)
     before = _build.LAUNCHES["pairwise_sq_dists"]
     got = pw_ops.pairwise_sq_dists(f)
+    again = pw_ops.pairwise_sq_dists(f)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["pairwise_sq_dists"] == before + 1
+    assert _build.LAUNCHES["pairwise_sq_dists"] == before + 2
     assert got.shape == (c, c) and got.dtype == torch.float32
+    assert torch.equal(got, got.T) and torch.equal(got, again)
     want = pw_ref.pairwise_sq_dists_ref(f)
     # the JAX sweep's fp32 bound (both sides upcast bf16 exactly, so bf16
     # inputs take it too); the direct sum and the expansion differ by ulps
@@ -123,6 +139,95 @@ def test_pairwise_sq_dists_kernel_matches_plain(card, c, q, dtype):
     # K1's distances: the square roots of the same sums, taken in fp32
     s0, _, _ = pw_ops.pairwise_dists_stats(f)
     torch.testing.assert_close(torch.sqrt(got), s0, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize(
+    "c,q",
+    [(100, 128), (10, 960), (100, 1280), (100, 4096), (1000, 700), (4096, 512), (513, 257), (130, 257),
+     (64, 512), (4, 3), (300, 64)],
+)
+def test_pairwise_plan_is_the_python_mirror(card, c, q):
+    """``pairwise_l2_plan``, the launch the library takes, equals the Python
+    mirror that the CPU tests check (tiles, S, spans), and the path shapes
+    take the plans the design names."""
+    p = pw_ops.cuda_plan(c, q)
+    assert p == pw_ops.plan(c, q)
+    named = {(100, 128): (16, 4, 28), (10, 960): (16, 8, 1), (100, 1280): (16, 8, 28), (100, 4096): (16, 8, 28)}
+    if (c, q) in named:
+        assert tuple(p) == named[(c, q)]
+
+
+def _device_kernels(fn):
+    """The device work (kernels, copies, fills) one call of ``fn`` puts on
+    its stream: one label per node of a CUDA graph captured from the call,
+    from the graph's DOT dump (a kernel node's label holds its name).  A
+    capture records every launch, where torch.profiler drops a session's
+    device events now and then.  One call on the capture stream first, so
+    that what a wrapper caches per stream (K1's ticket) exists already."""
+    import re
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump, never run
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        with warnings.catch_warnings():  # the dump's own notices
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        with open(path) as fh:
+            dot = fh.read()
+    starts = [m.start() for m in re.finditer(r'^"graph_\d+_node_\d+"\s*\[', dot, flags=re.M)]
+    return [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
+
+
+def test_pairwise_calls_are_one_kernel_and_the_pipeline_two(card):
+    """At the FL main path's shape a K1 call and a K3 call are one device
+    kernel each and ``kernel_from_profiles`` two (K1, then K2); the range
+    K1 writes equals ``clamp_min(hi - lo, 1e-30)`` bit for bit, and K1's S0
+    is the fp32 square root of K3's D2 bit for bit."""
+    f = _profiles(100, 128, torch.float32, card, seed=8)
+    k1 = _device_kernels(lambda: pw_ops.pairwise_dists_stats(f))
+    k3 = _device_kernels(lambda: pw_ops.pairwise_sq_dists(f))
+    pipe = _device_kernels(lambda: gram_ops.kernel_from_profiles(f))
+    assert len(k1) == 1 and "pairwise" in k1[0], k1
+    assert len(k3) == 1 and "pairwise" in k3[0], k3
+    assert len(pipe) == 2 and "pairwise" in pipe[0] and "gram" in pipe[1], pipe
+    s0, lo, hi, rng = pw_ops.pairwise_dists_range(f)
+    assert torch.equal(rng, torch.clamp_min(hi - lo, 1e-30))
+    assert torch.equal(s0, torch.sqrt(pw_ops.pairwise_sq_dists(f)))
+
+
+@pytest.mark.parametrize("c,q", [(100, 128), (10, 960), (1000, 700)])
+def test_pairwise_ticket_resets_between_launches(card, c, q):
+    """K1 and K3 back to back, twice: K1's last tile resets its ticket, so
+    the second K1 finds its own last tile and writes the same statistics
+    (a stale ticket would leave them unwritten or written early)."""
+    f = _profiles(c, q, torch.float32, card, seed=9)
+    runs = []
+    for _ in range(2):
+        s0, lo, hi, rng = pw_ops.pairwise_dists_range(f)
+        d2 = pw_ops.pairwise_sq_dists(f)
+        runs.append((s0, lo.clone(), hi.clone(), rng.clone(), d2))
+    torch.cuda.synchronize()
+    (s0, lo, hi, rng, d2), again = runs
+    assert all(torch.equal(x, y) for x, y in zip(runs[0], again))
+    ws0, wlo, whi = pw_ref.pairwise_dists_stats_ref(f)
+    assert float(lo) == float(wlo) == 0.0
+    torch.testing.assert_close(hi, whi, rtol=1e-5, atol=0.0)
+    assert float(hi) == float(s0.max()) and float(rng) == float(hi) - float(lo)
+    # a third launch on another stream takes that stream's own ticket
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        s0b, lob, hib = pw_ops.pairwise_dists_stats(f)
+    torch.cuda.synchronize()
+    assert torch.equal(s0b, s0) and torch.equal(lob, lo) and torch.equal(hib, hi)
 
 
 @pytest.mark.parametrize(

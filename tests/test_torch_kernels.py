@@ -141,7 +141,7 @@ def test_k3_accumulator_against_fp64(c, q, dtype):
     """Why K3 accumulates in fp64: on the JAX sweep's random profiles (made
     as ``chip_smoke.py`` makes them), the fp64 direct sum rounded once is no
     further from an fp64 chain than the plain fp32 chain, while a
-    sequential fp32 direct sum (K1's accumulator) is further than the plain
+    sequential fp32 direct sum is further than the plain
     chain once Q reaches 128.  ``pytest -s`` prints the three errors."""
     f = torch.randn(c, q, generator=torch.Generator().manual_seed(c * 7919 + q))
     f = f.to(getattr(torch, dtype))
@@ -161,6 +161,176 @@ def test_k3_accumulator_against_fp64(c, q, dtype):
     assert err["fp64 direct"] <= err["plain"]
     if q >= 128:
         assert err["fp32 direct"] > err["plain"]
+
+
+# the shapes the K1/K3 emulation is held at: the JAX sweep's, the LM
+# path's K1 shape and the Fig.-3 gradient profiles' K3 shape
+PLANNED_SHAPES = K3_SHAPES + [(10, 960), (100, 4096)]
+
+
+def _planned_sum(f: torch.Tensor) -> torch.Tensor:
+    """K1 and K3's arithmetic on the card, emulated: for the plan of F's
+    shape, each rank's group g sums (f_ik − f_jk)² over the terms k = lo +
+    g, lo + g + G, ... of the rank's range in fp64, the groups' partials
+    are added in group order, the ranks' in rank order, and the sum is
+    rounded once to fp32, diagonal 0.  The kernel's fma(d, d, acc) is
+    emulated up to the rounding of d·d (exact while d has 26 significant
+    bits or fewer)."""
+    c, q = f.shape
+    p = tpw.plan(c, q)
+    x = f.float().double()
+    total = None
+    for r in range(p.ranks):
+        span = p.span(r, q)
+        part = None
+        for g in range(p.groups):
+            acc = torch.zeros(c, c, dtype=torch.float64)
+            for k in span[g::p.groups]:
+                d = x[:, k, None] - x[None, :, k]
+                acc = d * d + acc
+            part = acc if part is None else part + acc
+        total = part if total is None else total + part
+    out = total.float()
+    out.fill_diagonal_(0.0)
+    return out
+
+
+def _fp64_chain(f: torch.Tensor) -> torch.Tensor:
+    fd = f.double()
+    sq = torch.sum(fd * fd, dim=-1)
+    exact = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (fd @ fd.T), 0.0)
+    exact.fill_diagonal_(0.0)
+    return exact
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,q", PLANNED_SHAPES)
+def test_k1_k3_planned_sum_matches_pallas_and_fp64(c, q, dtype):
+    """The planned fp64 sum (``_planned_sum``, made as ``chip_smoke.py``
+    makes its inputs) against the Pallas K3 and K1 in interpret mode, with
+    the JAX sweep's bounds (fp32 1e-3, bf16 5e-2 of max(1, max)) and K1's
+    rtol 1e-5 on S0 = √D2 and on hi; and no further from an fp64 chain
+    than the plain fp32 chain.  The control, a sequential fp32 sum, is
+    further from it than the plain chain once Q reaches 128.  ``pytest -s`` prints the errors."""
+    f = torch.randn(c, q, generator=torch.Generator().manual_seed(c * 7919 + q))
+    f = f.to(getattr(torch, dtype))
+    d2 = _planned_sum(f)
+    jf = jnp.asarray(f.float().numpy()).astype(dtype)
+    want = np.asarray(jpw.pairwise_sq_dists(jf))
+    tol = (5e-2 if dtype == "bfloat16" else 1e-3) * max(1.0, want.max())
+    np.testing.assert_allclose(d2.numpy(), want, atol=tol)
+    js0, jlo, jhi = pairwise_dists_stats_kernel(jf, interpret=True)
+    s0 = torch.sqrt(d2)
+    assert float(s0.min()) == float(jlo) == 0.0
+    np.testing.assert_allclose(float(s0.max()), float(jhi), rtol=1e-5)
+    np.testing.assert_allclose(s0.numpy(), np.asarray(js0)[:c, :c], rtol=1e-5, atol=1e-5 * float(jhi))
+    exact = _fp64_chain(f)
+    err = {
+        name: float((x.double() - exact).abs().max())
+        for name, x in (("planned", d2), ("plain", tpw.pairwise_sq_dists(f)),
+                        ("fp32 direct", _direct_sum(f, torch.float32)))
+    }
+    print(f"K1/K3 {c}x{q} {dtype} plan {tpw.plan(c, q)} max error vs fp64: {err}")
+    assert err["planned"] <= err["plain"]
+    if q >= 128:
+        assert err["fp32 direct"] > err["plain"]
+
+
+def _upper_tile(p: int, t: int):
+    """``upper_tile`` of ``csrc/pairwise_l2.cu``: tile p of the upper
+    triangle of a t x t grid, row by row."""
+    ti = 0
+    while p >= t - ti:
+        p -= t - ti
+        ti += 1
+    return ti, ti + p
+
+
+# the paths' shapes first (FC-1, LM, representative and gradient profiles)
+PATH_SHAPES = [(100, 128), (10, 960), (100, 1280), (100, 4096)]
+
+
+@pytest.mark.parametrize(
+    "c,q",
+    PATH_SHAPES + [(4, 3), (10, 7), (130, 257), (64, 512), (1000, 700), (4096, 128), (4096, 512),
+                   (513, 257), (5, 300), (300, 64), (130, 37), (1, 1), (128, 63), (129, 64),
+                   (1024, 40), (1025, 2000)],
+)
+def test_pairwise_plan_covers_every_tile_and_term(c, q):
+    """The plan's Python mirror: every upper-triangle tile appears once and
+    with its mirror covers the C x C output once; the ranks' ranges tile
+    [0, Q) exactly, in order, each of 32 terms or more when there are
+    several ranks; S is 1, 2, 4 or 8; the groups' strided terms tile each
+    range; each path shape but C = 10 gets at least 100 blocks."""
+    p = tpw.plan(c, q)
+    assert p.tile in (16, 32, 64) and p.ranks in (1, 2, 4, 8)
+    t = -(-c // p.tile)
+    tiles = [_upper_tile(k, t) for k in range(p.tiles)]
+    assert sorted(tiles) == [(i, j) for i in range(t) for j in range(i, t)]
+    covered = np.zeros((t * p.tile, t * p.tile), dtype=np.int64)
+    for ti, tj in tiles:
+        rows, cols = slice(ti * p.tile, (ti + 1) * p.tile), slice(tj * p.tile, (tj + 1) * p.tile)
+        if ti == tj:  # row <= col, mirrored below the diagonal
+            block = np.triu(np.ones((p.tile, p.tile), dtype=np.int64))
+            covered[rows, cols] += block + np.triu(block, 1).T
+        else:
+            covered[rows, cols] += 1
+            covered[cols, rows] += 1
+    assert (covered[:c, :c] == 1).all()
+    spans = [p.span(r, q) for r in range(p.ranks)]
+    assert [k for span in spans for k in span] == list(range(q))
+    assert all(len(span) >= (32 if p.ranks > 1 else 1) for span in spans)
+    for span in spans:
+        assert sorted(k for g in range(p.groups) for k in span[g::p.groups]) == list(span)
+    if (c, q) in PATH_SHAPES and c != 10:
+        assert p.blocks >= 100
+
+
+def test_k1_binding_returns_views_of_one_buffer():
+    """K1's host binding (``csrc/pairwise_l2_bind.cpp``, built here with the
+    host compiler) around a stand-in for the library's launch function:
+    the call passes F, its type, C, Q, the ticket and the stream through,
+    S0, lo, hi and rng are views of the one buffer it allocates at the
+    offsets the kernel writes, and a refused launch raises with the
+    library's error string."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    bind = _build.binding("pairwise_l2_bind")
+    c, q = 5, 3
+    n = c * c + 3 + 2
+    f = torch.from_numpy(_profiles(c, q)).to(torch.bfloat16)
+    seen = {}
+
+    @ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+    def launch(fp, is_bf16, cc, qq, s0, stats, ticket, stream):
+        seen.update(f=fp, bf16=is_bf16, c=cc, q=qq, stats=stats - s0, ticket=ticket, stream=stream)
+        out = (ctypes.c_float * n).from_address(s0)
+        for k in range(n):
+            out[k] = k
+        return seen.get("err", 0)
+
+    message = ctypes.create_string_buffer(b"stand-in error")
+
+    @ctypes.CFUNCTYPE(ctypes.c_void_p, ctypes.c_int)
+    def error_string(err):
+        return ctypes.addressof(message)
+
+    fns = (ctypes.cast(launch, ctypes.c_void_p).value, ctypes.cast(error_string, ctypes.c_void_p).value)
+    s0, lo, hi, rng = bind.dists_range(f, *fns, n, 1234, 5678)
+    assert seen == dict(f=f.data_ptr(), bf16=1, c=c, q=q, stats=4 * c * c, ticket=1234, stream=5678)
+    assert s0.dtype == torch.float32 and s0.shape == (c, c) and s0.is_contiguous()
+    assert torch.equal(s0, torch.arange(c * c, dtype=torch.float32).view(c, c))
+    assert [x.shape for x in (lo, hi, rng)] == [()] * 3
+    assert [float(x) for x in (lo, hi, rng)] == [c * c, c * c + 1, c * c + 2]
+    assert lo.data_ptr() == s0.data_ptr() + 4 * c * c  # one buffer
+    s0b, lob, hib = bind.dists_stats(f.float(), *fns, n, 1234, 5678)
+    assert seen["bf16"] == 0 and torch.equal(s0b, s0) and float(lob) == c * c and float(hib) == c * c + 1
+    seen["err"] = 2
+    with pytest.raises(RuntimeError, match=r"CUDA error 2 \(stand-in error\)"):
+        bind.dists_stats(f, *fns, n, 1234, 5678)
 
 
 @pytest.mark.parametrize("m,n", K4_SHAPES)
