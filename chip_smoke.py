@@ -51,6 +51,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    fedavg, fl-dp3s, fedsae, power-of-choice and cluster, five rounds each
    at the same scale, with every cohort checked (power-of-choice: the top
    losses of its candidates; cluster: one client per fitted cluster).
+   Then the federation engine (3d): FL-DP³S through ``FLTrainer.run`` (the
+   engine) and ``run_legacy``, 5 rounds each, evaluated every round and
+   re-profiled every 2, with the same cohorts and accuracies; ``run_many``
+   over the five strategies with each grid point's cohorts held to its own
+   ``run_scanned``; and the candidate funnel at C = 4,096 clients of 14
+   images (Q = 512, k = 10, scenario flaky, 6 rounds re-profiled every 3):
+   K1 and K2 launched exactly twice on the (512, 128) block (init and the
+   boundary), the (512, 512) kernel against the plain chain, every pick
+   among its candidates and available, K1 and K2 held to their plain
+   versions on that block and timed there (cold), and a heavy_tail run
+   without the funnel giving the cohorts of a run without a scenario.
 4. The serving main path: smollm-360m at full width (32 layers, bf16,
    random weights from seed 0) with ``use_flash=True``, in scan mode
    (batch 16, prompt 128, 64 tokens) and through ``ServeEngine`` (16 slots,
@@ -84,7 +95,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 7. Prints, for each shape a path gives K1 or K3 and each shape the RWKV
    path gave K7, its launches there beside that shape's cold device time
    and bound (K1 and K3 also their plan and library time); then one JSON line
-   describing every kernel, then the device line
+   describing every kernel (K1 and K2 also at the funnel's shape), then the
+   device line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and imports nothing of JAX.
@@ -191,6 +203,10 @@ K4_SHAPES = [
 ]
 # the paper's baseline comparison: every strategy on the phase-3 data
 BASELINES = ("fedavg", "fl-dp3s", "fedsae", "power-of-choice", "cluster")
+# the federation engine's phase: engine and legacy loops, the run_many
+# grid, and the funnel (the phase-3 images cut to FUNNEL_N_C a client)
+ENGINE_ROUNDS = 5
+FUNNEL_C, FUNNEL_N_C, FUNNEL_FRAC, FUNNEL_ROUNDS, SCENARIO_ROUNDS = 4096, 14, 0.125, 6, 2
 # the LM client path (smollm-360m at full width)
 LM_ROUNDS, LM_CLIENTS, LM_PER_ROUND, LM_SEQ, LM_DOCS = 3, 10, 4, 512, 16
 PRETRAIN_STEPS = 6
@@ -244,10 +260,13 @@ def device_ms(torch, fn, mark: str, calls: int = 20, per_call: int = 1, cold: bo
     ``FLUSH_BYTES`` are written (that fill kernel is not counted), so the
     call reads its inputs from device memory and not from the L2, as on
     the serving paths, where all of a model's weights stream through the
-    L2 between two calls of one layer's kernel.  A session that does not
-    record exactly ``per_call`` such events per call (the profiler drops a
-    session's events now and then) is repeated once; None when the repeat
-    misses too."""
+    L2 between two calls of one layer's kernel.  The profiler drops a
+    session's events now and then, and after a long run of small launches
+    (the federation engine's phase) one or two of every session: a
+    one-kernel call (``per_call`` 1) takes the mean of the events recorded
+    when at least half of them are; otherwise a session that does not
+    record exactly ``per_call`` such events per call is repeated once, and
+    the result is None when the repeat misses too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,10 +280,16 @@ def device_ms(torch, fn, mark: str, calls: int = 20, per_call: int = 1, cold: bo
                     flush.fill_(1.0)
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and mark in e.name]
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.elapsed_us() for e in events if mark in e.name]
         if len(us) == calls * per_call:
             return sum(us) / 1e3 / calls
+        names = sorted({e.name[:60] for e in events})
+        print(f"  device_ms({mark!r}): a session recorded {len(us)} of {calls * per_call} events "
+              f"({len(events)} device events: {names[:6]})"
+              + ("; the mean of those" if per_call == 1 and 2 * len(us) >= calls else ""))
+        if per_call == 1 and 2 * len(us) >= calls:
+            return sum(us) / 1e3 / len(us)
     return None
 
 
@@ -809,6 +834,47 @@ def k3_k4_rows(torch, dev) -> dict:
     return rows
 
 
+def k1_k2_rows(torch, f, s0, lo, rng, compute, kind: str, k2_cold: bool = False):
+    """Times of K1 on profiles ``f`` (C, Q) and of K2 on the plain
+    version's distances ``s0`` with ``lo`` and ``rng``: each wrapper as a
+    path calls it, its plain version, and one PyTorch call computing the
+    same function (``cdist``; ``mm`` of S), K1's device time cold and hot,
+    K2's hot or, with ``k2_cold``, cold; and each one's bound.  Returns the
+    two rows without their errors."""
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops
+    from repro_torch.kernels.pairwise_l2 import ref as pw_ref
+
+    c, q = f.shape
+    k1_ms, k1_lib = time_pair(torch, lambda: pw_ops.pairwise_dists_stats(f), lambda: torch.cdist(f, f))
+    k1_hot = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise")
+    k1_dev = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise", cold=True)
+    k1_plain = time_ms(torch, lambda: pw_ref.pairwise_dists_stats_ref(f))
+    k2 = lambda: gram_ops.normalized_gram(s0, lo, rng, c, compute)  # noqa: E731
+    k2_ms = time_ms(torch, k2)
+    k2_dev = device_ms(torch, k2, "gram", cold=k2_cold)
+    k2_plain = time_ms(torch, lambda: gram_ref.normalized_gram_ref(s0, lo, rng, c, compute))
+    s = (1.0 - (s0 - lo) / rng).to(compute)
+    k2_lib = time_ms(torch, lambda: torch.mm(s.T, s))
+    # least work: both outputs are symmetric, so K1 needs one triangle of
+    # dot products (c(c-1)/2 of q FMAs, in fp32 whatever F's type) plus
+    # the c norms, and K2 one triangle of S^T S (a SYRK, c(c+1)/2 dots
+    # of c FMAs) plus three operations to normalise each S0 element
+    tiles = math.ceil(c / 64)
+    b1 = bound(
+        c * q * f.element_size() + c * c * 4 + 2 * tiles * tiles * 4,
+        1.0 * c * (c - 1) * q + 2.0 * c * q, "fp32",
+    )
+    b2 = bound(c * c * 4 + 8 + c * c * 4, 1.0 * c * c * (c + 1) + 3.0 * c * c, kind)
+    return (
+        dict(ms=k1_ms, device_ms=k1_dev, device_ms_hot=k1_hot, plain_ms=k1_plain,
+             library_ms=k1_lib, bound_ms=b1[0], bound_by=b1[1]),
+        dict(ms=k2_ms, device_ms=k2_dev, plain_ms=k2_plain, library_ms=k2_lib,
+             bound_ms=b2[0], bound_by=b2[1]),
+    )
+
+
 def stage_wise_phase(torch, dev, trainer, exp, params) -> dict:
     """The stage-wise eq.-14 route, ``gram(similarity_matrix(P,
     use_kernel=True))`` (K3, the plain sqrt and min-max, then K4), on the
@@ -892,8 +958,8 @@ def baselines_phase(torch, exp, client_xs, client_ys) -> None:
         class Recording(cls):
             """The strategy, keeping each draw's state, noise and cohort."""
 
-            def noise(self, generator, state, k):
-                self.last_noise = super().noise(generator, state, k)
+            def noise(self, generator, state, k, avail=None):
+                self.last_noise = super().noise(generator, state, k, avail)
                 return self.last_noise
 
             def draw_fn(self, generator, state, k):
@@ -954,6 +1020,244 @@ def baselines_phase(torch, exp, client_xs, client_ys) -> None:
             check(tuple(trainer.round_state.grad_profiles.shape) == (c, 10 * exp.fc1_dim), "cluster fingerprints")
         gemds[name] = statistics.mean(hist["gemd"])
     print("mean GEMD over " + f"{ROUNDS} rounds: " + ", ".join(f"{n} {g:.4f}" for n, g in gemds.items()))
+
+
+def _recording(cls, draws: list):
+    """``cls`` keeping each draw's cohort in ``draws``: the legacy loop
+    calls ``draw_fn`` itself, the engine through ``select_global_fn``."""
+
+    class Recording(cls):
+        def draw_fn(self, generator, state, k, avail=None):
+            sel = super().draw_fn(generator, state, k) if avail is None else super().draw_fn(generator, state, k, avail)
+            draws.append(sel.tolist())
+            return sel
+
+    return Recording
+
+
+class _Spy:
+    """Wraps ``module.name`` while the ``with`` block runs, appending each
+    call's ``(args, kwargs, result)`` to ``calls``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def engine_phase(torch, exp, client_xs, client_ys, ds) -> dict:
+    """The federation engine's selection features on the card.
+
+    (a) FL-DP³S at the paper's scale through ``FLTrainer.run`` (the engine)
+    and ``run_legacy``, ``ENGINE_ROUNDS`` rounds each, evaluated every round
+    and re-profiled every 2: the same cohorts, accuracies within one sample.
+    (b) ``run_many`` over ``BASELINES`` (one grid state each, dispatched by
+    ``strategy_index``): each grid point's cohorts are its own
+    ``run_scanned``'s.  (c) The funnel at ``FUNNEL_C`` clients (the phase-3
+    images cut to ``FUNNEL_N_C`` each), Q = ``FUNNEL_C · FUNNEL_FRAC``,
+    scenario flaky, ``FUNNEL_ROUNDS`` rounds re-profiled every 3: K1 and K2
+    launched once at init and once at the boundary on the (Q, 128) block,
+    the (Q, Q) kernel against the plain chain, every cohort among its
+    candidates and available; then, without the funnel (whose prefilter
+    reads latency, so a latency scenario moves its candidates), a
+    heavy_tail run's cohorts against a run without a scenario.  cuDNN is
+    deterministic for the phase, so that two loops doing the same work give
+    the same bits.  Returns the funnel's K1 and K2 rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core import profiles, selection
+    from repro_torch.data import skewness_partition
+    from repro_torch.fl import engine
+    from repro_torch.fl.trainer import FLTrainer
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.kernels.pairwise_l2 import ops as pw_ops
+    from repro_torch.kernels.pairwise_l2 import ref as pw_ref
+    from repro_torch.models import cnn
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cp = exp.clients_per_round
+
+    def fresh_params():
+        return cnn.init_cnn(torch.Generator(device="cuda").manual_seed(0),
+                            channels=exp.cnn_channels, fc1_dim=exp.fc1_dim)
+
+    # ------------------------------------ (a) the engine against legacy
+    cfg = dataclasses.replace(paper_cnn.fl_config(exp, seed=0), eval_every=1, reprofile_every=2)
+    runs = {}
+    for loop in ("engine", "legacy"):
+        draws = []
+        strategy = _recording(selection.DPPSelection, draws)()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = FLTrainer(cfg, fresh_params(), cnn.cnn_loss, cnn.apply_with_features,
+                            client_xs, client_ys, strategy, accuracy_fn=cnn.accuracy)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hist = (trainer.run if loop == "engine" else trainer.run_legacy)(rounds=ENGINE_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: _build.LAUNCHES[n] for n in FL_KERNELS}
+        print(f"engine (a) {loop}: init {t_init:.3f} s, {ENGINE_ROUNDS} rounds in {wall:.3f} s "
+              f"(re-profiled at 2 and 4), launches {launches}, acc {[round(a, 4) for a in hist['acc']]}")
+        check(launches == {n: 3 for n in FL_KERNELS}, f"(a) {loop}: K1/K2 not once at init and each reprofile")
+        check(hist["round"] == list(range(1, ENGINE_ROUNDS + 1)), f"(a) {loop} rounds {hist['round']}")
+        runs[loop] = (draws, hist)
+    (d_eng, h_eng), (d_leg, h_leg) = runs["engine"], runs["legacy"]
+    check(len(d_eng) == ENGINE_ROUNDS and d_eng == d_leg, f"(a) cohorts differ: {d_eng} vs {d_leg}")
+    acc_diff = max(abs(a - b) for a, b in zip(h_eng["acc"], h_leg["acc"]))
+    n_samples = client_xs.shape[0] * client_xs.shape[1]
+    check(acc_diff <= 1.0 / n_samples, f"(a) accuracies {h_eng['acc']} vs {h_leg['acc']}")
+    check(all(0.0 <= a <= 1.0 for a in h_eng["acc"]), f"(a) accuracies {h_eng['acc']}")
+    print(f"engine (a): cohorts identical over {ENGINE_ROUNDS} rounds; max |acc engine - legacy| "
+          f"{acc_diff:.3e} (tolerance one sample of {n_samples}, {1.0 / n_samples:.3e})")
+
+    # ------------------------------------------------ (b) run_many grid
+    params = fresh_params()
+    xs = torch.as_tensor(client_xs, device="cuda")
+    ys = torch.as_tensor(client_ys, device="cuda")
+    prof = profiles.profile_all_clients(cnn.apply_with_features, params, list(xs))
+    with torch.no_grad():
+        losses = torch.stack([cnn.cnn_loss(params, x, y) for x, y in zip(xs, ys)])
+    grid_cfg = dataclasses.replace(paper_cnn.fl_config(exp, seed=0), eval_every=ROUNDS)
+    strategies = tuple(selection.make_strategy(n) for n in BASELINES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = [engine.init_server_state(grid_cfg, params, xs, ys, prof, losses, s, loss_fn=cnn.cnn_loss,
+                                       strategy_index=i) for i, s in enumerate(strategies)]
+    torch.cuda.synchronize()
+    print(f"engine (b): {len(states)} grid states in {time.perf_counter() - t0:.3f} s")
+    fn = engine.make_round_fn(grid_cfg, cnn.cnn_loss, strategies, accuracy_fn=cnn.accuracy)
+    forks = [st.fork() for st in states]
+    t0 = time.perf_counter()
+    _, outs = engine.run_many(fn, engine.stack_states(states), ROUNDS)
+    torch.cuda.synchronize()
+    print(f"engine (b): run_many over {len(states)} x {ROUNDS} rounds in {time.perf_counter() - t0:.3f} s")
+    check(tuple(outs["selected"].shape) == (len(BASELINES), ROUNDS, cp), f"run_many outputs {outs['selected'].shape}")
+    for i, name in enumerate(BASELINES):
+        _, alone = engine.run_scanned(fn, forks[i], ROUNDS)
+        check(torch.equal(alone["selected"], outs["selected"][i]), f"(b) {name}: run_many cohorts off its own run")
+        for sel in outs["selected"][i].tolist():
+            check(len(set(sel)) == cp and all(0 <= j < exp.num_clients for j in sel), f"(b) {name} cohort {sel}")
+        if name == "cluster":
+            labels = states[i].cluster_labels
+            check(len(set(labels.tolist())) == cp, "(b) cluster labels")
+            for sel in outs["selected"][i]:
+                check(sorted(labels[sel.long()].tolist()) == list(range(cp)), "(b) cluster: one per cluster")
+    summary = engine.unstack_outputs(outs)
+    print("engine (b) run_many, per strategy: " + ", ".join(
+        f"{n} mean GEMD {float(np.mean(r['gemd'])):.4f} last acc {float(r['acc'][-1]):.4f}"
+        for n, r in zip(BASELINES, summary)))
+    check(all(np.isfinite(r["gemd"]).all() and 0.0 <= float(r["acc"][-1]) <= 1.0 for r in summary),
+          "(b) GEMD or accuracy off")
+
+    # --------------------------------------------- (c) the funnel at C=4096
+    shards = skewness_partition(ds.ys, FUNNEL_C, 0.8, ds.num_classes, samples_per_client=FUNNEL_N_C, seed=0)
+    fxs = np.stack([ds.xs[sh] for sh in shards])
+    fys = np.stack([ds.ys[sh] for sh in shards])
+    fcfg = dataclasses.replace(
+        paper_cnn.fl_config(exp, seed=0), num_clients=FUNNEL_C, eval_every=3, reprofile_every=3,
+        candidate_frac=FUNNEL_FRAC, scenario="flaky",
+    )
+    q = fcfg.candidate_count()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = FLTrainer(fcfg, fresh_params(), cnn.cnn_loss, cnn.apply_with_features, fxs, fys,
+                        selection.DPPSelection(), accuracy_fn=cnn.accuracy)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    with _Spy(engine, "funnel_fields") as funnels, _Spy(engine, "run_scanned") as segments:
+        t0 = time.perf_counter()
+        hist = trainer.run(rounds=FUNNEL_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"engine (c) funnel: C={FUNNEL_C} clients x {FUNNEL_N_C} images, Q={q}, k={cp}, scenario flaky: "
+          f"trainer init {t_init:.3f} s, {FUNNEL_ROUNDS} rounds in {wall:.3f} s, launches {launches}")
+    check(launches["pairwise_dists_stats"] == 2 and launches["normalized_gram"] == 2,
+          f"(c) K1/K2 not exactly twice (init and the boundary): {launches}")
+    check(len(funnels.calls) == 2 and len(segments.calls) == 2, "(c) not two funnels and two segments")
+    seg_rounds = 0
+    for (_, _, (cand, kern, _)), (_, _, (_, out)) in zip(funnels.calls, segments.calls):
+        check(tuple(cand.shape) == (q,) and tuple(kern.shape) == (q, q), f"(c) funnel shapes {kern.shape}")
+        parts = (out["t_select"] + out["t_local"] + out["t_refresh"]).tolist()
+        for i, (sel, avail) in enumerate(zip(out["selected"], out["avail"])):
+            t = seg_rounds + i + 1
+            sel_l = sel.long()
+            in_cand = torch.isin(sel_l, cand.long().cpu())
+            n_avail = int(avail[cand.long().cpu()].sum())
+            check(bool(in_cand.all()), f"(c) round {t}: a pick outside the candidates")
+            check(n_avail < cp or bool(avail[sel_l].all()), f"(c) round {t}: an unavailable pick")
+            print(f"engine (c) round {t}: {parts[i]:.3f} s (selection {float(out['t_select'][i]):.3f}, "
+                  f"local {float(out['t_local'][i]):.3f}, refresh+eval {float(out['t_refresh'][i]):.3f}); "
+                  f"{n_avail} of {q} candidates available, sim_time {float(out['sim_time'][i]):.3f}, "
+                  f"cohort {sel.tolist()}")
+        seg_rounds += out["round"].shape[0]
+    check(hist["round"] == [3, 6] and all(0.0 <= a <= 1.0 for a in hist["acc"]), f"(c) history {hist}")
+    # the last funnel's kernel against the plain chain on its block
+    fargs, _, (cand, kern, _) = funnels.calls[-1]
+    fq = fargs[2][cand.long()]  # funnel_fields(cfg, generator, profiles, losses, ...)
+    want = gram_ref.kernel_from_profiles_ref(fq)
+    kerr, lmax = float((kern - want).abs().max()), float(want.abs().max())
+    check(kerr <= 1e-4 * lmax, f"(c) funnel kernel off: {kerr} > 1e-4 * {lmax}")
+    print(f"engine (c) funnel kernel {tuple(kern.shape)} vs plain chain: max abs err {kerr:.3e} (max|L| {lmax:.4g})")
+
+    # K1 and K2 at the funnel's shape, on the last block, against their plain versions
+    s0, lo, hi = pw_ops.pairwise_dists_stats(fq)
+    ws0, wlo, whi = pw_ref.pairwise_dists_stats_ref(fq)
+    err1 = float((s0 - ws0).abs().max())
+    check(bool(torch.all((s0 - ws0).abs() <= 1e-5 * ws0.abs() + 1e-5 * float(whi))), f"(c) K1 off: {err1}")
+    rng = torch.clamp_min(whi - wlo, 1e-30)
+    lk = gram_ops.normalized_gram(ws0, wlo, rng, q, torch.float32)
+    wl = gram_ref.normalized_gram_ref(ws0, wlo, rng, q, torch.float32)
+    err2 = float((lk - wl).abs().max())
+    check(err2 <= 1e-5 + 1e-4 * float(wl.abs().max()), f"(c) K2 off: {err2}")
+    r1, r2 = k1_k2_rows(torch, fq, ws0, wlo, rng, torch.float32, "fp32", k2_cold=True)
+    r1.update(max_abs_err=err1, launches=launches["pairwise_dists_stats"], shape=(q, fq.shape[1]))
+    r2.update(max_abs_err=err2, launches=launches["normalized_gram"], shape=(q,))
+    for label, r in (("K1", r1), ("K2", r2)):
+        print(f"{label} funnel {r['shape']}: launches {r['launches']}, err {r['max_abs_err']:.3e}, ms {r['ms']:.5f}, "
+              f"device_ms cold {fmt_ms(r['device_ms'])}, bound {r['bound_ms']:.7f} ({r['bound_by']})"
+              f"{share(r['bound_ms'], r['device_ms'], f'{label} funnel')}, plain {r['plain_ms']:.5f}, "
+              f"{'cdist' if label == 'K1' else 'mm'} {r['library_ms']:.5f}")
+
+    # a latency-only scenario moves no cohort (without the funnel)
+    cohorts = {}
+    for scen in (None, "heavy_tail"):
+        scfg = dataclasses.replace(fcfg, candidate_frac=None, scenario=scen, reprofile_every=None)
+        st = engine.init_server_state(scfg, trainer.params, trainer.client_xs, trainer.client_ys,
+                                      trainer.round_state.profiles, trainer.losses, selection.DPPSelection())
+        sfn = engine.make_round_fn(scfg, cnn.cnn_loss, (selection.DPPSelection(),))
+        t0 = time.perf_counter()
+        _, out = engine.run_scanned(sfn, st, SCENARIO_ROUNDS)
+        torch.cuda.synchronize()
+        cohorts[scen] = out["selected"]
+        print(f"engine (c) C={FUNNEL_C} without the funnel, scenario {scen}: {SCENARIO_ROUNDS} rounds in "
+              f"{time.perf_counter() - t0:.3f} s, cohorts {out['selected'].tolist()}"
+              + (f", sim_time {out['sim_time'].tolist()}" if scen else ""))
+    check(torch.equal(cohorts[None], cohorts["heavy_tail"]), "(c) heavy_tail moved the cohorts")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    return {"pairwise_dists_stats": r1, "normalized_gram": r2}
 
 
 def _print_profile(torch, what: str, fn, mark: str, n: int = 1, wall_ms=None) -> None:
@@ -1279,47 +1583,21 @@ def main() -> int:
         if tol is not None:
             check(errp <= tol, f"L off at {c}x{q}: {errp} > {tol}")
 
-        # times: wrapper as the main path calls it, its plain version, and
-        # one PyTorch call computing the same function where there is one
-        k1_ms, k1_lib = time_pair(torch, lambda: pw_ops.pairwise_dists_stats(f), lambda: torch.cdist(f, f))
-        k1_hot = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise")
-        k1_dev = device_ms(torch, lambda: pw_ops.pairwise_dists_stats(f), "pairwise", cold=True)
-        k1_plain = time_ms(torch, lambda: pw_ref.pairwise_dists_stats_ref(f))
-        k2_ms = time_ms(torch, lambda: gram_ops.normalized_gram(ws0, wlo, rng, c, compute))
-        k2_dev = device_ms(torch, lambda: gram_ops.normalized_gram(ws0, wlo, rng, c, compute), "gram")
-        k2_plain = time_ms(torch, lambda: gram_ref.normalized_gram_ref(ws0, wlo, rng, c, compute))
-        s = (1.0 - (ws0 - wlo) / rng).to(compute)
-        k2_lib = time_ms(torch, lambda: torch.mm(s.T, s))
         pipe_ms = time_ms(torch, lambda: gram_ops.kernel_from_profiles(f))
         pipe = device_kernels(torch, lambda: gram_ops.kernel_from_profiles(f))
         check(len(pipe) == 2, f"kernel_from_profiles at {c}x{q} launched {pipe}")
-
-        # least work: both outputs are symmetric, so K1 needs one triangle of
-        # dot products (c(c-1)/2 of q FMAs, in fp32 whatever F's type) plus
-        # the c norms, and K2 one triangle of S^T S (a SYRK, c(c+1)/2 dots
-        # of c FMAs) plus three operations to normalise each S0 element
-        esize = f.element_size()
-        tiles = math.ceil(c / 64)
-        b1 = bound(
-            c * q * esize + c * c * 4 + 2 * tiles * tiles * 4,
-            1.0 * c * (c - 1) * q + 2.0 * c * q, "fp32",
-        )
-        b2 = bound(c * c * 4 + 8 + c * c * 4, 1.0 * c * c * (c + 1) + 3.0 * c * c, kind)
-        rows["pairwise_dists_stats"][(c, q, kind)] = dict(
-            max_abs_err=err1, ms=k1_ms, device_ms=k1_dev, device_ms_hot=k1_hot, plain_ms=k1_plain,
-            library_ms=k1_lib, bound_ms=b1[0], bound_by=b1[1], plan=k1_plan,
-        )
-        rows["normalized_gram"][(c, q, kind)] = dict(
-            max_abs_err=err2, ms=k2_ms, device_ms=k2_dev, plain_ms=k2_plain, library_ms=k2_lib,
-            bound_ms=b2[0], bound_by=b2[1],
-        )
+        r1, r2 = k1_k2_rows(torch, f, ws0, wlo, rng, compute, kind)
+        r1.update(max_abs_err=err1, plan=k1_plan)
+        r2["max_abs_err"] = err2
+        rows["pairwise_dists_stats"][(c, q, kind)] = r1
+        rows["normalized_gram"][(c, q, kind)] = r2
         print(
             f"kernels C={c} Q={q} {kind}: "
-            f"K1 {k1_plan}; err={err1:.3e} ms={k1_ms:.5f} device_ms cold={fmt_ms(k1_dev)} "
-            f"hot={fmt_ms(k1_hot)} plain={k1_plain:.5f} cdist={k1_lib:.5f} bound={b1[0]:.6f} ({b1[1]})"
-            f"{share(b1[0], k1_dev, f'K1 {c}x{q} {kind}')} | "
-            f"K2 err={err2:.3e} ms={k2_ms:.5f} device_ms={fmt_ms(k2_dev)} plain={k2_plain:.5f} mm={k2_lib:.5f} "
-            f"bound={b2[0]:.6f} ({b2[1]}) | "
+            f"K1 {k1_plan}; err={err1:.3e} ms={r1['ms']:.5f} device_ms cold={fmt_ms(r1['device_ms'])} "
+            f"hot={fmt_ms(r1['device_ms_hot'])} plain={r1['plain_ms']:.5f} cdist={r1['library_ms']:.5f} "
+            f"bound={r1['bound_ms']:.6f} ({r1['bound_by']}){share(r1['bound_ms'], r1['device_ms'], f'K1 {c}x{q} {kind}')} | "
+            f"K2 err={err2:.3e} ms={r2['ms']:.5f} device_ms={fmt_ms(r2['device_ms'])} plain={r2['plain_ms']:.5f} "
+            f"mm={r2['library_ms']:.5f} bound={r2['bound_ms']:.6f} ({r2['bound_by']}) | "
             f"pipeline err={errp:.3e} (max|L|={lmax:.4g}) ms={pipe_ms:.5f} ({len(pipe)} kernels)"
         )
 
@@ -1681,6 +1959,9 @@ def main() -> int:
     # ------------------------------------ 3c. the paper's baseline comparison
     baselines_phase(torch, exp, client_xs, client_ys)
 
+    # ------------------------------------------- 3d. the federation engine
+    funnel_rows = engine_phase(torch, exp, client_xs, client_ys, ds)
+
     # ------------------------------------------- 4. the serving main path
     serve_launches, _ = serve_phase(torch, dev, "smollm-360m")
 
@@ -1779,6 +2060,16 @@ def main() -> int:
         # read a device time below its bound
         check(r["device_ms"] is None or r["bound_ms"] <= r["device_ms"],
               f"{name}: device time {r['device_ms']} below its bound {r['bound_ms']}")
+    # the funnel's K1 and K2 rows (phase 3d): its shape, its launches
+    for name, r in funnel_rows.items():
+        table.append(dict(
+            name=f"{name} funnel {'x'.join(map(str, r['shape']))}", route="cuda", source=sources[name][0],
+            replaces=sources[name][1], launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        ))
+        check(r["device_ms"] is None or r["bound_ms"] <= r["device_ms"],
+              f"{name} funnel: device time {r['device_ms']} below its bound {r['bound_ms']}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({

@@ -38,6 +38,7 @@ __all__ = [
     "kdpp_sampler_state",
     "log_det_subset",
     "greedy_map_kdpp",
+    "masked_kernel",
     "gumbel_noise",
     "sample_kdpp",
     "sample_kdpp_from_eigh",
@@ -245,6 +246,17 @@ def greedy_map_kdpp(kernel: torch.Tensor, k: int) -> torch.Tensor:
         chosen[j] = True
         items.append(j)
     return torch.stack(items).to(torch.int32)
+
+
+def masked_kernel(kernel: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """Fold an availability mask into a PSD kernel: ``L' = m mᵀ ⊙ L`` with
+    ``m = avail`` zeroes the rows and columns of unavailable items.  L'
+    stays PSD (a congruence by ``diag(m)``), its eigenvectors vanish on the
+    unavailable coordinates, so a k-DPP draw from L' returns available
+    items only.  It needs the available block to have rank >= k; callers
+    fall back to the unmasked kernel when fewer than k items are available."""
+    m = avail.to(kernel.dtype)
+    return kernel * (m[:, None] * m[None, :])
 
 
 def log_det_subset(kernel: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

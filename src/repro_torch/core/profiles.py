@@ -24,6 +24,8 @@ from typing import Callable, Iterable, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_leaves, tree_unflatten
+
 __all__ = [
     "fc1_profile",
     "gradient_profile",
@@ -68,12 +70,15 @@ def profile_all_clients(
     return torch.stack(rows, dim=0)
 
 
-def _leaves_with_paths(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
-    """(path, leaf) pairs of a nested mapping in ``jax.tree_util``'s order:
-    the keys of every mapping sorted."""
+def _leaves_with_paths(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, torch.Tensor]]:
+    """(path, leaf) pairs of a nested tree in ``jax.tree_util``'s order:
+    the keys of every mapping sorted, a list's items by index."""
     if isinstance(tree, Mapping):
         for key in sorted(tree):
             yield from _leaves_with_paths(tree[key], prefix + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, item in enumerate(tree):
+            yield from _leaves_with_paths(item, prefix + (i,))
     else:
         yield prefix, tree
 
@@ -84,14 +89,13 @@ def _grad_leaves(
     """The gradient of ``loss_fn(params, xs, ys)`` as (path, leaf) pairs in
     the order and layouts of ``layout(grads)``.  A parameter the loss does
     not reach gets a zero gradient, as ``jax.grad`` gives."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    live = [v.detach().requires_grad_(True) for v in tree_leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(leaves, xs, ys)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    tree = {
-        k: torch.zeros_like(v) if g is None else g
-        for (k, v), g in zip(leaves.items(), grads)
-    }
+        loss = loss_fn(tree_unflatten(params, live), xs, ys)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    tree = tree_unflatten(
+        params, [torch.zeros_like(v) if g is None else g for v, g in zip(live, grads)]
+    )
     return list(_leaves_with_paths(tree if layout is None else layout(tree)))
 
 

@@ -10,16 +10,24 @@
 * :class:`PowerOfChoiceSelection` — beyond-paper extra baseline (Cho et
   al.): d uniform candidates, keep the C_p with the highest loss.
 
-``draw_fn(generator, SelectionState, k) -> (k,) int32`` is the one draw each
-strategy overrides; randomness comes from the explicit ``torch.Generator``
-(on the device of the state's tensors).  The three baselines split it in
-two: ``noise(generator, state, k)`` draws the random numbers and
-``draw_from_noise(noise, state, k)`` makes the cohort from them, so that
-the tests can feed the JAX package's noise and compare cohorts exactly.
-``select(generator, RoundState, k)`` builds the :class:`SelectionState`
-from the server's knowledge (running ``fit`` where a strategy has one) and
-draws.  The JAX draw's ``avail=`` mask (availability masking) is not
-ported yet: it waits for the engine's availability features.
+``draw_fn(generator, SelectionState, k, avail=None) -> (k,) int32`` is the
+one draw each strategy overrides; randomness comes from the explicit
+``torch.Generator`` (on the device of the state's tensors).  ``avail``, a
+(C,) bool mask from a scenario's availability model, restricts the draw to
+available clients; every strategy shares one fallback
+(:func:`availability_logits`): with fewer than ``k`` available clients the
+unmasked draw is made.  Both sides of that test are computed and one is
+kept with ``torch.where``, so a draw never waits on the device.  Every
+strategy but the k-DPP splits its draw in two: ``noise(generator, state,
+k, avail)`` draws the random numbers and ``draw_from_noise(noise, state,
+k, avail)`` makes the cohort from them, so that the tests can feed the JAX
+package's noise and compare cohorts exactly.
+
+The engine calls :meth:`SelectionStrategy.select_global_fn`, which draws
+over the funnel's candidates when the state holds a :class:`CandidateSet`
+and maps the picks back to global client ids.  ``select(generator,
+RoundState, k)`` builds the :class:`SelectionState` from the server's
+knowledge (running ``fit`` where a strategy has one) and draws.
 """
 
 from __future__ import annotations
@@ -36,7 +44,12 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "RoundState",
+    "CandidateSet",
     "SelectionState",
+    "availability_logits",
+    "candidate_availability",
+    "funnel_scores",
+    "funnel_candidates",
     "selection_state",
     "SelectionStrategy",
     "UniformSelection",
@@ -63,11 +76,54 @@ class RoundState:
 
 
 @dataclasses.dataclass(frozen=True)
+class CandidateSet:
+    """Stage 1 of the two-stage selection funnel: the global ids of the Q
+    clients that survived the cheap prefilter, **sorted ascending**, so the
+    funnel at Q = C is the identity (``arange(C)``).  A
+    :class:`SelectionState` holding one is candidate-space: kernel (Q, Q),
+    losses, sizes and labels (Q,), spectral cache over the Q × Q block."""
+
+    ids: torch.Tensor  # (Q,) int32 global client ids, ascending
+
+    @property
+    def size(self) -> int:
+        return self.ids.shape[0]
+
+
+def funnel_scores(
+    losses: torch.Tensor,
+    avail: Optional[torch.Tensor] = None,
+    latency: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The stage-1 prefilter score, O(C):
+    ``max(loss, 1e-8) / (1 + max(latency, 0)) · avail``.  A high running
+    loss promotes a client, a predicted latency demotes a straggler, and an
+    unavailable client scores exactly 0.  Only the Q survivors are ever
+    asked for a profile."""
+    score = torch.clamp_min(losses.float(), 1e-8)
+    if latency is not None:
+        score = score / (1.0 + torch.clamp_min(latency.float(), 0.0))
+    if avail is not None:
+        score = score * avail.float()
+    return score
+
+
+def funnel_candidates(scores: torch.Tensor, q: int) -> torch.Tensor:
+    """The top ``q`` scores' client ids, ascending, int32.  Ties break by
+    the lower id, as JAX's ``lax.top_k`` breaks them (unavailable clients
+    all score 0): a stable sort, not ``torch.topk``."""
+    top = torch.sort(-scores, stable=True).indices[:q]
+    return torch.sort(top).values.to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
 class SelectionState:
     """Tensor view of :class:`RoundState` for a draw; all fields concrete.
 
     ``eig_state`` is the k-DPP spectral cache (one eigh + ESP table);
     strategies that never draw from a DPP carry the identity-kernel cache.
+    With ``candidates`` set every other field is candidate-space (Q-sized)
+    and ``candidates.ids`` maps a local pick to its global id.
     """
 
     kernel: torch.Tensor  # (C, C) PSD profile kernel
@@ -75,9 +131,11 @@ class SelectionState:
     client_sizes: torch.Tensor  # (C,) n_c
     cluster_labels: torch.Tensor  # (C,) int32 — host-fitted, 0 when unused
     eig_state: dpp_mod.KDPPSamplerState  # spectral cache of ``kernel``
+    candidates: Optional[CandidateSet] = None
 
     @property
     def num_clients(self) -> int:
+        """The population a draw is over: Q under the funnel."""
         return self.losses.shape[0]
 
 
@@ -90,6 +148,7 @@ def selection_state(
     cluster_labels: Optional[torch.Tensor] = None,
     eig_state: Optional[dpp_mod.KDPPSamplerState] = None,
     decompose_kernel: bool = False,
+    candidates: Optional[CandidateSet] = None,
 ) -> SelectionState:
     """Build a :class:`SelectionState`, filling neutral defaults for the
     signals a strategy does not use.  The eigendecomposition is only paid
@@ -113,7 +172,30 @@ def selection_state(
             if cluster_labels is None else cluster_labels
         ),
         eig_state=eig_state,
+        candidates=candidates,
     )
+
+
+def availability_logits(avail: torch.Tensor, k: int, logits: torch.Tensor) -> torch.Tensor:
+    """Sampling logits masked to the available clients, or the unmasked
+    logits when fewer than ``k`` are available (a round must still field a
+    k-cohort)."""
+    masked = torch.where(avail, logits, -torch.inf)
+    return torch.where(torch.sum(avail) >= k, masked, logits)
+
+
+def candidate_availability(avail: torch.Tensor, candidates: CandidateSet) -> torch.Tensor:
+    """A global (C,) availability mask gathered into candidate space (Q,):
+    under the funnel the strategies see only this view, so the
+    fewer-than-k fallback of :func:`availability_logits` falls back to the
+    candidates, never to a non-candidate."""
+    return avail[candidates.ids.long()]
+
+
+def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries, largest first, ties by the
+    lower index (``lax.top_k``'s order; ``torch.topk`` promises none)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
 
 
 class SelectionStrategy:
@@ -123,10 +205,33 @@ class SelectionStrategy:
     uses_spectral_cache = False
 
     def draw_fn(
-        self, generator: torch.Generator, state: SelectionState, k: int
+        self, generator: torch.Generator, state: SelectionState, k: int,
+        avail: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """``(generator, SelectionState, k) -> (k,) int32`` client ids."""
+        """``(generator, SelectionState, k, avail=None) -> (k,) int32``
+        client ids, drawn among the available ones when ``avail`` is given."""
         raise NotImplementedError(f"{type(self).__name__} must override draw_fn")
+
+    def select_global_fn(
+        self, generator: torch.Generator, state: SelectionState, k: int,
+        avail: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The draw in **global** client ids, the engine's one entry point.
+
+        Without a funnel (``state.candidates is None``) this is
+        :meth:`draw_fn`.  With one, ``state`` is candidate-space: the draw
+        runs over the Q candidates (``avail``, a global (C,) mask, gathered
+        through :func:`candidate_availability`) and its local picks are
+        mapped back through ``candidates.ids``.  ``avail`` is passed on only
+        when given, so a ``draw_fn`` that takes no mask still runs every
+        round without one."""
+        cand = state.candidates
+        if cand is not None and avail is not None:
+            avail = candidate_availability(avail, cand)
+        sel = self.draw_fn(generator, state, k) if avail is None else self.draw_fn(generator, state, k, avail)
+        if cand is None:
+            return sel
+        return cand.ids[sel.long()]
 
     def prepare(self, state: RoundState, k: int) -> SelectionState:
         """RoundState -> SelectionState."""
@@ -139,16 +244,44 @@ class SelectionStrategy:
         return self.draw_fn(generator, self.prepare(state, k), k)
 
 
-class UniformSelection(SelectionStrategy):
-    """FedAvg: k clients uniformly at random without replacement."""
+class _NoiseDrawSelection(SelectionStrategy):
+    """A strategy whose draw is ``draw_from_noise(noise(generator, state, k,
+    avail), state, k, avail)``: the random numbers apart from what is made
+    of them."""
+
+    def noise(self, generator, state, k, avail=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def draw_from_noise(self, noise, state, k, avail=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def draw_fn(self, generator, state, k, avail=None):
+        return self.draw_from_noise(self.noise(generator, state, k, avail), state, k, avail)
+
+
+def _client_gumbels(generator, state) -> torch.Tensor:
+    """Gumbel noise (C,), one per client, in the losses' dtype."""
+    losses = state.losses
+    return dpp_mod.gumbel_noise(losses.shape, generator, losses.dtype, losses.device)
+
+
+class UniformSelection(_NoiseDrawSelection):
+    """FedAvg: k clients uniformly at random without replacement; with a
+    mask, Gumbel top-k over the available clients' equal logits."""
 
     name = "fedavg"
 
-    def draw_fn(self, generator, state, k):
-        perm = torch.randperm(
-            state.num_clients, generator=generator, device=state.losses.device
-        )
-        return perm[:k].to(torch.int32)
+    def noise(self, generator, state, k, avail=None):
+        """A permutation of the clients, or with a mask Gumbel noise (C,)."""
+        if avail is not None:
+            return _client_gumbels(generator, state)
+        return torch.randperm(state.num_clients, generator=generator, device=state.losses.device)
+
+    def draw_from_noise(self, noise, state, k, avail=None):
+        if avail is None:
+            return noise[:k].to(torch.int32)
+        logits = availability_logits(avail, k, torch.zeros_like(noise))
+        return _top_k(logits + noise, k).to(torch.int32)
 
 
 class DPPSelection(SelectionStrategy):
@@ -171,12 +304,25 @@ class DPPSelection(SelectionStrategy):
         if mode == "map":
             self.name = "fl-dp3s-map"
 
-    def draw_fn(self, generator, state, k):
+    def draw_fn(self, generator, state, k, avail=None):
+        if avail is not None:
+            # the spectral cache decomposes the unmasked kernel: a round
+            # with a mask pays the one-shot eigh of the masked one
+            kern = self.avail_kernel(state.kernel, avail, k)
+            if self.mode == "map":
+                return dpp_mod.greedy_map_kdpp(kern, k)
+            return dpp_mod.sample_kdpp(generator, kern, k)
         if self.mode == "map":
             return dpp_mod.greedy_map_kdpp(state.kernel, k)
         if self.use_cache:
             return dpp_mod.sample_kdpp_from_eigh(generator, state.eig_state, k)
         return dpp_mod.sample_kdpp(generator, state.kernel, k)
+
+    @staticmethod
+    def avail_kernel(kernel: torch.Tensor, avail: torch.Tensor, k: int) -> torch.Tensor:
+        """The kernel a masked round draws from: ``masked_kernel`` with at
+        least ``k`` available clients, else the unmasked kernel."""
+        return torch.where(torch.sum(avail) >= k, dpp_mod.masked_kernel(kernel, avail), kernel)
 
     def prepare(self, state, k):
         if state.kernel is None:
@@ -188,34 +334,21 @@ class DPPSelection(SelectionStrategy):
         )
 
 
-class _NoiseDrawSelection(SelectionStrategy):
-    """A strategy whose draw is ``draw_from_noise(noise(generator, state,
-    k), state, k)``: the random numbers apart from what is made of them."""
-
-    def noise(self, generator, state, k) -> torch.Tensor:
-        raise NotImplementedError
-
-    def draw_from_noise(self, noise, state, k) -> torch.Tensor:
-        raise NotImplementedError
-
-    def draw_fn(self, generator, state, k):
-        return self.draw_from_noise(self.noise(generator, state, k), state, k)
-
-
 class FedSAESelection(_NoiseDrawSelection):
     """Prefer clients with higher local loss (sample ∝ loss, w/o repl.)."""
 
     name = "fedsae"
 
-    def noise(self, generator, state, k):
+    def noise(self, generator, state, k, avail=None):
         """Gumbel noise (C,), one per client."""
-        losses = state.losses
-        return dpp_mod.gumbel_noise(losses.shape, generator, losses.dtype, losses.device)
+        return _client_gumbels(generator, state)
 
-    def draw_from_noise(self, gumbel, state, k):
+    def draw_from_noise(self, gumbel, state, k, avail=None):
         # Gumbel top-k: weighted sampling without replacement ∝ loss
         logits = torch.log(torch.clamp_min(state.losses, 1e-8))
-        return torch.topk(logits + gumbel, k).indices.to(torch.int32)
+        if avail is not None:
+            logits = availability_logits(avail, k, logits)
+        return _top_k(logits + gumbel, k).to(torch.int32)
 
 
 class PowerOfChoiceSelection(_NoiseDrawSelection):
@@ -226,16 +359,33 @@ class PowerOfChoiceSelection(_NoiseDrawSelection):
     def __init__(self, d: int = 30):
         self.d = d
 
-    def noise(self, generator, state, k):
-        """``min(d, C)`` distinct client ids, uniformly without replacement."""
+    def noise(self, generator, state, k, avail=None):
+        """``min(d, C)`` distinct client ids, uniformly without replacement;
+        with a mask, Gumbel noise (C,) that ranks the clients instead."""
+        if avail is not None:
+            return _client_gumbels(generator, state)
         d = min(self.d, state.num_clients)
         perm = torch.randperm(state.num_clients, generator=generator, device=state.losses.device)
         return perm[:d]
 
-    def draw_from_noise(self, candidates, state, k):
+    def draw_from_noise(self, noise, state, k, avail=None):
+        losses = state.losses
+        if avail is None:
+            cand = noise
+            cand_losses = losses[cand.long()]
+        else:
+            # d candidates uniformly among the available clients (Gumbel
+            # over -inf-masked logits ranks every available client first),
+            # then the usual loss top-k with the unavailable padding last;
+            # fewer than k available drops the mask (availability_logits)
+            d = min(self.d, state.num_clients)
+            enough = torch.sum(avail) >= k
+            logits = availability_logits(avail, k, torch.zeros_like(noise))
+            cand = _top_k(logits + noise, d)
+            cand_losses = torch.where(avail[cand] | ~enough, losses[cand], -torch.inf)
         # a stable sort, as jnp.argsort: equal losses keep the candidate order
-        order = torch.argsort(-state.losses[candidates.long()], stable=True)
-        return candidates[order[:k]].to(torch.int32)
+        order = torch.argsort(-cand_losses, stable=True)
+        return cand[order[:k]].to(torch.int32)
 
     def prepare(self, state, k):
         # unknown losses -> all-equal weights => pure power-of-d over uniforms
@@ -316,26 +466,33 @@ class ClusterSelection(_NoiseDrawSelection):
         ok = torch.any(member & torch.isfinite(base)[None, :], dim=1, keepdim=True)
         return torch.where(ok, logits, base[None, :])
 
-    def noise(self, generator, state, k):
+    def noise(self, generator, state, k, avail=None):
         """Gumbel noise (k, C), one row per cluster."""
         sizes = state.client_sizes
         return dpp_mod.gumbel_noise((k, sizes.shape[0]), generator, torch.float32, sizes.device)
 
-    def draw_from_noise(self, gumbels, state, k):
+    def draw_from_noise(self, gumbels, state, k, avail=None):
+        # with a mask, row l draws among cluster l's available members; a
+        # cluster with none falls back to every available client, and fewer
+        # than k available drops the mask (availability_logits)
         labels = state.cluster_labels
         log_sizes = torch.log(torch.clamp_min(state.client_sizes.float(), 1e-30))
         member = labels[None, :] == torch.arange(k, dtype=labels.dtype, device=labels.device)[:, None]
         logits = self._cluster_logits(member, log_sizes)
+        if avail is not None:
+            masked = self._cluster_logits(member, torch.where(avail, log_sizes, -torch.inf))
+            logits = torch.where(torch.sum(avail) >= k, masked, logits)
         return torch.argmax(gumbels + logits, dim=1).to(torch.int32)
 
-    def labels_for(self, state, k: int) -> torch.Tensor:
+    def labels_for(self, state, k: int, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``fit`` on the round state's fingerprints: representative
         gradients when available (as Fraboni et al. cluster), else the
-        profiles."""
+        profiles; only the clients ``rows`` (the funnel's candidates) when
+        given."""
         feats = state.grad_profiles if state.grad_profiles is not None else state.profiles
         if feats is None:
             raise ValueError("ClusterSelection needs client fingerprints")
-        return self.fit(feats, k)
+        return self.fit(feats if rows is None else feats[rows.long()], k)
 
     def prepare(self, state, k):
         return selection_state(

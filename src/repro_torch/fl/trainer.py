@@ -2,13 +2,19 @@
 
 Simulates the full federation on one device: profiles every client once with
 the freshly initialised global model (Alg. 1 lines 2-5), builds the eq.-(14)
-kernel, then runs rounds in a host loop: select cohort → local SGD on each
-cohort client (eq. 3-5) → eq.-(6) aggregation.  Metrics: training-set
-accuracy (Fig. 1 protocol), GEMD per round (Fig. 2), last-known local losses.
+kernel, then runs rounds: select cohort → local SGD on each cohort client
+(eq. 3-5) → eq.-(6) aggregation.  Metrics: training-set accuracy (Fig. 1
+protocol), GEMD per round (Fig. 2), last-known local losses.
 
-The round loop is the JAX package's ``FLTrainer.run_legacy``; its scanned
-engine is ``fl/engine.py``'s ``make_round_fn``.  Randomness comes from one
-``torch.Generator`` on the trainer's device, seeded from ``cfg.seed``.
+:meth:`FLTrainer.run` packs the server's knowledge into a
+:class:`~repro_torch.fl.engine.ServerState` and runs the rounds through the
+engine (``fl/engine.py``) in segments between reprofile boundaries; at a
+boundary it re-profiles, re-fits the clusters and, under the funnel, picks
+new candidates with their kernel and cache.  :meth:`FLTrainer.run_legacy`
+is the JAX package's host loop, kept as the engine's oracle: both loops
+draw in the same order from one ``torch.Generator`` on the trainer's
+device, seeded from ``cfg.seed``, so on one device they give the same
+history bit for bit.
 
 Works for any model exposing ``loss_fn(params, x, y)`` and
 ``feature_fn(params, x) -> (logits, feats)``; the paper's CNN is the default.
@@ -17,6 +23,7 @@ The Cluster baseline fingerprints clients by representative gradients.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -30,6 +37,7 @@ from repro_torch.core import similarity as similarity_lib
 from repro_torch.device import resolve_device
 from repro_torch.fl import engine as engine_lib
 from repro_torch.fl import rounds as rounds_lib
+from repro_torch.fl import scenarios as scenarios_lib
 from repro_torch.fl.engine import FLConfig
 
 __all__ = ["FLConfig", "FLTrainer"]
@@ -69,6 +77,14 @@ class FLTrainer:
         self.eval_ys = None if eval_ys is None else torch.as_tensor(eval_ys, device=self.device)
         self.accuracy_fn = accuracy_fn
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # the scenario's draws and the funnel's predictions: streams of
+        # their own, so neither moves a cohort (engine.salted_generator)
+        self.env_generator = (
+            None if cfg.scenario is None
+            else engine_lib.salted_generator(cfg.seed, engine_lib._ENV_SALT, self.device)
+        )
+        self.funnel_generator = engine_lib.salted_generator(cfg.seed, engine_lib._FUNNEL_SALT, self.device)
+        self._round_fn_memo = None
         # k-DPP spectral cache, keyed on the kernel tensor it was built from;
         # _init_profiles (reprofile boundaries) invalidates it with the kernel
         self._eig_state = None
@@ -114,9 +130,14 @@ class FLTrainer:
             self.feature_fn, self.params, list(self.client_xs)
         )
         self.round_state.profiles = feats
-        self.round_state.kernel = similarity_lib.kernel_from_profiles(
-            feats, use_kernel=self.cfg.use_pallas_kernel
-        )
+        if self.cfg.candidate_frac is None:
+            self.round_state.kernel = similarity_lib.kernel_from_profiles(
+                feats, use_kernel=self.cfg.use_pallas_kernel
+            )
+        else:
+            # under the funnel the kernel lives on the candidate block, built
+            # per segment by engine.funnel_fields: no C × C kernel here
+            self.round_state.kernel = None
         # the spectral cache decomposes exactly this kernel — invalidate
         self._eig_state = None
         self._eig_kernel = None
@@ -133,13 +154,16 @@ class FLTrainer:
             ]
             self.round_state.grad_profiles = torch.stack(gp)
 
-    def _cluster_labels(self) -> torch.Tensor:
+    def _cluster_labels(self, candidates: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Host-fitted cluster labels of the Cluster baseline (the fit is
         cached on the fingerprints' content, so only a reprofile
-        re-clusters); zeros for every other strategy."""
+        re-clusters), on the funnel's candidate rows when ``candidates`` is
+        given (at Q = C the unfunnelled labels); zeros for every other
+        strategy."""
         if isinstance(self.strategy, selection_lib.ClusterSelection):
-            return self.strategy.labels_for(self.round_state, self.cfg.clients_per_round)
-        return torch.zeros((self.cfg.num_clients,), dtype=torch.int32, device=self.device)
+            return self.strategy.labels_for(self.round_state, self.cfg.clients_per_round, rows=candidates)
+        n = self.cfg.num_clients if candidates is None else candidates.shape[0]
+        return torch.zeros((n,), dtype=torch.int32, device=self.device)
 
     def _make_client_batches(self, sel: torch.Tensor):
         """Slice the selected clients' data into (C_p, steps, B, ...) batches."""
@@ -178,20 +202,128 @@ class FLTrainer:
         )
 
     # ------------------------------------------------------------------
+    def _supports_engine(self) -> bool:
+        """A strategy runs through the engine when it overrides ``draw_fn``;
+        one that does not falls back to the legacy loop."""
+        return type(self.strategy).draw_fn is not selection_lib.SelectionStrategy.draw_fn
+
+    def _selection_fields(self) -> Dict:
+        """The ServerState fields the profiles decide: the profiles, the
+        kernel with its cache, the cluster labels and, under the funnel, a
+        new candidate set on the current losses (predicted for the current
+        round) with its (Q, Q) kernel and cache."""
+        rs = self.round_state
+        if self.cfg.candidate_frac is None:
+            cand, kern, eig = None, rs.kernel, self.eig_state()
+        else:
+            cand, kern, eig = engine_lib.funnel_fields(
+                self.cfg, self.funnel_generator, rs.profiles, self.losses,
+                strategy=self.strategy, round_index=rs.round,
+            )
+        return dict(profiles=rs.profiles, kernel=kern, eig_state=eig,
+                    cluster_labels=self._cluster_labels(cand), candidates=cand)
+
+    def server_state(self) -> engine_lib.ServerState:
+        """The trainer's current server knowledge as a ServerState, sharing
+        the trainer's generators."""
+        return engine_lib.ServerState(
+            params=self.params,
+            generator=self.generator,
+            round=self.round_state.round,
+            losses=self.losses,
+            client_xs=self.client_xs,
+            client_ys=self.client_ys,
+            client_sizes=self.client_sizes,
+            client_label_dists=self.client_label_dists,
+            global_label_dist=self.global_label_dist,
+            env_generator=self.env_generator,
+            **self._selection_fields(),
+        )
+
+    def round_fn(self):
+        """The engine's per-round transition for this trainer (memoised)."""
+        if self._round_fn_memo is None:
+            self._round_fn_memo = engine_lib.make_round_fn(
+                self.cfg, self.loss_fn, (self.strategy,), accuracy_fn=self.accuracy_fn,
+                eval_data=None if self.eval_xs is None else (self.eval_xs, self.eval_ys),
+            )
+        return self._round_fn_memo
+
+    def _absorb(self, state: engine_lib.ServerState):
+        """Pull a segment's final state back into the trainer's fields."""
+        self.params = state.params
+        self.losses = state.losses
+        self.round_state.losses = self.losses
+        self.round_state.round = state.round
+
+    # ------------------------------------------------------------------
     def run(self, rounds: Optional[int] = None, progress: bool = False) -> Dict[str, List]:
+        """Run rounds through the engine, in segments that end at the
+        multiples of ``reprofile_every``; after each such boundary the
+        trainer re-profiles every client, re-fits the clusters and, under
+        the funnel, re-funnels.  (JAX's ``run`` skips a boundary that ends
+        the run; here every multiple re-profiles, as the legacy loop does,
+        so the two loops leave the same state for a later call.)  History
+        as the legacy loop records it: every ``eval_every`` rounds and the
+        last round, whose accuracy is evaluated here when it is off the
+        grid.  Round numbers continue from earlier ``run`` calls.  A
+        strategy that does not override ``draw_fn`` runs the legacy loop."""
+        cfg = self.cfg
+        rounds = rounds or cfg.rounds
+        if not self._supports_engine():
+            return self.run_legacy(rounds=rounds, progress=progress)
+        round_fn = self.round_fn()
+        start = self.round_state.round
+        end = start + rounds
+        every = cfg.reprofile_every
+        state = self.server_state()
+        outs: List[Dict] = []
+        t = start
+        while t < end:
+            n = end - t if not every else min(end - t, every - t % every)
+            state, seg = engine_lib.run_scanned(round_fn, state, n)
+            outs.append(seg)
+            t += n
+            self._absorb(state)
+            if every and t % every == 0:
+                self._init_profiles()  # re-profile and re-fit the clusters
+                if t < end:
+                    state = dataclasses.replace(state, **self._selection_fields())
+        merged = {name: torch.cat([o[name] for o in outs]) for name in outs[0]}
+        final_acc = self._evaluate() if end % cfg.eval_every != 0 else None
+        hist = engine_lib.history_from_outputs(merged, cfg.eval_every, final_acc=final_acc)
+        for name in self.history:
+            self.history[name].extend(hist[name])
+        if progress:
+            for r, a, g, l in zip(hist["round"], hist["acc"], hist["gemd"], hist["loss"]):
+                print(f"[{self.strategy.name}] round {r:4d} acc={a:.4f} gemd={g:.3f} loss={l:.4f}")
+        return self.history
+
+    def run_legacy(self, rounds: Optional[int] = None, progress: bool = False) -> Dict[str, List]:
         """The host loop: per round, select on the device, run the cohort's
         local updates, aggregate, refresh the cohort's losses and the GEMD,
         re-profile every ``reprofile_every`` rounds, and evaluate every
         ``eval_every`` rounds and at the last round.  Round numbers continue
-        from earlier ``run`` calls."""
+        from earlier calls.  The engine's oracle, and the loop of a strategy
+        that overrides only ``select``.  It draws no scenario and runs no
+        funnel, so it refuses a funnel and an availability model."""
         cfg = self.cfg
+        if cfg.candidate_frac is not None:
+            raise ValueError("candidate_frac needs the engine (FLTrainer.run): the legacy loop has no funnel")
+        if cfg.scenario is not None and scenarios_lib.get_scenario(cfg.scenario).availability is not None:
+            raise ValueError(
+                f"scenario {cfg.scenario!r} masks availability, which only the engine "
+                "(FLTrainer.run) draws"
+            )
         rounds = rounds or cfg.rounds
         start = self.round_state.round
         for t in range(start + 1, start + rounds + 1):
             self.round_state.round = t
-            sel = self.strategy.draw_fn(
-                self.generator, self.selection_state(), cfg.clients_per_round
-            ).long()
+            if self._supports_engine():
+                sel = self.strategy.draw_fn(self.generator, self.selection_state(), cfg.clients_per_round)
+            else:  # a host-side strategy: its own select on the round state
+                sel = self.strategy.select(self.generator, self.round_state, cfg.clients_per_round)
+            sel = sel.long()
             batches = self._make_client_batches(sel)
             weights = self.client_sizes[sel]
             self.params, mean_loss = self._round_step(self.params, batches, weights)

@@ -19,7 +19,11 @@ fp32; with it, the arch's own widths, depth and dtypes.  Weights are random
 from ``--seed``.  ``--flash`` routes the attention of every pass that takes
 no gradient (the loss refresh) through K6; gradient passes keep the plain
 attention, since K6 is forward-only.  ``--device`` defaults to ``cuda`` and
-raises without a card.  Flags of features the port does not run yet raise
+raises without a card.  In ``--mode fl``, ``--scenario`` draws each round's
+client latencies (and, for ``flaky``, an availability mask the cohort is
+drawn within) and prints the simulated wall clock, and ``--candidate-frac``
+funnels the federation to its Q top-scored clients, whose (Q, Q) kernel the
+k-DPP draws from.  Flags of features the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -39,6 +43,7 @@ from repro_torch.data import make_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl import engine as engine_lib
 from repro_torch.fl import rounds as rounds_lib
+from repro_torch.fl.scenarios import SCENARIO_NAMES
 from repro_torch.launch.serve import build_model
 from repro_torch.models import transformer as T
 
@@ -68,11 +73,10 @@ def _refuse_unported(args) -> None:
     checks = [
         ("--shard-clients", bool(args.shard_clients), 15),
         ("--cohort-cap", args.cohort_cap is not None, 15),
-        ("--scenario", args.scenario is not None, 11),
-        ("--staleness-bound", args.staleness_bound is not None, 11),
-        ("--staleness-decay", args.staleness_decay != "polynomial", 11),
-        ("--staleness-alpha", args.staleness_alpha != 0.5, 11),
-        ("--candidate-frac", args.candidate_frac is not None, 10),
+        # JAX runs staleness on a mesh only, which item 15 brings
+        ("--staleness-bound", args.staleness_bound is not None, 15),
+        ("--staleness-decay", args.staleness_decay != "polynomial", 15),
+        ("--staleness-alpha", args.staleness_alpha != 0.5, 15),
         ("--faults", args.faults is not None, 12),
         ("--aggregator", args.aggregator != "mean", 12),
         ("--local-algo", args.local_algo != "fedavg", 12),
@@ -126,13 +130,19 @@ def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
         eval_every=max(args.log_every, 1),
         num_classes=num_topics,
         seed=args.seed,
+        scenario=args.scenario,
+        candidate_frac=args.candidate_frac,
     )
     state = engine_lib.init_server_state(
-        flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device
+        flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device,
+        loss_fn=loss_fn,
     )
-    round_fn = engine_lib.make_round_fn(flcfg, loss_fn, strategy)
-    state, outs = engine_lib.run_scanned(round_fn, state, args.rounds)
     tag = f"[fl:{args.selection}]"
+    if flcfg.candidate_frac is not None:
+        print(f"{tag} funnel: C={c} -> Q={flcfg.candidate_count()} candidates "
+              f"(kernel {tuple(state.kernel.shape)})")
+    round_fn = engine_lib.make_round_fn(flcfg, loss_fn, (strategy,))
+    state, outs = engine_lib.run_scanned(round_fn, state, args.rounds)
     for i in range(args.rounds):
         t = int(outs["round"][i])
         if t % args.log_every == 0 or t == args.rounds:
@@ -141,6 +151,10 @@ def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
             print(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
                   f"local updates {float(outs['t_local'][i]):.4f} "
                   f"refresh {float(outs['t_refresh'][i]):.4f}")
+    if "sim_time" in outs:
+        sim = outs["sim_time"].double()
+        print(f"{tag} scenario={args.scenario} (synchronous barrier): simulated wall clock "
+              f"{float(sim.sum()):.2f} (mean round {float(sim.mean()):.2f})")
     return state, outs
 
 
@@ -149,6 +163,10 @@ def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
     record per logged step: step, loss, host seconds since the first step
     began, tokens/s so far)."""
     _refuse_unported(args)
+    fl_only = [flag for flag, on in (("--scenario", args.scenario is not None),
+                                     ("--candidate-frac", args.candidate_frac is not None)) if on]
+    if fl_only:
+        raise ValueError(f"{', '.join(fl_only)} select federation features: use --mode fl")
     if args.flash:
         raise NotImplementedError(
             "--flash has no pass to route in --mode pretrain: every pass takes a "
@@ -202,14 +220,17 @@ def main(argv=None):
                     help="the arch's own widths, depth and dtypes instead of the reduced fp32 model")
     ap.add_argument("--flash", action="store_true",
                     help="route the attention of gradient-free passes (the loss refresh) through K6")
+    ap.add_argument("--scenario", choices=SCENARIO_NAMES, default=None,
+                    help="--mode fl: per-client latency model and optional availability mask; "
+                         "prices a simulated round wall clock")
+    ap.add_argument("--candidate-frac", type=float, default=None,
+                    help="--mode fl: the funnel's fraction of clients kept as candidates, in (0, 1]")
     # the JAX launcher's flags of features not ported yet: each raises
     ap.add_argument("--shard-clients", type=int, default=0)
     ap.add_argument("--cohort-cap", type=int, default=None)
-    ap.add_argument("--scenario", default=None)
     ap.add_argument("--staleness-bound", type=int, default=None)
     ap.add_argument("--staleness-decay", default="polynomial")
     ap.add_argument("--staleness-alpha", type=float, default=0.5)
-    ap.add_argument("--candidate-frac", type=float, default=None)
     ap.add_argument("--faults", default=None)
     ap.add_argument("--aggregator", default="mean")
     ap.add_argument("--local-algo", default="fedavg")

@@ -792,3 +792,27 @@ def test_rwkv_prefill_and_decode_with_flash_launch_k7_once_per_layer(card):
     # the fp32 recurrence summed in another order, carried through the layers
     scale = float(logits[False].abs().max())
     torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_funnel_fields_launch_k1_and_k2_once_on_the_candidate_block(card):
+    """The funnel at C = 4,096, Q = 512 under the flaky scenario: one K1 and
+    one K2 launch on the (512, 128) candidate block, whose (512, 512)
+    kernel is exactly symmetric and within 1e-4 · max|L| of the plain
+    chain on the same block."""
+    from repro_torch.core import selection
+    from repro_torch.fl import engine
+
+    f = _profiles(4096, 128, torch.float32, card, seed=3)
+    losses = torch.rand(4096, generator=torch.Generator().manual_seed(4)).to(card)
+    cfg = engine.FLConfig(num_clients=4096, clients_per_round=10, candidate_frac=0.125, scenario="flaky")
+    before = dict(_build.LAUNCHES)
+    cand, kern, eig = engine.funnel_fields(
+        cfg, torch.Generator(device=card).manual_seed(0), f, losses, strategy=selection.DPPSelection()
+    )
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pairwise_dists_stats"] == before["pairwise_dists_stats"] + 1
+    assert _build.LAUNCHES["normalized_gram"] == before["normalized_gram"] + 1
+    assert cand.shape == (512,) and bool((cand[1:] > cand[:-1]).all()) and eig.num_items == 512
+    want = gram_ref.kernel_from_profiles_ref(f[cand.long()])
+    assert kern.shape == (512, 512) and torch.equal(kern, kern.T)
+    assert float((kern - want).abs().max()) <= 1e-4 * float(want.abs().max())

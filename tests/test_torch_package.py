@@ -88,8 +88,8 @@ def test_quickstart_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("cohort_cap", 2), ("staleness_bound", 1), ("scenario", "diurnal"),
-        ("candidate_frac", 0.5), ("faults", "dropout"), ("aggregator", "trimmed_mean"),
+        ("cohort_cap", 2), ("staleness_bound", 1),
+        ("faults", "dropout"), ("aggregator", "trimmed_mean"),
         ("ckpt_every", 2), ("local_algo", "fedprox"), ("telemetry", True),
     ],
 )

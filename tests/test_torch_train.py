@@ -291,19 +291,55 @@ def test_launcher_runs_both_modes_on_the_cpu(capsys):
     assert capsys.readouterr().out.count("[pretrain] step") == 3
 
 
+_SMALL_FL = ["--mode", "fl", "--rounds", "2", "--clients", "4", "--per-round", "2",
+             "--docs-per-client", "3", "--local-steps", "1", "--local-batch", "2",
+             "--seq", "10", "--log-every", "1", "--device", "cpu"]
+
+
 @pytest.mark.parametrize("selection", ["fedsae", "power-of-choice", "cluster"])
 def test_launcher_runs_the_loss_baselines_and_refuses_cluster(capsys, selection):
-    """The engine's rounds draw with the loss-driven baselines; the Cluster
-    baseline, whose labels the engine does not fit yet, is refused."""
-    argv = ["--mode", "fl", "--rounds", "2", "--clients", "4", "--per-round", "2",
-            "--docs-per-client", "3", "--local-steps", "1", "--local-batch", "2",
-            "--seq", "10", "--log-every", "1", "--selection", selection, "--device", "cpu"]
-    if selection == "cluster":
-        with pytest.raises(NotImplementedError, match="cluster labels"):
-            ttrain.main(argv)
-        return
-    ttrain.main(argv)
+    """The engine's rounds draw with the loss-driven baselines and with the
+    Cluster baseline, which was refused until the engine fitted its labels
+    (on the LM clients' representative gradients): one client per
+    cluster."""
+    state, outs = ttrain.main(_SMALL_FL + ["--selection", selection])
     assert capsys.readouterr().out.count(f"[fl:{selection}] round") == 4
+    if selection == "cluster":
+        labels = state.cluster_labels
+        assert sorted(set(labels.tolist())) == [0, 1]
+        for sel in outs["selected"]:
+            assert labels[sel.long()].tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("selection", ["fl-dp3s", "fedavg", "cluster"])
+def test_launcher_runs_the_funnel_under_the_flaky_scenario(capsys, selection):
+    """``--scenario flaky --candidate-frac 0.5``: the funnel keeps Q = 5 of
+    10 clients, every cohort lies in the candidates and in its round's
+    availability mask (at least k clients are available in every round
+    here), and the simulated wall clock is the sum of the cohorts' slowest
+    latencies."""
+    argv = [a if a != "4" else "10" for a in _SMALL_FL]  # 10 clients
+    state, outs = ttrain.main(argv + ["--selection", selection, "--scenario", "flaky",
+                                      "--candidate-frac", "0.5"])
+    out = capsys.readouterr().out
+    assert f"[fl:{selection}] funnel: C=10 -> Q=5 candidates (kernel (5, 5))" in out
+    assert "scenario=flaky (synchronous barrier): simulated wall clock" in out
+    cand = state.candidates.tolist()
+    assert len(cand) == 5 and cand == sorted(cand)
+    assert tuple(state.kernel.shape) == (5, 5) and tuple(state.cluster_labels.shape) == (5,)
+    for sel, avail in zip(outs["selected"].tolist(), outs["avail"]):
+        assert set(sel) <= set(cand) and len(set(sel)) == 2
+        if int(avail[state.candidates.long()].sum()) >= 2:
+            assert bool(avail[sel].all())
+    assert outs["sim_time"].shape == (2,) and bool((outs["sim_time"] > 0).all())
+
+
+def test_launcher_scenario_and_funnel_flags_are_fl_only():
+    for flag, value in (("--scenario", "flaky"), ("--candidate-frac", "0.5")):
+        with pytest.raises(ValueError, match=f"{flag} select federation features"):
+            ttrain.main(["--mode", "pretrain", flag, value, "--device", "cpu"])
+    with pytest.raises(SystemExit):  # argparse: not one of SCENARIO_NAMES
+        ttrain.main(["--mode", "fl", "--scenario", "diurnal", "--device", "cpu"])
 
 
 def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -316,9 +352,9 @@ def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize(
     "flag,value",
     [
-        ("--shard-clients", "2"), ("--cohort-cap", "2"), ("--scenario", "diurnal"),
+        ("--shard-clients", "2"), ("--cohort-cap", "2"),
         ("--staleness-bound", "1"), ("--staleness-decay", "exponential"),
-        ("--staleness-alpha", "0.3"), ("--candidate-frac", "0.5"), ("--faults", "dropout"),
+        ("--staleness-alpha", "0.3"), ("--faults", "dropout"),
         ("--aggregator", "trimmed_mean"), ("--local-algo", "fedprox"), ("--prox-mu", "0.01"),
         ("--feddyn-alpha", "0.01"), ("--ckpt", "ck"), ("--ckpt-every", "2"),
         ("--telemetry", "t.jsonl"), ("--profile-dir", "prof"),
