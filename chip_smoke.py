@@ -61,7 +61,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    boundary), the (512, 512) kernel against the plain chain, every pick
    among its candidates and available, K1 and K2 held to their plain
    versions on that block and timed there (cold), and a heavy_tail run
-   without the funnel giving the cohorts of a run without a scenario.
+   without the funnel giving the cohorts of a run without a scenario, its
+   two inits launching K1 and K2 once each at (4,096, 128).  Then
+   robustness and checkpoints (3e) on the paper's cell: each aggregator
+   under ``corrupt`` faults beside a plain run (every delivered NaN or
+   garbage cohort member flagged, finite params under the robust ones),
+   ``lemons`` with no client selected while quarantined, FedProx and
+   FedDyn (plain and under ``chaos`` + ``trimmed_mean``: ``h`` moving only
+   for the cohort members whose update was kept; FedProx at mu 0 the plain
+   run bit for bit), a checkpointed ``chaos`` + ``trimmed_mean`` + FedDyn
+   run against 4 rounds, a restore into a fresh state and the rest (every
+   state tensor, generator state and output bit for bit), and the LM
+   launcher at full width resuming at round 2 from its snapshot.
 4. The serving main path: smollm-360m at full width (32 layers, bf16,
    random weights from seed 0) with ``use_flash=True``, in scan mode
    (batch 16, prompt 128, 64 tokens) and through ``ServeEngine`` (16 slots,
@@ -95,7 +106,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 7. Prints, for each shape a path gives K1 or K3 and each shape the RWKV
    path gave K7, its launches there beside that shape's cold device time
    and bound (K1 and K3 also their plan and library time); then one JSON line
-   describing every kernel (K1 and K2 also at the funnel's shape), then the
+   describing every kernel (K1 and K2 also at the funnel's shape and at the
+   unfunnelled init's C = 4,096), then the
    device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -209,6 +221,9 @@ ENGINE_ROUNDS = 5
 FUNNEL_C, FUNNEL_N_C, FUNNEL_FRAC, FUNNEL_ROUNDS, SCENARIO_ROUNDS = 4096, 14, 0.125, 6, 2
 # the LM client path (smollm-360m at full width)
 LM_ROUNDS, LM_CLIENTS, LM_PER_ROUND, LM_SEQ, LM_DOCS = 3, 10, 4, 512, 16
+# robustness and checkpoints (phase 3e): rounds per aggregator and
+# algorithm, rounds of the lemon run, rounds of the resumed run
+ROBUST_ROUNDS, LEMON_ROUNDS, RESUME_ROUNDS = 5, 8, 6
 PRETRAIN_STEPS = 6
 # bounds on the refresh with K6 against the refresh without it, fixed
 # before the first run (PERF.md): per-client losses, and the relative
@@ -1037,16 +1052,24 @@ def _recording(cls, draws: list):
 
 class _Spy:
     """Wraps ``module.name`` while the ``with`` block runs, appending each
-    call's ``(args, kwargs, result)`` to ``calls``."""
+    call's ``(args, kwargs, result)`` to ``calls`` and, given ``sync`` (a
+    device synchronise), its seconds from one ``sync`` to another to
+    ``seconds``."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name: str, sync=None):
+        self.module, self.name, self.sync, self.calls, self.seconds = module, name, sync, [], []
 
     def __enter__(self):
         self.orig = orig = getattr(self.module, self.name)
 
         def wrapped(*a, **kw):
+            if self.sync is not None:
+                self.sync()
+            t0 = time.perf_counter()
             out = orig(*a, **kw)
+            if self.sync is not None:
+                self.sync()
+                self.seconds.append(time.perf_counter() - t0)
             self.calls.append((a, kw, out))
             return out
 
@@ -1074,7 +1097,8 @@ def engine_phase(torch, exp, client_xs, client_ys, ds) -> dict:
     reads latency, so a latency scenario moves its candidates), a
     heavy_tail run's cohorts against a run without a scenario.  cuDNN is
     deterministic for the phase, so that two loops doing the same work give
-    the same bits.  Returns the funnel's K1 and K2 rows."""
+    the same bits.  Returns the funnel's K1 and K2 rows, and K1's and K2's
+    launches at the unfunnelled inits at C = ``FUNNEL_C``."""
     import dataclasses
 
     import numpy as np
@@ -1241,8 +1265,10 @@ def engine_phase(torch, exp, client_xs, client_ys, ds) -> dict:
               f"{share(r['bound_ms'], r['device_ms'], f'{label} funnel')}, plain {r['plain_ms']:.5f}, "
               f"{'cdist' if label == 'K1' else 'mm'} {r['library_ms']:.5f}")
 
-    # a latency-only scenario moves no cohort (without the funnel)
+    # a latency-only scenario moves no cohort (without the funnel); each
+    # init builds the C x C kernel through K1 and K2 at (FUNNEL_C, 128)
     cohorts = {}
+    before = dict(_build.LAUNCHES)
     for scen in (None, "heavy_tail"):
         scfg = dataclasses.replace(fcfg, candidate_frac=None, scenario=scen, reprofile_every=None)
         st = engine.init_server_state(scfg, trainer.params, trainer.client_xs, trainer.client_ys,
@@ -1256,8 +1282,310 @@ def engine_phase(torch, exp, client_xs, client_ys, ds) -> dict:
               f"{time.perf_counter() - t0:.3f} s, cohorts {out['selected'].tolist()}"
               + (f", sim_time {out['sim_time'].tolist()}" if scen else ""))
     check(torch.equal(cohorts[None], cohorts["heavy_tail"]), "(c) heavy_tail moved the cohorts")
+    unfunnelled = {n: _build.LAUNCHES[n] - before[n] for n in FL_KERNELS}
+    check(unfunnelled == {n: 2 for n in FL_KERNELS}, f"(c) K1/K2 not once at each unfunnelled init: {unfunnelled}")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
-    return {"pairwise_dists_stats": r1, "normalized_gram": r2}
+    return {"pairwise_dists_stats": r1, "normalized_gram": r2}, unfunnelled
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor a ServerState holds, by a dotted name, on the CPU, and
+    each generator's state: what a bit-for-bit resume must reproduce."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+
+    def walk(name, v):
+        if isinstance(v, torch.Generator):
+            out[name] = v.get_state()
+        elif isinstance(v, torch.Tensor):
+            out[name] = v.detach().cpu()
+        elif isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{name}.{k}", x)
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{name}.{i}", x)
+        elif dataclasses.is_dataclass(v):
+            for f in dataclasses.fields(v):
+                walk(f"{name}.{f.name}", getattr(v, f.name))
+        elif v is not None:
+            out[name] = torch.tensor(v)
+
+    for f in dataclasses.fields(state):
+        walk(f.name, getattr(state, f.name))
+    return out
+
+
+def _same(torch, a, b) -> bool:
+    """Equal bit for bit, NaN where NaN (torch.equal fails NaN == NaN)."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.all((a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b)
+    )
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def robust_phase(torch, exp, client_xs, client_ys) -> None:
+    """Robustness and checkpoints on the paper's CNN cell (FL-DP³S, K1 + K2
+    at each init), phase 3e.
+
+    (a) ``faults="corrupt"`` under each aggregator, ``ROBUST_ROUNDS`` rounds,
+    beside a plain run of the same cell: per round the guard's outputs,
+    loss, accuracy and seconds; both robust aggregators keep the params
+    finite and flag every cohort member whose delivered update was NaN or
+    garbage (read from the wrapped fault draw, and from the quarantine
+    counters, which a flag restarts at ``quarantine_rounds``).  (b)
+    ``faults="lemons"`` with ``trimmed_mean``, ``LEMON_ROUNDS`` rounds: no
+    client selected while its counter is above 0.  (c) FedProx (mu 0.01) and
+    FedDyn (alpha 0.01), plain and under ``chaos`` with ``trimmed_mean``:
+    finite params, FedDyn's ``h`` moving each round on exactly the cohort
+    members whose update was kept (delivered, unflagged, no identity round:
+    every member without faults) and nonzero at the end for exactly the
+    clients ever kept, and FedProx at mu 0 the plain run bit for bit.  (d)
+    Crash-resume under ``chaos`` with ``trimmed_mean`` and FedDyn:
+    ``run_checkpointed`` of ``RESUME_ROUNDS`` rounds every 2 against 4
+    rounds, a restore of ``step_00000004`` into a fresh
+    ``init_server_state`` and the rest: every state tensor, generator state
+    and round output bit for bit.  (e) The LM launcher at full width with
+    faults, ``trimmed_mean`` and a snapshot every round, relaunched for one
+    more round: it resumes at round 2.  cuDNN is deterministic for the
+    phase, as in 3d."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core import profiles, selection
+    from repro_torch.fl import engine, faults
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_leaves
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cp = exp.clients_per_round
+    params = cnn.init_cnn(torch.Generator(device="cuda").manual_seed(0), channels=exp.cnn_channels,
+                          fc1_dim=exp.fc1_dim)
+    xs = torch.as_tensor(client_xs, device="cuda")
+    ys = torch.as_tensor(client_ys, device="cuda")
+    prof = profiles.profile_all_clients(cnn.apply_with_features, params, list(xs))
+    with torch.no_grad():
+        losses0 = torch.stack([cnn.cnn_loss(params, x, y) for x, y in zip(xs, ys)])
+    base = dataclasses.replace(paper_cnn.fl_config(exp, seed=0), eval_every=1)
+    finite = lambda p: all(bool(torch.isfinite(v).all()) for v in tree_leaves(p))  # noqa: E731
+
+    def init(cfg):
+        """A fresh state of ``cfg`` (K1 + K2 and the eigh) -> (state, K1/K2 launches)."""
+        _build.reset_launches()
+        st = engine.init_server_state(cfg, params, xs, ys, prof, losses0, selection.DPPSelection(),
+                                      loss_fn=cnn.cnn_loss)
+        torch.cuda.synchronize()
+        return st, {n: _build.LAUNCHES[n] for n in FL_KERNELS}
+
+    def rounds_of(cfg, state, n, label, watch=None):
+        """``n`` rounds one at a time -> (final state, per-round outputs,
+        per-round seconds); ``watch(state_before, out, state_after)`` checks each."""
+        fn = engine.make_round_fn(cfg, cnn.cnn_loss, (selection.DPPSelection(),), accuracy_fn=cnn.accuracy)
+        outs, secs = [], []
+        for _ in range(n):
+            before = state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = fn(state)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append(out)
+            if watch is not None:
+                watch(before, out, state)
+            guard = "" if "survivors" not in out else (
+                f"survivors {int(out['survivors'])}, flagged {int(out['flagged'])}, quarantined "
+                f"{int(out['quarantined'])}, identity_round {int(out['identity_round'])}, ")
+            print(f"robust {label} round {out['round']}: {guard}loss {float(out['loss']):.4f}, acc "
+                  f"{float(out['acc']):.4f}, {secs[-1]:.4f} s (selection {out['t_select']:.4f}, local "
+                  f"{out['t_local']:.4f}, refresh+eval {out['t_refresh']:.4f})")
+        return state, outs, secs
+
+    def steady(secs):
+        return statistics.mean(secs[1:])
+
+    # ------------------------------------------ (a) each aggregator, corrupt
+    plain_state, launches = init(base)
+    plain_final, plain_outs, plain_secs = rounds_of(base, plain_state.fork(), ROBUST_ROUNDS, "plain")
+    for agg in ("mean", "clipped_mean", "trimmed_mean"):
+        cfg = dataclasses.replace(base, faults="corrupt", aggregator=agg)
+        state, launches = init(cfg)
+        check(launches == {n: 1 for n in FL_KERNELS}, f"(a) {agg}: K1/K2 not once at the guarded init: {launches}")
+        n_bad = []
+
+        def watch(before, out, after, agg=agg, n_bad=n_bad, cfg=cfg):
+            d = draws.calls[-1][2]
+            sel = out["selected"].long().to(d.delivered.device)
+            bad = d.delivered[sel] & (d.nan[sel] | d.garbage[sel])
+            flagged = after.quarantine[sel] == cfg.quarantine_rounds
+            n_bad.append(int(bad.sum()))
+            check(int(flagged.sum()) == int(out["flagged"]), f"(a) {agg}: flags and counters disagree")
+            if agg != "mean":
+                check(bool((flagged | ~bad).all()), f"(a) {agg} round {out['round']}: a corrupt update not flagged")
+
+        with _Spy(faults, "draw_round_faults") as draws:
+            final, outs, secs = rounds_of(cfg, state, ROBUST_ROUNDS, agg, watch)
+        ok = finite(final.params)
+        if agg != "mean":
+            check(ok, f"(a) {agg}: non-finite params")
+        print(f"robust (a) {agg}: {sum(n_bad)} delivered NaN/garbage cohort members over {ROBUST_ROUNDS} rounds, "
+              f"{sum(int(o['flagged']) for o in outs)} flagged; params finite: {ok}"
+              f"{' (mean: poisoned)' if not ok else ''}; rounds 2-{ROBUST_ROUNDS} mean {steady(secs):.4f} s "
+              f"(selection {statistics.mean(o['t_select'] for o in outs[1:]):.4f}) against the plain run's "
+              f"{steady(plain_secs):.4f} s (selection {statistics.mean(o['t_select'] for o in plain_outs[1:]):.4f})")
+
+    # ------------------------------------------- (b) lemons, trimmed_mean
+    cfg = dataclasses.replace(base, faults="lemons", aggregator="trimmed_mean")
+    state, _ = init(cfg)
+    lemons = torch.nonzero(faults.lemon_mask(faults.get_fault_model("lemons"), exp.num_clients)).ravel().tolist()
+    picked = []
+
+    def watch_q(before, out, after):
+        sel = out["selected"].long().cpu()
+        q = before.quarantine.cpu()
+        check(bool((q[sel] <= 0).all()), f"(b) round {out['round']}: a quarantined client selected: "
+              f"{[(int(i), int(q[i])) for i in sel if q[i] > 0]}")
+        picked.extend(int(i) for i in sel if int(i) in lemons)
+
+    final, outs, _ = rounds_of(cfg, state, LEMON_ROUNDS, "lemons", watch_q)
+    print(f"robust (b) lemons {lemons}: selected {len(picked)} times ({sorted(set(picked))}), no client selected "
+          f"while quarantined; params finite: {finite(final.params)}")
+    check(finite(final.params), "(b) non-finite params")
+
+    # --------------------------------------------- (c) FedProx and FedDyn
+    def h_rows(st):
+        return torch.cat([v.flatten(1) for v in tree_leaves(st.algo_state)], 1)
+
+    for name, kw in (("fedprox", dict(prox_mu=0.01)), ("feddyn", dict(feddyn_alpha=0.01)),
+                     ("feddyn", dict(feddyn_alpha=0.01, faults="chaos", aggregator="trimmed_mean")),
+                     ("fedprox", dict(prox_mu=0.0))):
+        cfg = dataclasses.replace(base, local_algo=name, **kw)
+        state, _ = init(cfg)
+        kept_all, dropped = set(), {"undelivered": 0, "flagged": 0, "identity": 0}
+
+        def watch_h(before, out, after, cfg=cfg, kept_all=kept_all, dropped=dropped):
+            """FedDyn's h advances exactly on the cohort members whose update
+            was kept: delivered, unflagged, in a round above the floor."""
+            sel = out["selected"].long()
+            kept = torch.ones(sel.shape, dtype=torch.bool, device=sel.device)
+            if cfg.guarded():
+                d = draws.calls[-1][2]
+                delivered = d.delivered[sel]
+                flagged = after.quarantine[sel] == cfg.quarantine_rounds
+                identity = bool(out["identity_round"])
+                kept = torch.zeros_like(delivered) if identity else delivered & ~flagged
+                dropped["undelivered"] += int((~delivered).sum())
+                dropped["flagged"] += int(flagged.sum())
+                dropped["identity"] += int(identity) * len(sel)
+            changed = set(torch.nonzero(~(h_rows(before) == h_rows(after)).all(1)).ravel().tolist())
+            want = set(sel[kept].tolist())
+            check(changed == want, f"(c) {name} {kw} round {out['round']}: h moved for {sorted(changed)}, "
+                  f"kept {sorted(want)}")
+            kept_all |= want
+
+        with _Spy(faults, "draw_round_faults") as draws:
+            final, outs, secs = rounds_of(cfg, state, ROBUST_ROUNDS, f"{name} {kw}",
+                                          watch_h if name == "feddyn" else None)
+        check(finite(final.params), f"(c) {name}: non-finite params")
+        msg = f"robust (c) {name} {kw}: rounds 2-{ROBUST_ROUNDS} mean {steady(secs):.4f} s"
+        if name == "feddyn":
+            nonzero = set(torch.nonzero(h_rows(final).abs().sum(1)).ravel().tolist())
+            trained = set(int(i) for o in outs for i in o["selected"])
+            check(nonzero == kept_all, f"(c) feddyn: h nonzero for {sorted(nonzero)}, kept {sorted(kept_all)}")
+            msg += (f"; h moved each round on exactly the kept cohort members, and is nonzero for exactly the "
+                    f"{len(kept_all)} clients ever kept, of {len(trained)} selected (dropped selections: "
+                    f"{dropped})")
+        if kw.get("prox_mu") == 0.0:
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(final.params), tree_leaves(plain_final.params)))
+            same &= all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for a, b in zip(outs, plain_outs)
+                        for k in ("selected", "loss", "gemd", "acc"))
+            check(same, "(c) fedprox at mu 0 differs from the plain run")
+            msg += "; equal to the plain run bit for bit"
+        print(msg)
+
+    # ----------------------------------------------------------- (d) resume
+    cfg = dataclasses.replace(base, faults="chaos", aggregator="trimmed_mean", local_algo="feddyn",
+                              feddyn_alpha=0.01, eval_every=2)
+    fn = engine.make_round_fn(cfg, cnn.cnn_loss, (selection.DPPSelection(),), accuracy_fn=cnn.accuracy)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp, _Spy(engine, "save_server_state", torch.cuda.synchronize) as saves:
+        a_dir, b_dir = f"{tmp}/a", f"{tmp}/b"
+        state, _ = init(cfg)
+        t0 = time.perf_counter()
+        full, full_outs = engine.run_checkpointed(fn, state, RESUME_ROUNDS, ckpt_dir=a_dir, ckpt_every=2)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        state, _ = init(cfg)
+        part, part_outs = engine.run_checkpointed(fn, state, 4, ckpt_dir=b_dir, ckpt_every=2)
+        fresh, _ = init(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = engine.restore_server_state(b_dir, fresh, step=4)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        resumed, tail_outs = engine.run_scanned(fn, restored, RESUME_ROUNDS - 4)
+        torch.cuda.synchronize()
+        snap = f"{a_dir}/step_00000004"
+        size = _dir_bytes(snap)
+        steps = sorted(p.name for p in Path(a_dir).iterdir())
+    print(f"robust (d) chaos + trimmed_mean + feddyn: {RESUME_ROUNDS} rounds with a snapshot every 2 in "
+          f"{t_full:.3f} s (snapshots {steps}); snapshot {size} bytes ({size / 2**20:.1f} MiB), save "
+          f"{[round(x, 4) for x in saves.seconds]} s, restore {t_restore:.4f} s; survivors "
+          f"{full_outs['survivors'].tolist()}, flagged {full_outs['flagged'].tolist()}, quarantined "
+          f"{full_outs['quarantined'].tolist()}")
+    check(steps == ["step_00000002", "step_00000004", "step_00000006"], f"(d) snapshots {steps}")
+    want, got = _state_tensors(full), _state_tensors(resumed)
+    off = [k for k in want if k not in got or not _same(torch, want[k], got[k])]
+    check(set(want) == set(got), f"(d) state fields differ: {sorted(set(want) ^ set(got))}")
+    check(not off, f"(d) resumed state differs from the uninterrupted run's in {off}")
+    for k in full_outs:
+        if not k.startswith("t_"):
+            joined = torch.cat([part_outs[k], tail_outs[k]])
+            check(_same(torch, full_outs[k], joined), f"(d) output {k} differs after the resume")
+    print(f"robust (d): the resumed run equals the uninterrupted one bit for bit ({len(want)} state tensors "
+          f"and generator states, {len(full_outs) - 3} outputs over {RESUME_ROUNDS} rounds)")
+
+    # ----------------------------------------------- (e) the LM launcher
+    with tempfile.TemporaryDirectory(dir=build) as tmp, _Spy(engine, "save_server_state", torch.cuda.synchronize) as saves:
+        argv = ["--mode", "fl", "--arch", "smollm-360m", "--full-width", "--flash", "--seq", str(LM_SEQ),
+                "--log-every", "1",
+                "--clients", str(LM_CLIENTS), "--per-round", str(LM_PER_ROUND), "--docs-per-client", str(LM_DOCS),
+                "--faults", "corrupt", "--aggregator", "trimmed_mean", "--ckpt-every", "1", "--ckpt", tmp]
+        logs = []
+        for n in (2, 3):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                state, outs = train_launch.main(argv + ["--rounds", str(n)])
+            torch.cuda.synchronize()
+            logs.append((buf.getvalue(), time.perf_counter() - t0, outs))
+            print(f"robust (e) python -m repro_torch.launch.train {' '.join(argv)} --rounds {n}: "
+                  f"{logs[-1][1]:.3f} s")
+            print("\n".join("  " + line for line in buf.getvalue().splitlines()))
+        size = _dir_bytes(f"{tmp}/step_00000002")
+        check(sorted(p.name for p in Path(tmp).iterdir()) == ["step_00000001", "step_00000002", "step_00000003"],
+              "(e) snapshots")
+    (first, _, outs1), (second, _, outs2) = logs
+    check("resumed" not in first and outs1["round"].tolist() == [1, 2], "(e) the first launch")
+    check(f"resumed round 2 from {tmp}/step_00000002" in second, "(e) no 'resumed round 2' line")
+    check(outs2["round"].tolist() == [3], f"(e) the relaunch ran rounds {outs2['round'].tolist()}")
+    check("faults=corrupt aggregator=trimmed_mean" in second and finite(state.params), "(e) the relaunch's run")
+    print(f"robust (e): resumed at round 2 and ran round 3; snapshot {size} bytes ({size / 2**20:.1f} MiB), "
+          f"saves {[round(x, 4) for x in saves.seconds]} s")
+    del state
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
 
 
 def _print_profile(torch, what: str, fn, mark: str, n: int = 1, wall_ms=None) -> None:
@@ -1960,7 +2288,12 @@ def main() -> int:
     baselines_phase(torch, exp, client_xs, client_ys)
 
     # ------------------------------------------- 3d. the federation engine
-    funnel_rows = engine_phase(torch, exp, client_xs, client_ys, ds)
+    funnel_rows, unfunnelled = engine_phase(torch, exp, client_xs, client_ys, ds)
+
+    # --------------------------------- 3e. robustness and checkpoints
+    t0 = time.perf_counter()
+    robust_phase(torch, exp, client_xs, client_ys)
+    print(f"phase 3e: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------- 4. the serving main path
     serve_launches, _ = serve_phase(torch, dev, "smollm-360m")
@@ -2024,6 +2357,7 @@ def main() -> int:
     for label, name, shape, n, path in (
         ("K1", "pairwise_dists_stats", SHAPES[0], launches["pairwise_dists_stats"], "CNN FL"),
         ("K1", "pairwise_dists_stats", SHAPES[1], 1, "LM FL"),
+        ("K1", "pairwise_dists_stats", SHAPES[3], unfunnelled["pairwise_dists_stats"], "CNN FL unfunnelled init"),
         ("K3", "pairwise_sq_dists", K3_SHAPES[0], 1, "stage-wise, FC-1 profiles"),
         ("K3", "pairwise_sq_dists", K3_SHAPES[1], 1, "stage-wise, representative profiles"),
         ("K3", "pairwise_sq_dists", K3_SHAPES[2], 1, "stage-wise, gradient profiles"),
@@ -2035,6 +2369,12 @@ def main() -> int:
             f"device_ms cold {fmt_ms(r['device_ms'])} hot {fmt_ms(r['device_ms_hot'])}, "
             f"bound {r['bound_ms']:.7f} ({r['bound_by']}), plain {r['plain_ms']:.5f}"
         )
+    r = rows["normalized_gram"][SHAPES[3]]
+    print(
+        f"K2 path shape C={SHAPES[3][0]} (CNN FL unfunnelled init): launches {unfunnelled['normalized_gram']}, "
+        f"ms {r['ms']:.5f} (library {r['library_ms']:.5f}, {r['ms'] / r['library_ms']:.3f} of it), "
+        f"device_ms {fmt_ms(r['device_ms'])}, bound {r['bound_ms']:.7f} ({r['bound_by']}), plain {r['plain_ms']:.5f}"
+    )
     # K7 at each shape the RWKV serving path gave it: its launches there
     # beside the shape's cold device time and bound (from the rows above)
     for (b, t), n in sorted(rwkv_shapes.items()):
@@ -2070,6 +2410,16 @@ def main() -> int:
         ))
         check(r["device_ms"] is None or r["bound_ms"] <= r["device_ms"],
               f"{name} funnel: device time {r['device_ms']} below its bound {r['bound_ms']}")
+    # K1 and K2 at the unfunnelled init at C = 4,096 (phase 3d (c)): the
+    # shape's rows from section 2, the path's launches
+    for name in FL_KERNELS:
+        r = rows[name][SHAPES[3]]
+        shape = "x".join(map(str, SHAPES[3][:2] if name == "pairwise_dists_stats" else SHAPES[3][:1]))
+        table.append(dict(
+            name=f"{name} unfunnelled {shape}", route="cuda", source=sources[name][0], replaces=sources[name][1],
+            launches=unfunnelled[name], max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({

@@ -1,0 +1,5 @@
+"""Tree checkpointing (an npz payload beside a json sidecar)."""
+
+from repro_torch.checkpoint.checkpoint import latest_step, restore, save
+
+__all__ = ["latest_step", "restore", "save"]

@@ -4,26 +4,28 @@ transition run as a host loop.
 ``FLConfig`` keeps every field of the JAX package's config, so a config
 reads the same in both packages.  One default differs: ``use_pallas_kernel``
 is True here, so a config left as it is builds the eq.-(14) kernel through
-the port's K1 + K2 on the card.  ``__post_init__`` refuses the fields whose
-features this package does not run yet (mesh slots, staleness, faults and
-robust aggregation, checkpoints, non-FedAvg local algorithms, telemetry),
-each with its ROADMAP item.
+the port's K1 + K2 on the card.  ``__post_init__`` validates the fields as
+JAX does and refuses those whose features this package does not run yet
+(mesh slots, staleness, telemetry), each with its ROADMAP item.
 
 The engine is the JAX package's single-device engine:
 :func:`init_server_state` (Algorithm-1 init into a :class:`ServerState`,
 the Cluster baseline's fit and the funnel's candidates included),
 :func:`make_round_fn` (selection dispatched over a tuple of strategies,
-the scenario's latency and availability draws, local updates, eq.-(6)
-aggregation, loss refresh, GEMD and accuracy; the JAX
+the scenario's latency and availability draws, the fault draws and the
+quarantine mask, local updates under the configured algorithm, the update
+guard and eq.-(6) aggregation, loss refresh, GEMD and accuracy; the JAX
 ``_single_device_body``), :func:`run_scanned` (JAX's one compiled
 ``lax.scan``, here a host loop that stacks each round's outputs),
-:func:`run_many` over a grid of states, :func:`funnel_fields` and
-:func:`history_from_outputs`.  JAX's server key becomes one
-``torch.Generator`` that the round draws from, in place: the cohort first,
-then the batch plans.  JAX branches the scenario's draws and the funnel's
-predictions off that key with a salt; here each has a generator of its
-own, seeded from ``cfg.seed`` and the salt, so neither shifts a cohort.
-``FLTrainer`` (``fl/trainer.py``) runs its rounds through this engine.
+:func:`run_many` over a grid of states, :func:`run_checkpointed` with
+:func:`save_server_state` and :func:`restore_server_state` (crash-resume),
+:func:`funnel_fields` and :func:`history_from_outputs`.  JAX's server key
+becomes one ``torch.Generator`` that the round draws from, in place: the
+cohort first, then the batch plans.  JAX branches the scenario's draws,
+the fault draws and the funnel's predictions off that key with a salt;
+here each has a generator of its own, seeded from ``cfg.seed`` and the
+salt, so none of them shifts a cohort.  ``FLTrainer`` (``fl/trainer.py``)
+runs its rounds through this engine.
 """
 
 from __future__ import annotations
@@ -35,14 +37,18 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as checkpoint_lib
 from repro_torch.core import dpp as dpp_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import profiles as profiles_lib
 from repro_torch.core import selection as selection_lib
 from repro_torch.core import similarity as similarity_lib
 from repro_torch.device import resolve_device
+from repro_torch.fl import faults as faults_lib
+from repro_torch.fl import local_algos as local_algos_lib
 from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl import scenarios as scenarios_lib
+from repro_torch.tree import tree_map
 
 __all__ = [
     "FLConfig",
@@ -56,6 +62,9 @@ __all__ = [
     "make_round_fn",
     "run_scanned",
     "run_many",
+    "run_checkpointed",
+    "save_server_state",
+    "restore_server_state",
     "stack_states",
     "unstack_outputs",
     "history_from_outputs",
@@ -110,6 +119,15 @@ class FLConfig:
     feddyn_alpha: Optional[float] = None
     telemetry: bool = False
 
+    def local_algo_obj(self) -> local_algos_lib.LocalAlgo:
+        """The configured local-update algorithm (``fl/local_algos.py``)."""
+        return local_algos_lib.algo_from_config(self.local_algo, self.prox_mu, self.feddyn_alpha)
+
+    def guarded(self) -> bool:
+        """True when the update guard and the quarantine are on: a fault
+        model, or a robust aggregator (which screens honest runs too)."""
+        return self.faults is not None or self.aggregator != "mean"
+
     def candidate_count(self) -> int:
         """Q, the stage-1 survivors: ``round(C · candidate_frac)`` clamped
         to ``[clients_per_round, num_clients]`` (a cohort must fit)."""
@@ -124,12 +142,6 @@ class FLConfig:
             "cohort_cap": (self.cohort_cap is not None, 15),
             # JAX runs staleness on a mesh only, which item 15 brings
             "staleness_bound": (self.staleness_bound is not None, 15),
-            "faults": (self.faults is not None, 12),
-            "aggregator": (self.aggregator != "mean", 12),
-            "ckpt_every": (self.ckpt_every is not None, 12),
-            "local_algo": (self.local_algo != "fedavg", 12),
-            "prox_mu": (self.prox_mu is not None, 12),
-            "feddyn_alpha": (self.feddyn_alpha is not None, 12),
             "telemetry": (self.telemetry, 13),
         }
         fields = [f"{name} (ROADMAP Queue 1 item {item})" for name, (used, item) in not_ported.items() if used]
@@ -146,6 +158,47 @@ class FLConfig:
                 f"candidate_frac={self.candidate_frac} must be in (0, 1] "
                 "(1.0 = the identity funnel, a run equal to one without it)"
             )
+        if self.aggregator not in faults_lib.AGGREGATORS:
+            raise ValueError(f"unknown aggregator {self.aggregator!r}; known: {list(faults_lib.AGGREGATORS)}")
+        if self.faults is not None:
+            faults_lib.get_fault_model(self.faults)  # an unknown name raises
+        if self.guarded():
+            if self.robust_norm_mult <= 0:
+                raise ValueError(f"robust_norm_mult={self.robust_norm_mult} must be > 0")
+            if self.min_survivors < 1:
+                raise ValueError(
+                    f"min_survivors={self.min_survivors} must be >= 1: with 0 survivors the "
+                    "weighted sum is all-zero and the aggregate would zero the params; the "
+                    "floor makes such a round an identity round"
+                )
+            if self.min_survivors > self.clients_per_round:
+                raise ValueError(
+                    f"min_survivors={self.min_survivors} > clients_per_round="
+                    f"{self.clients_per_round}: every round would be an identity round"
+                )
+            if self.quarantine_rounds < 0:
+                raise ValueError(f"quarantine_rounds={self.quarantine_rounds} must be >= 0")
+        if self.ckpt_every is not None and self.ckpt_every < 1:
+            raise ValueError(f"ckpt_every={self.ckpt_every} must be >= 1 (None disables snapshots)")
+        if self.local_algo not in local_algos_lib.LOCAL_ALGOS:
+            raise ValueError(
+                f"unknown local algorithm {self.local_algo!r}; known: {list(local_algos_lib.ALGO_NAMES)}"
+            )
+        if self.prox_mu is not None:
+            if self.local_algo != "fedprox":
+                raise ValueError(
+                    f"prox_mu={self.prox_mu} only applies to local_algo='fedprox' (got {self.local_algo!r})"
+                )
+            if self.prox_mu < 0:
+                raise ValueError(f"prox_mu={self.prox_mu} must be >= 0")
+        if self.feddyn_alpha is not None:
+            if self.local_algo != "feddyn":
+                raise ValueError(
+                    f"feddyn_alpha={self.feddyn_alpha} only applies to local_algo='feddyn' "
+                    f"(got {self.local_algo!r})"
+                )
+            if self.feddyn_alpha <= 0:
+                raise ValueError(f"feddyn_alpha={self.feddyn_alpha} must be > 0")
 
 
 # ----------------------------------------------------------------- batches
@@ -229,14 +282,17 @@ def make_client_batches(cfg: FLConfig, generator: torch.Generator, client_xs, cl
 class ServerState:
     """Everything the server evolves across rounds.
 
-    The JAX package's fields for the features this package runs; the
-    fields of the refused ones (staleness ring, quarantine, per-client
-    algorithm state) are left out.  ``generator`` takes the place of JAX's
-    carried key: a round draws from it in place, so a state and the state a
-    round returns share it (:meth:`fork` gives a state its own copy).
-    ``env_generator`` is the scenario's stream (None without a scenario).
-    Under the funnel (``candidates`` set) the kernel, its spectral cache
-    and the cluster labels live on the Q × Q candidate block."""
+    The JAX package's fields for the features this package runs; those of
+    the refused ones (the staleness ring) are left out.  ``generator`` takes
+    the place of JAX's carried key: a round draws from it in place, so a
+    state and the state a round returns share it (:meth:`fork` gives a
+    state its own copies).  ``env_generator`` is the scenario's stream
+    (None without a scenario), ``fault_generator`` the fault model's (None
+    without one).  Under the funnel (``candidates`` set) the kernel, its
+    spectral cache and the cluster labels live on the Q × Q candidate
+    block.  ``quarantine`` exists only on a guarded config
+    (``FLConfig.guarded``), ``algo_state`` only for a stateful local
+    algorithm (FedDyn's ``h``), so a plain config's state is as before."""
 
     params: Any  # global model (a tree of tensors)
     generator: torch.Generator  # server randomness: cohorts, then batch plans
@@ -254,6 +310,11 @@ class ServerState:
     strategy_index: int = 0  # into the round_fn's strategies
     candidates: Optional[torch.Tensor] = None  # (Q,) int32 ascending global ids
     env_generator: Optional[torch.Generator] = None  # the scenario's draws
+    # (C,) int32 rounds left before a flagged client may be selected again
+    quarantine: Optional[torch.Tensor] = None
+    # per-client local-algorithm state: a tree of (C, ...) fp32 tensors
+    algo_state: Any = None
+    fault_generator: Optional[torch.Generator] = None  # the fault model's draws
 
     @property
     def num_clients(self) -> int:
@@ -287,7 +348,8 @@ class ServerState:
             return out
 
         return dataclasses.replace(
-            self, generator=copy(self.generator), env_generator=copy(self.env_generator)
+            self, generator=copy(self.generator), env_generator=copy(self.env_generator),
+            fault_generator=copy(self.fault_generator),
         )
 
 
@@ -364,6 +426,28 @@ def funnel_fields(
     return candidates, kernel, eig_state
 
 
+def fault_stream(cfg: FLConfig, device: torch.device) -> Optional[torch.Generator]:
+    """The fault model's generator at its start (``cfg.seed`` salted with
+    ``FAULT_SALT``); None without faults."""
+    return None if cfg.faults is None else salted_generator(cfg.seed, faults_lib.FAULT_SALT, device)
+
+
+def robustness_fields(
+    cfg: FLConfig, params, num_clients: int, device: torch.device,
+    fault_generator: Optional[torch.Generator],
+) -> Dict[str, Any]:
+    """ServerState's ``quarantine`` (guarded configs) and ``algo_state``
+    (stateful local algorithms) for ``num_clients`` clients at zero, beside
+    ``fault_generator``."""
+    return dict(
+        quarantine=(
+            torch.zeros((num_clients,), dtype=torch.int32, device=device) if cfg.guarded() else None
+        ),
+        algo_state=local_algos_lib.init_client_states(cfg.local_algo_obj(), params, num_clients),
+        fault_generator=fault_generator,
+    )
+
+
 def init_server_state(
     cfg: FLConfig,
     params,
@@ -389,7 +473,10 @@ def init_server_state(
     cache (the one O(C³) eigh), and seeds the server's generator from
     ``cfg.seed``.  For the Cluster baseline it fits the labels on the
     clients' representative gradients, which need ``loss_fn``.  A kernel
-    and its cache can be passed in.
+    and its cache can be passed in.  A guarded config gets its quarantine
+    counters at zero and, with a fault model, its fault generator (seeded
+    from ``cfg.seed`` and ``FAULT_SALT``); a stateful local algorithm gets
+    every client's state at zero, on the params' device.
 
     With ``cfg.candidate_frac`` set the kernel, cache and labels come from
     :func:`funnel_fields` on the Q candidates (their prediction drawn from
@@ -456,6 +543,7 @@ def init_server_state(
         env_generator=(
             None if cfg.scenario is None else salted_generator(cfg.seed, _ENV_SALT, device)
         ),
+        **robustness_fields(cfg, params, c, device, fault_stream(cfg, device)),
     )
 
 
@@ -473,55 +561,127 @@ def make_round_fn(
 
     Selection through ``strategies[state.strategy_index]`` (one strategy
     for a single run, the method grid for :func:`run_many`), by
-    ``select_global_fn``; the cohort's batch plans, the sequential FedAvg
-    local updates and eq.-(6) aggregation, then the loss refresh of the
-    selected clients under ``torch.no_grad()`` (a forward-only pass),
-    topic-GEMD and, every ``cfg.eval_every`` rounds, ``accuracy_fn(params,
-    xs, ys)`` on ``eval_data`` or, with None, on the union training set
-    (the paper's Fig.-1 protocol).
+    ``select_global_fn``; the cohort's batch plans, the sequential local
+    updates under ``cfg.local_algo`` and eq.-(6) aggregation, then the loss
+    refresh of the selected clients under ``torch.no_grad()`` (a
+    forward-only pass), topic-GEMD and, every ``cfg.eval_every`` rounds,
+    ``accuracy_fn(params, xs, ys)`` on ``eval_data`` or, with None, on the
+    union training set (the paper's Fig.-1 protocol).
 
     ``cfg.scenario`` draws each round's latencies (and availability mask)
     from ``state.env_generator`` before the cohort; a mask restricts the
-    draw to available clients.  Outputs: ``round``, ``acc`` (NaN off the
-    eval grid or without ``accuracy_fn``), ``gemd``, ``loss`` (the mean
-    local loss), ``selected``; with a scenario ``sim_time`` (the slowest
-    selected client's latency, the synchronous barrier) and, with an
-    availability model, ``avail``; and ``t_select``, ``t_local``,
-    ``t_refresh``: host seconds of the three parts, each closed by a device
-    synchronise (the scenario's draws count to selection, the accuracy to
-    the refresh)."""
+    draw to available clients.  A guarded config (``cfg.guarded()``) adds,
+    in JAX's order: the fault draws from ``state.fault_generator``
+    (``faults.draw_round_faults``, with the lemons of ``faults.lemon_mask``)
+    before selection; the quarantine mask (``state.quarantine <= 0``)
+    AND-composed with the scenario's, so the draw is a masked one every
+    round (as JAX's); the update guard between the local updates and the
+    weighted sum; the loss refresh, and FedDyn's state, only for delivered,
+    unflagged clients of a round that keeps its aggregate; the identity
+    round (params carried over) below ``cfg.min_survivors``; and the
+    quarantine counters: a flagged client's restarts at
+    ``cfg.quarantine_rounds``, every other ticks down.
+
+    Outputs: ``round``, ``acc`` (NaN off the eval grid or without
+    ``accuracy_fn``), ``gemd``, ``loss`` (the mean local loss; guarded, the
+    mean over the finite losses of the clients left in the sum), ``selected``;
+    with a scenario ``sim_time`` (the slowest selected client's latency,
+    the synchronous barrier) and, with an availability model, ``avail``;
+    guarded, ``survivors``, ``identity_round``, ``flagged`` and
+    ``quarantined`` (int32); and ``t_select``, ``t_local``, ``t_refresh``:
+    host seconds of the three parts, each closed by a device synchronise
+    (the scenario's and the fault draws count to selection, the accuracy
+    to the refresh)."""
     strategies = tuple(strategies)
     if not strategies:
         raise ValueError("make_round_fn needs at least one strategy")
     k = cfg.clients_per_round
     scen = None if cfg.scenario is None else scenarios_lib.get_scenario(cfg.scenario)
     batched_loss = lambda p, batch: loss_fn(p, batch[0], batch[1])
+    fault_model = None if cfg.faults is None else faults_lib.get_fault_model(cfg.faults)
+    guarded = cfg.guarded()
+    lemons = None if fault_model is None else faults_lib.lemon_mask(fault_model, cfg.num_clients)
+    lemons_on = {}  # the lemon mask on each device a round ran on, copied once
+    guard = None
+    if guarded:
+        guard = faults_lib.make_update_guard(
+            cfg.aggregator, cfg.robust_norm_mult,
+            garbage_scale=1.0 if fault_model is None else fault_model.garbage_scale,
+            inject=fault_model is not None,
+        )
+    algo = cfg.local_algo_obj()
 
     def clock(device: torch.device) -> float:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
+    def writeback(full, sel, cand, refresh):
+        """``full`` with the cohort's rows set to ``cand`` where ``refresh``
+        (FedDyn's state advances only for a kept update)."""
+
+        def leaf(f, n):
+            keep = refresh.reshape((-1,) + (1,) * (n.ndim - 1))
+            return f.index_put((sel,), torch.where(keep, n, f[sel]))
+
+        return tree_map(leaf, full, cand)
+
     def round_fn(state: ServerState, _=None):
         dev = state.losses.device
+        c = state.num_clients
         t = state.round + 1
         t0 = clock(dev)
         lat = avail = None
         if scen is not None:
-            lat, avail = draw_environment(scen, state.env_generator, t, state.num_clients)
+            lat, avail = draw_environment(scen, state.env_generator, t, c)
+        draws = None
+        if fault_model is not None:
+            if dev not in lemons_on:
+                lemons_on[dev] = lemons.to(dev)
+            draws = faults_lib.draw_round_faults(state.fault_generator, fault_model, c, 1, lemons_on[dev])
+        mask = avail
+        if guarded:
+            # a quarantined client is unavailable to selection
+            q_ok = state.quarantine <= 0
+            mask = q_ok if mask is None else mask & q_ok
         strategy = strategies[state.strategy_index]
-        sel = strategy.select_global_fn(state.generator, state.selection_state(), k, avail).long()
+        sel = strategy.select_global_fn(state.generator, state.selection_state(), k, mask).long()
         t1 = clock(dev)
         batches = make_client_batches(cfg, state.generator, state.client_xs, state.client_ys, sel)
         round_step = rounds_lib.build_client_parallel_round(
             batched_loss, cfg.lr, _steps_per_round(cfg, state.client_xs.shape[1]),
-            grad_clip=cfg.grad_clip,
+            grad_clip=cfg.grad_clip, update_transform=guard, algo=algo,
         )
-        params, mean_loss = round_step(state.params, batches, state.client_sizes[sel])
+        state_kw = {}
+        if algo.stateful:
+            state_kw["client_states"] = tree_map(lambda s: s[sel], state.algo_state)
+        guard_args = () if draws is None else tuple(m[sel] for m in draws)
+        res = round_step(state.params, batches, state.client_sizes[sel], *guard_args, **state_kw)
+        params, mean_loss = res[0], res[1]
+        refresh = None
+        if guarded:
+            flagged, survivors = res[2], res[3]
+            delivered = draws.delivered[sel] if draws is not None else torch.ones_like(flagged)
+            kept = survivors >= cfg.min_survivors
+            # only trusted participants of a round whose aggregate is kept
+            refresh = delivered & ~flagged & kept
         t2 = clock(dev)
         # refresh last-known losses for the selected clients
         sel_losses = _losses_of(loss_fn, params, state.client_xs[sel], state.client_ys[sel])
+        if refresh is not None:
+            sel_losses = torch.where(refresh, sel_losses, state.losses[sel])
         losses = state.losses.index_put((sel,), sel_losses)
+        updates = {}
+        if algo.stateful:
+            every = torch.ones(sel.shape, dtype=torch.bool, device=dev)
+            updates["algo_state"] = writeback(state.algo_state, sel, res[-1], every if refresh is None else refresh)
+        if guarded:
+            # an identity round below the survivors floor keeps the old params
+            params = tree_map(lambda a, o: torch.where(kept, a, o).to(o.dtype), params, state.params)
+            flagged_c = torch.zeros((c,), dtype=torch.bool, device=dev).index_put((sel,), flagged)
+            q = torch.clamp_min(state.quarantine - 1, 0)
+            q = torch.where(flagged_c, cfg.quarantine_rounds, q).to(torch.int32)
+            updates["quarantine"] = q
         g = metrics_lib.gemd(
             state.client_label_dists, state.client_sizes, sel, state.global_label_dist
         )
@@ -534,7 +694,7 @@ def make_round_fn(
                 eys = state.client_ys.reshape(-1)
             acc = torch.as_tensor(accuracy_fn(params, exs, eys)).float()
         t3 = clock(dev)
-        new_state = dataclasses.replace(state, params=params, round=t, losses=losses)
+        new_state = dataclasses.replace(state, params=params, round=t, losses=losses, **updates)
         out = {
             "round": t,
             "acc": acc,
@@ -548,6 +708,11 @@ def make_round_fn(
             out["sim_time"] = torch.clamp_min(torch.amax(lat[sel]), 0.0)
         if avail is not None:
             out["avail"] = avail
+        if guarded:
+            out["survivors"] = survivors.to(torch.int32)
+            out["identity_round"] = (~kept).to(torch.int32)
+            out["flagged"] = torch.sum(flagged_c.to(torch.int32))
+            out["quarantined"] = torch.sum((q > 0).to(torch.int32))
         out.update(t_select=t1 - t0, t_local=t2 - t1, t_refresh=t3 - t2)
         return new_state, out
 
@@ -578,6 +743,87 @@ def run_scanned(
         state, out = round_fn(state)
         outs.append(out)
     return state, (_stack(outs) if outs else {})
+
+
+# ------------------------------------------------------------ crash-resume
+
+
+def _state_tree(state: ServerState) -> Dict[str, Any]:
+    """A state as a tree of tensors, field by field: each generator as its
+    ``get_state()`` (uint8), the ints ``round`` and ``strategy_index`` as
+    0-d int64, the spectral cache as its three tensors."""
+
+    def leafy(v):
+        if isinstance(v, torch.Generator):
+            return v.get_state()
+        if isinstance(v, int):
+            return torch.tensor(v, dtype=torch.int64)
+        if isinstance(v, dpp_lib.KDPPSamplerState):
+            return {f.name: getattr(v, f.name) for f in dataclasses.fields(v)}
+        return v
+
+    return {f.name: leafy(getattr(state, f.name)) for f in dataclasses.fields(state)}
+
+
+def save_server_state(ckpt_dir: str, state: ServerState) -> str:
+    """Snapshot every field of ``state`` under ``<ckpt_dir>/step_<round>/``
+    (params, generators, losses, kernel and spectral cache, client data,
+    candidates, quarantine, FedDyn state) -> that path.  Where JAX saves its
+    key's data, this saves each generator's state."""
+    return checkpoint_lib.save(ckpt_dir, state.round, _state_tree(state))
+
+
+def restore_server_state(ckpt_dir: str, template: ServerState, step: Optional[int] = None) -> ServerState:
+    """A :func:`save_server_state` snapshot (the latest without ``step``)
+    loaded against ``template``, e.g. a fresh :func:`init_server_state` of
+    the same config, onto the template's devices, with generators of its
+    own.  A snapshot of another config (leaf count, shape or dtype, a CPU
+    generator's state against a CUDA one's included) raises ``ValueError``.
+    The restored state continues as the snapshotting run did: every tensor
+    and every generator's state is the value it held after round
+    ``state.round``."""
+    tree = checkpoint_lib.restore(ckpt_dir, _state_tree(template), step=step)
+
+    def unleafy(t, v):
+        if isinstance(t, torch.Generator):
+            g = torch.Generator(device=t.device)
+            g.set_state(v)
+            return g
+        if isinstance(t, int):
+            return int(v)
+        if isinstance(t, dpp_lib.KDPPSamplerState):
+            return dpp_lib.KDPPSamplerState(**v)
+        return v
+
+    return dataclasses.replace(
+        template,
+        **{f.name: unleafy(getattr(template, f.name), tree[f.name]) for f in dataclasses.fields(template)},
+    )
+
+
+def run_checkpointed(
+    round_fn, state: ServerState, num_rounds: int,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: Optional[int] = None,
+) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+    """:func:`run_scanned` in ``ckpt_every``-round segments, the whole state
+    saved (:func:`save_server_state`) after each.  Segmenting changes no
+    number, and a run restored from a snapshot continues as the
+    uninterrupted one (run N == run n, restore, run N − n).  With
+    ``ckpt_dir`` or ``ckpt_every`` unset this is :func:`run_scanned`."""
+    if ckpt_dir is None or not ckpt_every:
+        return run_scanned(round_fn, state, num_rounds)
+    done = 0
+    outs: List[Dict[str, torch.Tensor]] = []
+    while done < num_rounds:
+        n = min(ckpt_every, num_rounds - done)
+        state, seg = run_scanned(round_fn, state, n)
+        outs.append(seg)
+        save_server_state(ckpt_dir, state)
+        done += n
+    if not outs:
+        return state, {}
+    return state, {name: torch.cat([o[name] for o in outs]) for name in outs[0]}
 
 
 def stack_states(states: Sequence[ServerState]) -> Tuple[ServerState, ...]:

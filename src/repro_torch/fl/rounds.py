@@ -1,11 +1,13 @@
-"""FL round steps over parameter trees: FedAvg local SGD (eq. 3-5), the
-eq.-(6) weighted average, and the Mode-B optimizer step.
+"""FL round steps over parameter trees: local SGD (eq. 3-5) under a
+registered local-update algorithm, the eq.-(6) weighted average, and the
+Mode-B optimizer step.
 
 ``build_client_parallel_round`` is Mode A of the JAX package in its
 ``sequential_clients=True`` form: each cohort client runs its E local steps
 in turn from the round's global params, then one weighted average forms the
-new global params.  ``build_fedsgd_step`` is Mode B: one optimizer step on
-the (micro-batch accumulated) gradient; the pretrain loop runs it.
+new global params (after the update guard, when one is given).
+``build_fedsgd_step`` is Mode B: one optimizer step on the (micro-batch
+accumulated) gradient; the pretrain loop runs it.
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.core.metrics import safe_div
+from repro_torch.core.metrics import finite_mean, safe_div
+from repro_torch.fl.local_algos import FedAvg, make_grad_fn
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
     "weighted_average",
     "make_grad_fn",
+    "build_local_algo_update",
     "build_local_update",
     "build_client_parallel_round",
     "build_fedsgd_step",
@@ -43,64 +47,116 @@ def weighted_average(stacked: Params, weights: torch.Tensor) -> Params:
     return tree_map(avg, stacked)
 
 
-def make_grad_fn(loss_fn: LossFn) -> Callable[[Params, tuple], Tuple[torch.Tensor, Params]]:
-    """``grad_fn(params, batch) -> (loss, grad)`` on the full batch."""
+def build_local_algo_update(
+    algo, loss_fn: LossFn, lr: float, grad_clip: Optional[float] = None
+) -> Callable:
+    """One client's local steps under a registered algorithm
+    (``fl/local_algos.py``; ``None`` is FedAvg): one SGD step ``w − lr·g``
+    per leading entry of the batch leaves, ``g`` the gradient with the
+    algorithm's per-step term folded in (and optionally clipped by global
+    norm).  The entry params are the anchor every drift term measures
+    against.  Two signatures, by ``algo.stateful``:
 
-    def grad_fn(params: Params, batch: tuple):
-        live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-        loss = loss_fn(tree_unflatten(params, live), batch)
-        grads = torch.autograd.grad(loss, live)
-        return loss.detach(), tree_unflatten(params, grads)
+    * stateless: ``local_update(params, steps_batch) -> (params, losses)``;
+    * stateful: ``local_update(params, client_state, steps_batch) ->
+      (params, new_client_state, losses)``, the state constant during the
+      steps and evolved once by ``algo.finalize`` after the last."""
+    if algo is None:
+        algo = FedAvg()
+    bound = algo.bind(loss_fn, lr, grad_clip)
 
-    return grad_fn
+    def run_steps(params: Params, client_state, anchor: Params, steps_batch: tuple):
+        losses = []
+        for s in range(steps_batch[0].shape[0]):
+            params, _, loss = bound.step(params, client_state, anchor, tuple(x[s] for x in steps_batch))
+            losses.append(loss)
+        return params, torch.stack(losses)
+
+    if not algo.stateful:
+
+        def local_update(params: Params, steps_batch: tuple):
+            return run_steps(params, (), params, steps_batch)
+
+        return local_update
+
+    def stateful_local_update(params: Params, client_state, steps_batch: tuple):
+        new_params, losses = run_steps(params, client_state, params, steps_batch)
+        return new_params, algo.finalize(new_params, client_state, params), losses
+
+    return stateful_local_update
 
 
 def build_local_update(
     loss_fn: LossFn, lr: float, grad_clip: Optional[float] = None
 ) -> Callable[[Params, tuple], Tuple[Params, torch.Tensor]]:
     """One client's FedAvg local update: ``local_update(params, steps_batch)
-    -> (params, losses)`` runs one SGD step ``w − lr·g`` (g optionally
-    clipped by global norm) per leading entry of the batch leaves."""
-    grad_fn = make_grad_fn(loss_fn)
-
-    def local_update(params: Params, steps_batch: tuple):
-        losses = []
-        for s in range(steps_batch[0].shape[0]):
-            loss, g = grad_fn(params, tuple(x[s] for x in steps_batch))
-            if grad_clip is not None:
-                g = clip_by_global_norm(g, grad_clip)
-            params = tree_map(lambda w, gw: (w - lr * gw).to(w.dtype), params, g)
-            losses.append(loss)
-        return params, torch.stack(losses)
-
-    return local_update
+    -> (params, losses)``, :func:`build_local_algo_update` with FedAvg."""
+    return build_local_algo_update(None, loss_fn, lr, grad_clip=grad_clip)
 
 
 def build_client_parallel_round(
-    loss_fn: LossFn, lr: float, local_steps: int, grad_clip: Optional[float] = None
-) -> Callable[[Params, tuple, torch.Tensor], Tuple[Params, torch.Tensor]]:
+    loss_fn: LossFn,
+    lr: float,
+    local_steps: int,
+    grad_clip: Optional[float] = None,
+    update_transform: Optional[Callable] = None,
+    algo=None,
+) -> Callable[..., tuple]:
     """Mode A round step, clients one after another.
 
     ``round_step(global_params, client_batches, client_weights)`` where every
     leaf of ``client_batches`` has leading shape ``(C_p, local_steps, ...)``
     and ``client_weights`` is ``(C_p,)`` (= n_c).  Returns the aggregated
     global params (eq. 6) and the mean local loss.
-    """
-    local_update = build_local_update(loss_fn, lr, grad_clip=grad_clip)
 
-    def round_step(global_params: Params, client_batches: tuple, client_weights: torch.Tensor):
+    ``update_transform`` is the fault-injection and update-validation guard
+    of ``fl/faults.make_update_guard``, applied between the local updates
+    and the weighted sum: ``round_step(global_params, client_batches,
+    client_weights, *guard_args)`` then returns ``(agg, mean_loss, flagged,
+    survivors)``: the mean over the finite losses of the clients left in
+    the sum, the clients the guard flagged, and how many were left.
+
+    ``algo`` is the local-update algorithm (``None``: FedAvg).  A stateful
+    one takes the keyword ``client_states`` (leaves leading ``(C_p, ...)``)
+    and appends the clients' new states to the return; the caller writes
+    back the ones whose update it keeps.
+    """
+    local_update = build_local_algo_update(algo, loss_fn, lr, grad_clip=grad_clip)
+    stateful = algo is not None and algo.stateful
+
+    def round_step(
+        global_params: Params, client_batches: tuple, client_weights: torch.Tensor, *guard_args,
+        client_states=None,
+    ):
         if client_batches[0].shape[1] != local_steps:
             raise ValueError(
                 f"client batches hold {client_batches[0].shape[1]} steps, "
                 f"the round runs {local_steps}"
             )
-        new_params, losses = [], []
+        new_params, new_states, losses = [], [], []
         for i in range(client_weights.shape[0]):
-            p, l = local_update(global_params, tuple(x[i] for x in client_batches))
+            batch = tuple(x[i] for x in client_batches)
+            if stateful:
+                p, st, l = local_update(global_params, tree_map(lambda s: s[i], client_states), batch)
+                new_states.append(st)
+            else:
+                p, l = local_update(global_params, batch)
             new_params.append(p)
             losses.append(l)
         stacked = tree_map(lambda *xs: torch.stack(xs), *new_params)
-        return weighted_average(stacked, client_weights), torch.mean(torch.stack(losses))
+        losses = torch.stack(losses)
+        out = ()
+        if stateful:
+            out = (tree_map(lambda *xs: torch.stack(xs), *new_states),)
+        if update_transform is None:
+            return (weighted_average(stacked, client_weights), torch.mean(losses)) + out
+        stacked, w, losses, flagged = update_transform(
+            stacked, global_params, client_weights, losses, *guard_args
+        )
+        entry = torch.mean(losses, dim=tuple(range(1, losses.ndim)))
+        mean_loss = finite_mean(entry, where=w > 0)
+        survivors = torch.sum((w > 0).to(torch.int32))
+        return (weighted_average(stacked, w), mean_loss, flagged, survivors) + out
 
     return round_step
 

@@ -84,6 +84,8 @@ class FLTrainer:
             else engine_lib.salted_generator(cfg.seed, engine_lib._ENV_SALT, self.device)
         )
         self.funnel_generator = engine_lib.salted_generator(cfg.seed, engine_lib._FUNNEL_SALT, self.device)
+        # the fault model's draws, kept across run calls as the scenario's
+        self.fault_generator = engine_lib.fault_stream(cfg, self.device)
         self._round_fn_memo = None
         # k-DPP spectral cache, keyed on the kernel tensor it was built from;
         # _init_profiles (reprofile boundaries) invalidates it with the kernel
@@ -225,7 +227,10 @@ class FLTrainer:
 
     def server_state(self) -> engine_lib.ServerState:
         """The trainer's current server knowledge as a ServerState, sharing
-        the trainer's generators."""
+        the trainer's generators; a guarded config's quarantine counters and
+        a stateful algorithm's per-client state start at zero (as JAX's:
+        they carry across the reprofile segments of one ``run`` call)."""
+        cfg = self.cfg
         return engine_lib.ServerState(
             params=self.params,
             generator=self.generator,
@@ -237,6 +242,7 @@ class FLTrainer:
             client_label_dists=self.client_label_dists,
             global_label_dist=self.global_label_dist,
             env_generator=self.env_generator,
+            **engine_lib.robustness_fields(cfg, self.params, cfg.num_clients, self.device, self.fault_generator),
             **self._selection_fields(),
         )
 
@@ -255,6 +261,7 @@ class FLTrainer:
         self.losses = state.losses
         self.round_state.losses = self.losses
         self.round_state.round = state.round
+        self.fault_generator = state.fault_generator
 
     # ------------------------------------------------------------------
     def run(self, rounds: Optional[int] = None, progress: bool = False) -> Dict[str, List]:
@@ -267,7 +274,9 @@ class FLTrainer:
         as the legacy loop records it: every ``eval_every`` rounds and the
         last round, whose accuracy is evaluated here when it is off the
         grid.  Round numbers continue from earlier ``run`` calls.  A
-        strategy that does not override ``draw_fn`` runs the legacy loop."""
+        strategy that does not override ``draw_fn`` runs the legacy loop,
+        which refuses faults, robust aggregation and a local algorithm other
+        than FedAvg."""
         cfg = self.cfg
         rounds = rounds or cfg.rounds
         if not self._supports_engine():
@@ -306,10 +315,22 @@ class FLTrainer:
         ``eval_every`` rounds and at the last round.  Round numbers continue
         from earlier calls.  The engine's oracle, and the loop of a strategy
         that overrides only ``select``.  It draws no scenario and runs no
-        funnel, so it refuses a funnel and an availability model."""
+        funnel, so it refuses a funnel and an availability model; it has no
+        update guard and runs plain SGD, so it refuses faults, robust
+        aggregation and any other local algorithm (JAX's ``run`` messages)."""
         cfg = self.cfg
         if cfg.candidate_frac is not None:
             raise ValueError("candidate_frac needs the engine (FLTrainer.run): the legacy loop has no funnel")
+        if cfg.guarded():
+            raise ValueError(
+                "faults / robust aggregation require a strategy with a pure select_fn (the "
+                "scanned engine path): the legacy host loop has no fault-injection or quarantine layer"
+            )
+        if cfg.local_algo != "fedavg":
+            raise ValueError(
+                f"local_algo={cfg.local_algo!r} requires a strategy with a pure draw_fn (the scanned "
+                "engine path): the legacy host loop is hardwired to plain SGD (fedavg)"
+            )
         if cfg.scenario is not None and scenarios_lib.get_scenario(cfg.scenario).availability is not None:
             raise ValueError(
                 f"scenario {cfg.scenario!r} masks availability, which only the engine "

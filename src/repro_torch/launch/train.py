@@ -23,8 +23,15 @@ raises without a card.  In ``--mode fl``, ``--scenario`` draws each round's
 client latencies (and, for ``flaky``, an availability mask the cohort is
 drawn within) and prints the simulated wall clock, and ``--candidate-frac``
 funnels the federation to its Q top-scored clients, whose (Q, Q) kernel the
-k-DPP draws from.  Flags of features the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item.
+k-DPP draws from.  ``--faults`` injects a fault model's client failures,
+``--aggregator`` picks the robust aggregation that screens them, and
+``--local-algo`` (with ``--prox-mu`` or ``--feddyn-alpha``) the clients'
+objective.  With ``--ckpt DIR --ckpt-every N`` the whole server state is
+saved every N rounds, and a relaunch resumes from the latest snapshot and
+runs only the rounds left; ``--ckpt`` alone saves the final params (in
+``--mode pretrain`` the params and the optimizer state).  Flags of
+features the port does not run yet raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,12 +44,15 @@ import numpy as np
 import torch
 
 from repro_torch import optim as optim_lib
+from repro_torch.checkpoint import latest_step, save
 from repro_torch.configs import ARCH_NAMES, get_arch
 from repro_torch.core.selection import make_strategy
 from repro_torch.data import make_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl import engine as engine_lib
 from repro_torch.fl import rounds as rounds_lib
+from repro_torch.fl.faults import AGGREGATORS, FAULT_NAMES
+from repro_torch.fl.local_algos import ALGO_NAMES
 from repro_torch.fl.scenarios import SCENARIO_NAMES
 from repro_torch.launch.serve import build_model
 from repro_torch.models import transformer as T
@@ -77,13 +87,6 @@ def _refuse_unported(args) -> None:
         ("--staleness-bound", args.staleness_bound is not None, 15),
         ("--staleness-decay", args.staleness_decay != "polynomial", 15),
         ("--staleness-alpha", args.staleness_alpha != 0.5, 15),
-        ("--faults", args.faults is not None, 12),
-        ("--aggregator", args.aggregator != "mean", 12),
-        ("--local-algo", args.local_algo != "fedavg", 12),
-        ("--prox-mu", args.prox_mu is not None, 12),
-        ("--feddyn-alpha", args.feddyn_alpha is not None, 12),
-        ("--ckpt", args.ckpt is not None, 12),
-        ("--ckpt-every", args.ckpt_every is not None, 12),
         ("--telemetry", args.telemetry is not None, 13),
         ("--profile-dir", args.profile_dir is not None, 13),
     ]
@@ -95,8 +98,11 @@ def _refuse_unported(args) -> None:
 def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
     """Federated LM training through the engine -> (final state, per-round
     outputs stacked over rounds, with the host seconds of each round's
-    selection, local updates and loss refresh)."""
+    selection, local updates and loss refresh; empty when a resumed run
+    has no round left)."""
     _refuse_unported(args)
+    if args.ckpt_every is not None and not args.ckpt:
+        raise SystemExit("--ckpt-every requires --ckpt DIR")
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg, params = build_model(args.arch, args.seed, full_width=args.full_width, device=device)
@@ -132,6 +138,12 @@ def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
         seed=args.seed,
         scenario=args.scenario,
         candidate_frac=args.candidate_frac,
+        faults=args.faults,
+        aggregator=args.aggregator,
+        ckpt_every=args.ckpt_every,
+        local_algo=args.local_algo,
+        prox_mu=args.prox_mu,
+        feddyn_alpha=args.feddyn_alpha,
     )
     state = engine_lib.init_server_state(
         flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device,
@@ -142,8 +154,22 @@ def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
         print(f"{tag} funnel: C={c} -> Q={flcfg.candidate_count()} candidates "
               f"(kernel {tuple(state.kernel.shape)})")
     round_fn = engine_lib.make_round_fn(flcfg, loss_fn, (strategy,))
-    state, outs = engine_lib.run_scanned(round_fn, state, args.rounds)
-    for i in range(args.rounds):
+    # crash-resume: with --ckpt-every the directory holds whole-state
+    # snapshots, so a relaunch continues from the latest and runs only the
+    # rounds left, as the uninterrupted run would have
+    checkpointed = flcfg.ckpt_every is not None
+    start = 0
+    if checkpointed:
+        step = latest_step(args.ckpt)
+        if step is not None:
+            state = engine_lib.restore_server_state(args.ckpt, state, step=step)
+            start = state.round
+            print(f"{tag} resumed round {start} from {args.ckpt}/step_{step:08d}")
+    remaining = max(args.rounds - start, 0)
+    state, outs = engine_lib.run_checkpointed(
+        round_fn, state, remaining, ckpt_dir=args.ckpt, ckpt_every=flcfg.ckpt_every
+    )
+    for i in range(remaining):
         t = int(outs["round"][i])
         if t % args.log_every == 0 or t == args.rounds:
             print(f"{tag} round {t:4d} sel={outs['selected'][i].tolist()} "
@@ -151,10 +177,24 @@ def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
             print(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
                   f"local updates {float(outs['t_local'][i]):.4f} "
                   f"refresh {float(outs['t_refresh'][i]):.4f}")
+    if flcfg.guarded() and remaining:
+        # identity rounds and all-corrupt cohorts report NaN round losses
+        surv, losses = outs["survivors"].double(), outs["loss"].double()
+        finite = losses[torch.isfinite(losses)]
+        best = f"{float(finite.min()):.4f}" if finite.numel() else "n/a (no finite round losses)"
+        print(f"{tag} faults={flcfg.faults or 'none'} aggregator={flcfg.aggregator}: "
+              f"mean survivors {float(surv.mean()):.1f}/{args.per_round}, "
+              f"flagged {int(outs['flagged'].sum())}, "
+              f"identity rounds {int(outs['identity_round'].sum())}, best finite loss {best}")
     if "sim_time" in outs:
         sim = outs["sim_time"].double()
         print(f"{tag} scenario={args.scenario} (synchronous barrier): simulated wall clock "
               f"{float(sim.sum()):.2f} (mean round {float(sim.mean()):.2f})")
+    if args.ckpt and not checkpointed:
+        # the final params alone; with --ckpt-every the directory already
+        # holds whole-state snapshots
+        save(args.ckpt, args.rounds, state.params)
+        print(f"checkpoint -> {args.ckpt}")
     return state, outs
 
 
@@ -164,7 +204,13 @@ def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
     began, tokens/s so far)."""
     _refuse_unported(args)
     fl_only = [flag for flag, on in (("--scenario", args.scenario is not None),
-                                     ("--candidate-frac", args.candidate_frac is not None)) if on]
+                                     ("--candidate-frac", args.candidate_frac is not None),
+                                     ("--faults", args.faults is not None),
+                                     ("--aggregator", args.aggregator != "mean"),
+                                     ("--local-algo", args.local_algo != "fedavg"),
+                                     ("--prox-mu", args.prox_mu is not None),
+                                     ("--feddyn-alpha", args.feddyn_alpha is not None),
+                                     ("--ckpt-every", args.ckpt_every is not None)) if on]
     if fl_only:
         raise ValueError(f"{', '.join(fl_only)} select federation features: use --mode fl")
     if args.flash:
@@ -196,6 +242,9 @@ def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
             tps = i * args.local_batch * args.seq / sec
             history.append({"step": i, "loss": loss_v, "seconds": sec, "tok_s": tps})
             print(f"[pretrain] step {i:5d} loss={loss_v:.4f} tok/s={tps:,.0f}")
+    if args.ckpt:
+        save(args.ckpt, args.steps, {"params": params, "opt": opt_state})
+        print(f"checkpoint -> {args.ckpt}")
     return params, opt_state, history
 
 
@@ -225,19 +274,31 @@ def main(argv=None):
                          "prices a simulated round wall clock")
     ap.add_argument("--candidate-frac", type=float, default=None,
                     help="--mode fl: the funnel's fraction of clients kept as candidates, in (0, 1]")
+    ap.add_argument("--faults", choices=FAULT_NAMES, default=None,
+                    help="--mode fl: fault-injection model (client dropout, NaN/garbage/sign-flip "
+                         "corruption, shard blackout)")
+    ap.add_argument("--aggregator", choices=AGGREGATORS, default="mean",
+                    help="--mode fl: mean (eq. 6), clipped_mean (norm-clip outliers to the cohort "
+                         "median's threshold), trimmed_mean (reject outliers)")
+    ap.add_argument("--local-algo", choices=ALGO_NAMES, default="fedavg",
+                    help="--mode fl: fedavg (plain SGD), fedprox (proximal drift penalty), "
+                         "feddyn (per-client linear-penalty state)")
+    ap.add_argument("--prox-mu", type=float, default=None,
+                    help="fedprox's proximal coefficient (needs --local-algo fedprox)")
+    ap.add_argument("--feddyn-alpha", type=float, default=None,
+                    help="feddyn's penalty coefficient (needs --local-algo feddyn)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="--mode fl: save the whole server state to --ckpt every N rounds; a "
+                         "relaunch resumes from the latest snapshot (needs --ckpt)")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="checkpoint directory; without --ckpt-every the final params (and, "
+                         "in --mode pretrain, the optimizer state) are saved there")
     # the JAX launcher's flags of features not ported yet: each raises
     ap.add_argument("--shard-clients", type=int, default=0)
     ap.add_argument("--cohort-cap", type=int, default=None)
     ap.add_argument("--staleness-bound", type=int, default=None)
     ap.add_argument("--staleness-decay", default="polynomial")
     ap.add_argument("--staleness-alpha", type=float, default=0.5)
-    ap.add_argument("--faults", default=None)
-    ap.add_argument("--aggregator", default="mean")
-    ap.add_argument("--local-algo", default="fedavg")
-    ap.add_argument("--prox-mu", type=float, default=None)
-    ap.add_argument("--feddyn-alpha", type=float, default=None)
-    ap.add_argument("--ckpt-every", type=int, default=None)
-    ap.add_argument("--ckpt", default=None)
     ap.add_argument("--telemetry", default=None, metavar="PATH")
     ap.add_argument("--profile-dir", default=None, metavar="PATH")
     args = ap.parse_args(argv)

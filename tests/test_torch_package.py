@@ -88,9 +88,7 @@ def test_quickstart_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("cohort_cap", 2), ("staleness_bound", 1),
-        ("faults", "dropout"), ("aggregator", "trimmed_mean"),
-        ("ckpt_every", 2), ("local_algo", "fedprox"), ("telemetry", True),
+        ("cohort_cap", 2), ("staleness_bound", 1), ("telemetry", True),
     ],
 )
 def test_flconfig_refuses_features_not_yet_ported(field, value):

@@ -354,10 +354,7 @@ def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     [
         ("--shard-clients", "2"), ("--cohort-cap", "2"),
         ("--staleness-bound", "1"), ("--staleness-decay", "exponential"),
-        ("--staleness-alpha", "0.3"), ("--faults", "dropout"),
-        ("--aggregator", "trimmed_mean"), ("--local-algo", "fedprox"), ("--prox-mu", "0.01"),
-        ("--feddyn-alpha", "0.01"), ("--ckpt", "ck"), ("--ckpt-every", "2"),
-        ("--telemetry", "t.jsonl"), ("--profile-dir", "prof"),
+        ("--staleness-alpha", "0.3"), ("--telemetry", "t.jsonl"), ("--profile-dir", "prof"),
     ],
 )
 @pytest.mark.parametrize("mode", ["fl", "pretrain"])
