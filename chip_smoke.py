@@ -22,7 +22,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    library call's), the kernel's device time per call (``device_ms``,
    from torch.profiler, summed over the kernels one call launches) and the
    plain and library times.  Then K5 (flash-decode, with its split of the
-   KV axis) the same way, at the serving path's shape, three long shapes (one ragged) and
+   KV axis) the same way, at the serving path's shape, the last decode
+   step of qwen2-vl-2b, musicgen-medium and llama4-maverick (16 slots of
+   192), three long shapes (one ragged) and
    the JAX test's three fp32 shapes, and K6 (causal flash
    attention) at the LM path's refresh shape, three long bf16 shapes and
    the JAX test's five fp32 shapes, windows included, and K7 (the WKV6
@@ -103,11 +105,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with its sums reordered, and one bf16 step added in layer 0) show how
    far correct bf16 paths part, and K7's bf16 logits are held to them.  The
    continuous tokens are held on an engine over the fp32 copy.
-7. Prints, for each shape a path gives K1 or K3 and each shape the RWKV
-   path gave K7, its launches there beside that shape's cold device time
+6b. The five archs of the last model slice, served as in 4 through the
+   launcher's ``build_model`` at full width (the depth-cut ones through
+   ``init_params`` on the cut config), each freed before the next
+   loads: qwen2-vl-2b (M-RoPE, all 28 layers) and musicgen-medium
+   (sinusoidal positions, all 48) through K5, recurrentgemma-9b (RG-LRU
+   and local attention, all 38) through no kernel, mixtral-8x7b (every
+   layer SWA + MoE, cut to 8 of 32 layers) through no kernel, and
+   llama4-maverick (cut to 2 of 48 layers: one attn+mlp, one attn+moe with
+   all 128 experts and the shared expert) through K5.  The same checks,
+   with K5 once per layer at every decode step or no kernel at all.  The
+   two depth-cut MoE archs run scan mode only (``SERVE_SCAN_ONLY``): their
+   continuous runs are left out to keep the run's time down.  A plain run
+   held to a kernel run takes its expert choices (top-k routing flips on
+   bf16 rounding where router logits nearly tie), and the choices that
+   differ are counted; the share of (token, expert) pairs each kind of
+   call (prefill, decode step) dropped is printed, since capacity drops
+   depend on a call's other tokens.  llama4's fp32 copy does not fit
+   beside it, so check (e)'s fp32 leg is skipped for that arch alone
+   (``FP32_SKIPPED``) with the byte count that rules it out; for any other
+   arch a copy that does not fit fails the run.
+7. Prints, for each shape a path gives K1 or K3, each shape the RWKV
+   path gave K7 and each new arch's decode shape of K5, its launches
+   there beside that shape's cold device time
    and bound (K1 and K3 also their plan and library time); then one JSON line
    describing every kernel (K1 and K2 also at the funnel's shape and at the
-   unfunnelled init's C = 4,096), then the
+   unfunnelled init's C = 4,096, and K5 at the three new decode shapes),
+   then the
    device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -146,6 +170,9 @@ SHAPES = [  # (C, Q, dtype name): the FL main path's shape first, then the LM pa
 # and a full slot; "full" = every slot at S.  The serving path's shape first.
 DECODE_SHAPES = [
     (16, 256, 15, 5, 64, "bf16", None),
+    (16, 192, 12, 2, 128, "bf16", "full"),  # qwen2-vl-2b's last decode step (G = 6)
+    (16, 192, 24, 24, 64, "bf16", "full"),  # musicgen-medium's (MHA, G = 1)
+    (16, 192, 40, 8, 128, "bf16", "full"),  # llama4-maverick's (G = 5)
     (16, 4096, 15, 5, 64, "bf16", "full"),
     (16, 4096, 15, 5, 64, "bf16", None),
     (1, 32768, 15, 5, 64, "bf16", "full"),
@@ -153,18 +180,43 @@ DECODE_SHAPES = [
     (2, 64, 4, 4, 16, "fp32", [64, 50]),
     (3, 16, 4, 1, 64, "fp32", [16, 3, 9]),
 ]
-# the serving main paths at full width: smollm-360m through K5, rwkv6-7b
-# through K7; arch -> (kernel, label, runs at prefill too, d_model, the
-# dtype in which the end-to-end bounds (e) and (f) are held).  rwkv6-7b's
-# are held on an fp32 copy of the model: at random init its 32 layers
-# amplify rounding differences so far that two correct bf16 paths part by
-# about a third of max|logits|, while in fp32 they part by a few percent.
-# The script shows it each run with two witnesses that do not involve K7
-# (``serve_phase``, check (e)), and holds K7's bf16 logits to them
+# the serving main paths at full width: smollm-360m, qwen2-vl-2b,
+# musicgen-medium and llama4-maverick through K5, rwkv6-7b through K7, and
+# recurrentgemma-9b and mixtral-8x7b through no kernel (every attention
+# layer of theirs has a window); arch -> (kernel or None, label, runs at
+# prefill too, d_model, layers on the card, the dtype in which the
+# end-to-end bounds (e) and (f) are held).  Depth is cut where the bf16
+# model and check (e)'s fp32 copy do not fit the card: mixtral-8x7b (about
+# 94 GB in bf16) to 8 of 32 layers, llama4-maverick (400 B parameters) to
+# 2 of 48, one attn+mlp and one attn+moe layer with all 128 experts.
+# rwkv6-7b's bounds are held on an fp32 copy of the model: at random init
+# its layers amplify rounding differences so far that two correct bf16
+# paths part by about a third of max|logits| at 32 layers, while in fp32
+# they part by a few percent.  The script shows it each run with two witnesses that do
+# not involve K7 (``serve_phase``, check (e)), and holds K7's bf16 logits
+# to them
 SERVE_PATHS = {
-    "smollm-360m": ("flash_decode", "K5", False, 960, "bfloat16"),
-    "rwkv6-7b": ("wkv6", "K7", True, 4096, "float32"),
+    "smollm-360m": ("flash_decode", "K5", False, 960, 32, "bfloat16"),
+    "rwkv6-7b": ("wkv6", "K7", True, 4096, 32, "float32"),
+    "qwen2-vl-2b": ("flash_decode", "K5", False, 1536, 28, "bfloat16"),
+    "musicgen-medium": ("flash_decode", "K5", False, 1536, 48, "bfloat16"),
+    "recurrentgemma-9b": (None, "use_flash", False, 4096, 38, "bfloat16"),
+    "mixtral-8x7b": (None, "use_flash", False, 4096, 8, "bfloat16"),
+    "llama4-maverick-400b-a17b": ("flash_decode", "K5", False, 5120, 2, "bfloat16"),
 }
+# the archs the last model slice serves, in the order the phase runs them
+NEW_SERVE_ARCHS = ("qwen2-vl-2b", "musicgen-medium", "recurrentgemma-9b", "mixtral-8x7b",
+                   "llama4-maverick-400b-a17b")
+# archs served in scan mode only, without the continuous run and its checks
+# (the second half of (a), (b), (c) and (f)): the depth-cut MoE archs, whose
+# continuous runs would add ~70 s to a run that passes 600 s without them
+SERVE_SCAN_ONLY = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
+# the one arch whose fp32 copy (check (e)) cannot fit beside its bf16
+# model on an 80 GB card: llama4-maverick's 2 layers hold ~36.6 GB in bf16
+FP32_SKIPPED = ("llama4-maverick-400b-a17b",)
+# card memory kept free beside the model and its fp32 copy (check (e)):
+# caches, activations, logits of the teacher-forced runs
+SERVE_HEADROOM = 8 << 30
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 16, 128, 64
 SERVE_REQUESTS, SERVE_BUDGETS, SERVE_CHUNK = 48, (32, 128), 8
 FL_KERNELS = ("pairwise_dists_stats", "normalized_gram")
@@ -383,10 +435,13 @@ def bound(nbytes: float, flops: float, kind: str):
 
 def serve_phase(torch, dev, arch: str):
     """The serving main path of ``arch`` at full width through its kernel
-    (``SERVE_PATHS``), which runs once per layer at every decode step and,
-    for K7, at every prefill; returns the kernel's launches on the path
-    and, for K7, its calls there by input shape (B, T), whose sum is held
-    to the launch count."""
+    (``SERVE_PATHS``), which runs once per layer without a window at every
+    decode step and, for K7, at every prefill; for an arch without a kernel
+    no kernel may launch.  Returns the kernel's launches on the path (0
+    without one), for K7 its calls there by input shape (B, T), whose sum
+    is held to the launch count, and the phase's seconds.  For an arch of
+    ``SERVE_SCAN_ONLY`` the continuous run and the checks on it (the second
+    half of (a), (b), (c) and (f)) are left out."""
     import collections
     import dataclasses
 
@@ -395,19 +450,112 @@ def serve_phase(torch, dev, arch: str):
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    kernel, label, at_prefill, width, strict = SERVE_PATHS[arch]
-    cfg, params = serve_launch.build_model(arch, 0, full_width=True, device=dev)
-    check((cfg.num_layers, cfg.d_model, cfg.dtype) == (32, width, "bfloat16"), f"not full width: {cfg}")
+    t_phase = time.perf_counter()
+    kernel, label, at_prefill, width, depth, strict = SERVE_PATHS[arch]
+    published = serve_launch.get_arch(arch).model.num_layers
+    if depth == published:
+        cfg, params = serve_launch.build_model(arch, 0, full_width=True, device=dev)
+    else:
+        # the launcher's builder on the config cut to ``depth`` layers
+        cfg = dataclasses.replace(serve_launch.get_arch(arch).model, num_layers=depth)
+        params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    check((cfg.num_layers, cfg.d_model, cfg.dtype) == (depth, width, "bfloat16"), f"not full width: {cfg}")
     layers = cfg.num_layers
-    per_prefill = layers if at_prefill else 0
+    mixers = [bt.split("+")[0] for bt in cfg.layer_types()]
+    # the layers whose mixer reaches the kernel: K5 takes attention without
+    # a window at decode, K7 every RWKV time mix
+    per_step = {"flash_decode": mixers.count("attn"), "wkv6": mixers.count("rwkv"), None: 0}[kernel]
+    check(kernel is None or per_step == layers, f"{arch}: {per_step} of {layers} layers reach {label}")
+    per_prefill = per_step if at_prefill else 0
     others = [n for n in _build.LAUNCHES if n != kernel]
+    moe = "moe" in "".join(cfg.block_pattern)
+    continuous = arch not in SERVE_SCAN_ONLY
+    check(not (continuous and moe), f"{arch}: check (f)'s batch-{SERVE_REQUESTS} reference is another function")
     print(
-        f"serving: {arch} at full width, {T.param_count(params) / 1e6:.1f} M parameters "
-        f"in {cfg.param_dtype}, activations and caches in {cfg.dtype}"
+        f"serving: {arch} at full width, {layers} of {published} layers, "
+        f"{T.param_count(params) / 1e6:.1f} M parameters in {cfg.param_dtype}, activations and caches "
+        f"in {cfg.dtype}; {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"pos {cfg.pos_style}, blocks {cfg.block_pattern}; built in {time.perf_counter() - t_phase:.1f} s"
     )
+    # MoE instrumentation, for the MoE archs.  A call's capacity counts every
+    # token of the call, so the (token, expert) pairs it drops depend on how
+    # a run groups tokens into calls: ``moe_drops`` counts each call's
+    # dropped and total pairs by the call's (B, S), with the model's own
+    # routing and dispatch.  Top-k routing is discontinuous: two correct
+    # paths whose hidden states part by bf16 rounding (K5 against plain
+    # attention) choose other experts wherever two router logits nearly
+    # tie, and such a token's output then parts by a whole expert's.  So a
+    # plain run held to a kernel run takes the kernel run's expert choices
+    # (``moe_record``, then ``moe_pinned``, which counts the choices that
+    # differ from its own), and the bounds hold the rest of the path.
+    moe_log = {"shape": None, "drops": None, "record": None, "pin": None, "flips": None}
+    if moe:
+        real_route, real_moe = moe_mod._route, moe_mod.apply_moe
+
+        def shaped_moe(c, prm, x):
+            moe_log["shape"] = f"{x.shape[0]}x{x.shape[1]}"
+            return real_moe(c, prm, x)
+
+        def routing(c, logits):
+            idx, combine, aux = real_route(c, logits)
+            if moe_log["record"] is not None:
+                moe_log["record"].append(idx)
+            elif moe_log["pin"] is not None:
+                check(bool(moe_log["pin"]), "a pinned run made more MoE calls than the run it follows")
+                want = moe_log["pin"].popleft()
+                check(want.shape == idx.shape, f"a pinned MoE call of {tuple(idx.shape)} against {tuple(want.shape)}")
+                moe_log["flips"][0] += (idx != want).any(-1).sum()
+                moe_log["flips"][1] += idx.shape[0]
+                gate = logits.gather(-1, want)  # the combine weights of the pinned experts, as _route forms them
+                combine = (L.sigmoid(gate) if c.router_type == "sigmoid" else torch.softmax(gate, dim=-1)).float()
+                idx = want
+            if moe_log["drops"] is not None:
+                _, _, keep = moe_mod._dispatch(idx, c.num_experts, moe_mod._capacity(c, logits.shape[0]))
+                rec = moe_log["drops"].setdefault(moe_log["shape"], [0, 0])
+                rec[0] = rec[0] + (~keep).sum()
+                rec[1] += keep.numel()
+            return idx, combine, aux
+
+        moe_mod._route, moe_mod.apply_moe = routing, shaped_moe
+
+    def moe_record(fn):
+        """-> (fn(), the expert ids of every MoE call it made, in order)."""
+        moe_log["record"] = []
+        try:
+            return fn(), moe_log["record"]
+        finally:
+            moe_log["record"] = None
+
+    def moe_pinned(fn, record):
+        """-> (fn() with every MoE call's experts taken from ``record`` in
+        order, the token choices that differ from its own, all choices)."""
+        if not moe:
+            return fn(), 0, 0
+        moe_log["pin"], moe_log["flips"] = collections.deque(record), [0, 0]
+        try:
+            out = fn()
+            check(not moe_log["pin"], f"a pinned run left {len(moe_log['pin'])} MoE calls of the run it follows")
+            return out, int(moe_log["flips"][0]), moe_log["flips"][1]
+        finally:
+            moe_log["pin"] = moe_log["flips"] = None
+
+    def moe_drops(fn):
+        """-> (fn(), its MoE calls' dropped and total pairs by call shape)."""
+        moe_log["drops"] = {}
+        try:
+            return fn(), moe_log["drops"]
+        finally:
+            moe_log["drops"] = None
+
+    def drop_shares(what, record):
+        return f"{what}: " + ", ".join(
+            f"{shape} calls {int(d)} of {n} pairs ({int(d) / n:.4%})" for shape, (d, n) in sorted(record.items()))
+
     rng = np.random.default_rng(0)
     b, p, g = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p), dtype=np.int32), device=dev)
@@ -438,7 +586,8 @@ def serve_phase(torch, dev, arch: str):
     )
     # (a) the kernel once per layer and decode step, and per layer at the
     # prefill for K7 (K5 takes only single-token steps); no other kernel
-    check(scan_launches[kernel] == layers * (g - 1) + per_prefill, f"{label} launches {scan_launches}")
+    if kernel is not None:
+        check(scan_launches[kernel] == per_step * (g - 1) + per_prefill, f"{label} launches {scan_launches}")
     check(all(scan_launches[n] == 0 for n in others), f"another kernel ran: {scan_launches}")
     check(toks.shape == (b, g) and bool(((toks >= 0) & (toks < T.vocab_padded(cfg))).all()), "scan tokens")
 
@@ -467,43 +616,48 @@ def serve_phase(torch, dev, arch: str):
     requests = rng.integers(0, cfg.vocab_size, size=(SERVE_REQUESTS, p), dtype=np.int32)
     gmax = int(budgets.max())
     scfg = ServeConfig(batch=b, cache_len=p + gmax, max_new=gmax, decode_chunk=SERVE_CHUNK, use_flash=True)
-    eng = TimedEngine(cfg, scfg, params, prompt_len=p, seed=0)
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    eng.t_submit = t0 = time.perf_counter()
-    for i in range(SERVE_REQUESTS):
-        eng.submit(requests[i], int(budgets[i]))
-    finished = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    cont_launches = dict(_build.LAUNCHES)
-    if kernel == "wkv6":
-        wkv_ops.wkv6 = real_wkv6
-        check(sum(shapes.values()) == scan_launches[kernel] + cont_launches[kernel],
-              f"{label} calls by shape {dict(shapes)} against its launches")
-    steps = eng.state.step
-    tokens = sum(len(f.tokens) for f in finished)
-    ttft = np.asarray(sorted(eng.ttft.values())) * 1e3
-    print(
-        f"continuous: {SERVE_REQUESTS} requests through {b} slots, budgets in "
-        f"[{budgets.min()}, {budgets.max()}], cache_len {scfg.cache_len}: {tokens} tokens in "
-        f"{wall:.3f} s = {tokens / wall:.1f} tok/s aggregate over {steps} decode steps; "
-        f"TTFT ms p50 {np.percentile(ttft, 50):.2f} p95 {np.percentile(ttft, 95):.2f} "
-        f"max {ttft.max():.2f} (first {ttft.min():.2f}); launches {cont_launches}; "
-        f"shape signatures {eng.compile_counts()}"
-    )
-    # (a) again, counted apart: one launch per layer for every decode step
-    # and, for K7, every admission's prefill; K5 none at admission
-    want = layers * steps + per_prefill * SERVE_REQUESTS
-    check(cont_launches[kernel] == want, f"{label} {cont_launches} vs {steps} steps, {SERVE_REQUESTS} admissions")
-    check(all(cont_launches[n] == 0 for n in others), f"another kernel ran: {cont_launches}")
-    # (b) every request finishes once, with exactly its budget
-    ids = sorted(f.seq_id for f in finished)
-    check(ids == list(range(SERVE_REQUESTS)), f"finished ids {ids}")
-    check(all(len(f.tokens) == budgets[f.seq_id] for f in finished), "a request missed its budget")
-    check(len(ttft) == SERVE_REQUESTS, "not one TTFT per request")
-    # (c) one shape signature per entry point
-    check(eng.compile_counts() == {"decode_chunk": 1, "admit": 1}, f"{eng.compile_counts()}")
+    if not continuous:
+        print(f"continuous: not run for {arch} (SERVE_SCAN_ONLY)")
+        cont_launches = {n: 0 for n in _build.LAUNCHES}
+    else:
+        eng = TimedEngine(cfg, scfg, params, prompt_len=p, seed=0)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        eng.t_submit = t0 = time.perf_counter()
+        for i in range(SERVE_REQUESTS):
+            eng.submit(requests[i], int(budgets[i]))
+        finished = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cont_launches = dict(_build.LAUNCHES)
+        if kernel == "wkv6":
+            wkv_ops.wkv6 = real_wkv6
+            check(sum(shapes.values()) == scan_launches[kernel] + cont_launches[kernel],
+                  f"{label} calls by shape {dict(shapes)} against its launches")
+        steps = eng.state.step
+        tokens = sum(len(f.tokens) for f in finished)
+        ttft = np.asarray(sorted(eng.ttft.values())) * 1e3
+        print(
+            f"continuous: {SERVE_REQUESTS} requests through {b} slots, budgets in "
+            f"[{budgets.min()}, {budgets.max()}], cache_len {scfg.cache_len}: {tokens} tokens in "
+            f"{wall:.3f} s = {tokens / wall:.1f} tok/s aggregate over {steps} decode steps; "
+            f"TTFT ms p50 {np.percentile(ttft, 50):.2f} p95 {np.percentile(ttft, 95):.2f} "
+            f"max {ttft.max():.2f} (first {ttft.min():.2f}); launches {cont_launches}; "
+            f"shape signatures {eng.compile_counts()}"
+        )
+        # (a) again, counted apart: one launch per layer for every decode step
+        # and, for K7, every admission's prefill; K5 none at admission
+        want = per_step * steps + per_prefill * SERVE_REQUESTS
+        if kernel is not None:
+            check(cont_launches[kernel] == want, f"{label} {cont_launches} vs {steps} steps, {SERVE_REQUESTS} admissions")
+        check(all(cont_launches[n] == 0 for n in others), f"another kernel ran: {cont_launches}")
+        # (b) every request finishes once, with exactly its budget
+        ids = sorted(f.seq_id for f in finished)
+        check(ids == list(range(SERVE_REQUESTS)), f"finished ids {ids}")
+        check(all(len(f.tokens) == budgets[f.seq_id] for f in finished), "a request missed its budget")
+        check(len(ttft) == SERVE_REQUESTS, "not one TTFT per request")
+        # (c) one shape signature per entry point
+        check(eng.compile_counts() == {"decode_chunk": 1, "admit": 1}, f"{eng.compile_counts()}")
 
     # (f) the engine's tokens against a reference without the engine and
     # without the kernel: all requests prefilled together at the same depth,
@@ -515,7 +669,9 @@ def serve_phase(torch, dev, arch: str):
     # in the ``strict`` dtype only: for rwkv6-7b the same requests go
     # through a second engine over the fp32 copy of the model (K7 on fp32
     # inputs); its bf16 engine is held by (a)-(c) and, through K7's logits,
-    # by (e).
+    # by (e).  Not run for an MoE arch (``SERVE_SCAN_ONLY``), for which a
+    # batch-48 reference would be another function: its capacity drops
+    # depend on a call's other tokens.
     def engine_vs_reference(c, prm, finished, what):
         out = np.zeros((SERVE_REQUESTS, gmax), np.int32)
         for f in finished:
@@ -523,11 +679,15 @@ def serve_phase(torch, dev, arch: str):
         out_d = torch.as_tensor(out, device=dev)
         valid = torch.as_tensor(np.arange(gmax)[None, :] < budgets[:, None], device=dev)
 
-        def reference_gaps(prompts_np):
+        def reference_gaps(prompts_np, ahead=0):
             """max(ref logits) - ref logit of the engine's token, (n, gmax),
-            greedy agreement, and max|ref logits|."""
+            greedy agreement, and max|ref logits|; ``ahead`` advances every
+            slot's position that many steps after the prefill."""
             caches = T.init_caches(c, SERVE_REQUESTS, scfg.cache_len, per_slot=True, device=dev)
             logits, caches = serve_launch.prefill(c, prm, torch.as_tensor(prompts_np, device=dev), caches)
+            if ahead:
+                caches = {part: tuple({**leaf, "pos": leaf["pos"] + ahead} for leaf in caches[part])
+                          for part in ("unit", "rem")}
             gaps, hits, top = [], [], torch.zeros((), device=dev)
             for j in range(gmax):
                 if j:
@@ -549,14 +709,38 @@ def serve_phase(torch, dev, arch: str):
             f"{0.1 * top:.4g}), greedy agreement {agree_c:.4f}; control with shifted prompts breaks "
             f"the bound in {flagged} of {SERVE_REQUESTS} requests"
         )
+        if c.pos_style == "sinusoidal":
+            # sinusoidal positions of amplitude 1 added to token embeddings of
+            # std 0.02 (the random init's) leave the logits hardly reading the
+            # prompt, so a request given another's prompt is no control here;
+            # a slot at the wrong depth is (every slot's position left half a
+            # prompt too deep after its prefill), and it is the one held
+            ahead = SERVE_PROMPT // 2
+            pgaps, _, ptop = reference_gaps(requests, ahead=ahead)
+            prompt_flagged = flagged
+            flagged = int(((pgaps > 0.1 * ptop) & valid).any(1).sum())
+            print(
+                f"  control held for {c.pos_style} positions: every slot {ahead} positions too deep breaks the "
+                f"bound in {flagged} of {SERVE_REQUESTS} requests (shifted prompts: {prompt_flagged}, not held)"
+            )
         check(worst <= 0.1 * top, f"continuous tokens off the reference: gap {worst} > 0.1 * {top}")
         check(flagged >= SERVE_REQUESTS // 2, f"the control flagged only {flagged} requests")
 
-    if strict == cfg.dtype:
+    if continuous and strict == cfg.dtype:
         engine_vs_reference(cfg, params, finished, f"{cfg.dtype} engine")
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = _to_float(torch, params)
-    if strict == "float32":
+    # check (e)'s fp32 copy, beside the bf16 model, for every arch but FP32_SKIPPED's
+    bytes32 = 4 * T.param_count(params)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    room = (f"check (e)'s fp32 copy of {arch}: {bytes32} bytes beside the {torch.cuda.memory_allocated(dev)} "
+            f"allocated, with {SERVE_HEADROOM} kept free, against the card's {card}")
+    fp32_leg = arch not in FP32_SKIPPED
+    if fp32_leg:
+        check(torch.cuda.memory_allocated(dev) + bytes32 + SERVE_HEADROOM <= card, room + ": it does not fit")
+    else:
+        print(room + ": its fp32 leg is skipped for this arch (FP32_SKIPPED)")
+    params32 = _to_float(torch, params) if fp32_leg else None
+    if continuous and strict == "float32":
         eng32 = ServeEngine(cfg32, scfg, params32, prompt_len=p, seed=0)
         for i in range(SERVE_REQUESTS):
             eng32.submit(requests[i], int(budgets[i]))
@@ -584,29 +768,43 @@ def serve_phase(torch, dev, arch: str):
             out.append(logits.float())
         return torch.cat(out, dim=1)
 
-    l_k5, l_plain = teacher(cfg, params, True), teacher(cfg, params, False)
-    l_32 = teacher(cfg32, params32, False)
+    l_k5, k5_routes = moe_record(lambda: teacher(cfg, params, True))
+    (l_plain, scan_drops), flips, choices = moe_pinned(
+        lambda: moe_drops(lambda: teacher(cfg, params, False)), k5_routes)
+    if moe:
+        print(f"  MoE: the plain run took {label}'s expert choices ({flips} of {choices} token choices differ "
+              f"from its own); " + drop_shares(f"pairs dropped (all layers), scan mode ({b} x {p} prefill)",
+                                              scan_drops))
     scale = float(l_plain.abs().max())
     d = float((l_k5 - l_plain).abs().max())
-    e_k5 = float((l_k5 - l_32).abs().max())
-    e_plain = float((l_plain - l_32).abs().max())
     agree = float((l_k5.argmax(-1) == l_plain.argmax(-1)).float().mean())
-    agree32 = float((l_k5.argmax(-1) == l_32.argmax(-1)).float().mean())
+    if fp32_leg:
+        l_32, flips32, _ = moe_pinned(lambda: teacher(cfg32, params32, False), k5_routes)
+        if moe:
+            print(f"  MoE: the fp32 copy took {label}'s expert choices too ({flips32} of {choices} differ)")
+        e_k5 = float((l_k5 - l_32).abs().max())
+        e_plain = float((l_plain - l_32).abs().max())
+        agree32 = float((l_k5.argmax(-1) == l_32.argmax(-1)).float().mean())
+        vs32 = (f"vs the fp32 model: {label} {e_k5:.4g}, plain {e_plain:.4g}; greedy tokens "
+                f"agree {label}/plain {agree:.4f}, {label}/fp32 {agree32:.4f}")
+    else:
+        l_32 = None
+        vs32 = f"the fp32 model not run (above); greedy tokens agree {label}/plain {agree:.4f}"
     print(
         f"teacher-forced logits over {b}x{g} steps (max|logits| {scale:.4g}): |{label} - plain| "
-        f"{d:.4g}; vs the fp32 model: {label} {e_k5:.4g}, plain {e_plain:.4g}; greedy tokens "
-        f"agree {label}/plain {agree:.4f}, {label}/fp32 {agree32:.4f}"
+        f"{d:.4g}; {vs32}"
     )
     check(bool(torch.isfinite(l_k5).all()), f"non-finite logits through {label}")
     # the bf16 bound: K5's plain path rounds scores and probabilities to
-    # bf16 in every one of the 32 layers and K5 rounds its output once, so
+    # bf16 in every layer and K5 rounds its output once, so
     # the two bf16 paths part by a few percent of max|logits|; a wrong head
     # mapping, mask or length would part them by the logits' own size.  K7
     # and the plain scan both round y to bf16 once per layer from fp32 sums
     # taken in another order, which the chaotic rwkv6-7b amplifies (below).
     # The kernel must also stay (within a quarter) no further from the fp32
     # model than the plain bf16 path is.
-    check(e_k5 <= 1.25 * e_plain, f"{label} {e_k5} further from fp32 than the plain path {e_plain}")
+    if fp32_leg:
+        check(e_k5 <= 1.25 * e_plain, f"{label} {e_k5} further from fp32 than the plain path {e_plain}")
     if strict == cfg.dtype:
         check(d <= 0.05 * scale, f"{label} logits off the plain path by {d} > 0.05 * {scale}")
     else:
@@ -702,7 +900,7 @@ def serve_phase(torch, dev, arch: str):
     def decode():
         box[0] = T.decode_step(cfg, params, tok, box[0], use_flash=True)[1]
 
-    _print_profile(torch, f"{arch} decode step at full width", decode, kernel, n=3,
+    _print_profile(torch, f"{arch} decode step at full width", decode, kernel or "gemm", n=3,
                    wall_ms=t["t_decode"] / (g - 1) * 1e3)
     if kernel == "flash_decode":
         # the dense MLP's activation rounded as JAX's (one launch per
@@ -722,7 +920,13 @@ def serve_phase(torch, dev, arch: str):
             f"{t_ours * 1e3:.2f} us a call, the fused op {t_fused * 1e3:.2f} us; "
             f"{cfg.num_layers} calls a decode step"
         )
-    return scan_launches[kernel] + cont_launches[kernel], dict(shapes)
+    if moe:
+        moe_mod._route, moe_mod.apply_moe = real_route, real_moe
+    seconds = time.perf_counter() - t_phase
+    print(f"serving phase of {arch}: {seconds:.1f} s")
+    if kernel is None:
+        return 0, dict(shapes), seconds
+    return scan_launches[kernel] + cont_launches[kernel], dict(shapes), seconds
 
 
 def check_k3(torch, f, what: str):
@@ -2296,17 +2500,28 @@ def main() -> int:
     print(f"phase 3e: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------- 4. the serving main path
-    serve_launches, _ = serve_phase(torch, dev, "smollm-360m")
+    serve_launches, _, _ = serve_phase(torch, dev, "smollm-360m")
 
     # ------------------------------------------------ 5. the LM client path
     lm_launches = lm_phase(torch, dev)
 
     # ------------------------------------------ 6. the RWKV-6 serving path
     # the earlier phases' models are out of scope: hand their memory back
-    # before the 15 GB model and its 30 GB fp32 copy
+    # before the RWKV model and its fp32 copy
     gc.collect()
     torch.cuda.empty_cache()
-    rwkv_launches, rwkv_shapes = serve_phase(torch, dev, "rwkv6-7b")
+    rwkv_launches, rwkv_shapes, _ = serve_phase(torch, dev, "rwkv6-7b")
+
+    # ---------------------- 6b. serving of the last model slice's five archs
+    # each model is freed before the next one loads
+    new_serve = {}
+    for arch in NEW_SERVE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_serve[arch] = serve_phase(torch, dev, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("serving phases (s): " + ", ".join(f"{a} {new_serve[a][2]:.1f}" for a in NEW_SERVE_ARCHS))
 
     # ---------------------------------------------------------- 7. results
     main_shape = SHAPES[0]
@@ -2350,6 +2565,25 @@ def main() -> int:
             rwkv_launches,
         ),
     }
+    # K5 at the decode shape of each new arch that reaches it: the last
+    # step's (B, prompt + generated, H, Hk, hd), its launches on that arch's
+    # serving path (scan and continuous)
+    from repro_torch.configs import get_arch
+
+    k5_new = {}
+    for arch in NEW_SERVE_ARCHS:
+        if SERVE_PATHS[arch][0] != "flash_decode":
+            continue
+        m = get_arch(arch).model
+        shape = (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, m.num_heads, m.num_kv_heads, m.head_dim, "bf16", "full")
+        check(shape in DECODE_SHAPES, f"K5 path shape {shape} of {arch} is not among DECODE_SHAPES")
+        k5_new[arch] = (shape, decode_rows[DECODE_SHAPES.index(shape)], new_serve[arch][0])
+        r = k5_new[arch][1]
+        print(
+            f"K5 path shape B={shape[0]} S={shape[1]} H={shape[2]} Hk={shape[3]} hd={shape[4]} ({arch}): "
+            f"launches {new_serve[arch][0]}, ms {r['ms']:.5f}, device_ms cold {fmt_ms(r['device_ms'])}, "
+            f"bound {r['bound_ms']:.6f} ({r['bound_by']}), plain {r['plain_ms']:.5f}, sdpa {r['library_ms']:.5f}"
+        )
     # K1 and K3 at each shape a path gives them: launches there beside the
     # shape's plan, cold device time, bound and library call (the LM path's
     # one K1 launch and the stage-wise route's one K3 launch a profile set
@@ -2400,6 +2634,16 @@ def main() -> int:
         # read a device time below its bound
         check(r["device_ms"] is None or r["bound_ms"] <= r["device_ms"],
               f"{name}: device time {r['device_ms']} below its bound {r['bound_ms']}")
+    # K5 at the new archs' decode shapes (phase 6b)
+    for arch, (shape, r, n) in k5_new.items():
+        table.append(dict(
+            name=f"flash_decode {arch} {shape[0]}x{shape[1]}x{shape[2]}/{shape[3]}x{shape[4]}", route="cuda",
+            source=sources["flash_decode"][0], replaces=sources["flash_decode"][1], launches=n,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+        check(r["device_ms"] is None or r["bound_ms"] <= r["device_ms"],
+              f"K5 {arch}: device time {r['device_ms']} below its bound {r['bound_ms']}")
     # the funnel's K1 and K2 rows (phase 3d): its shape, its launches
     for name, r in funnel_rows.items():
         table.append(dict(

@@ -1,0 +1,43 @@
+"""llama4-maverick-400b-a17b [moe]: 48L d_model=5120 40H (GQA kv=8)
+d_ff=8192 vocab=202048, MoE 128 experts top-1
+[hf:meta-llama/Llama-4-Scout-17B-16E].
+
+Maverick interleaves MoE every other layer (period 2), with a shared
+expert beside the 128 routed experts and a sigmoid top-1 router:
+24 MoE layers × 128 × 3 × 5120 × 8192 ≈ 386 B routed parameters, about
+400 B in all and ~17 B active per token.  The vocabulary pads to
+202,112."""
+
+from repro_torch.configs.base import FLRunConfig, ModelConfig
+from repro_torch.configs.registry import ArchSpec
+
+
+def spec() -> ArchSpec:
+    model = ModelConfig(
+        name="llama4-maverick-400b-a17b",
+        arch_type="moe",
+        num_layers=48,
+        d_model=5120,
+        num_heads=40,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=8192,
+        vocab_size=202_048,
+        block_pattern=("attn+mlp", "attn+moe"),  # MoE every other layer
+        mlp_variant="swiglu",
+        rope_theta=500_000.0,
+        num_experts=128,
+        experts_per_token=1,
+        router_type="sigmoid",
+        shared_expert=True,
+        capacity_factor=1.25,
+        tie_embeddings=False,
+        param_dtype="bfloat16",
+        dtype="bfloat16",
+        remat=True,
+    )
+    return ArchSpec(
+        model=model,
+        fl=FLRunConfig(lr=1e-3),
+        optimizer="adafactor",
+    )

@@ -1,0 +1,38 @@
+"""qwen2-vl-2b [vlm]: 28L d_model=1536 12H (GQA kv=2) d_ff=8960
+vocab=151936 — M-RoPE, dynamic resolution [arXiv:2409.12191].
+
+The vision tower and projector are a stub, as in the JAX package: the
+language decoder takes precomputed embeddings (B, S, d_model)
+(``transformer.forward(embeds=...)``) with the (3, B, S) M-RoPE position
+streams (temporal, height, width); for text the three are equal."""
+
+from repro_torch.configs.base import FLRunConfig, ModelConfig
+from repro_torch.configs.registry import ArchSpec
+
+
+def spec() -> ArchSpec:
+    model = ModelConfig(
+        name="qwen2-vl-2b",
+        arch_type="vlm",
+        num_layers=28,
+        d_model=1536,
+        num_heads=12,
+        num_kv_heads=2,
+        head_dim=128,
+        d_ff=8960,
+        vocab_size=151_936,
+        block_pattern=("attn+mlp",),
+        mlp_variant="swiglu",
+        pos_style="mrope",
+        mrope_sections=(16, 24, 24),  # t/h/w frequency sections (sum = hd/2)
+        rope_theta=1_000_000.0,
+        tie_embeddings=True,
+        param_dtype="bfloat16",
+        dtype="bfloat16",
+        remat=True,
+    )
+    return ArchSpec(
+        model=model,
+        fl=FLRunConfig(lr=3e-3),
+        optimizer="adam",
+    )

@@ -1,10 +1,7 @@
 """Registry of the assigned architectures, by the JAX package's names.
 
-``get_arch(name)`` returns the ``ArchSpec`` of an arch whose mixers, FFNs
-and position encoding the port runs (the dense ``attn+mlp`` family and the
-RWKV-6 ``rwkv+cmix`` family).  For the others it raises
-``NotImplementedError`` naming what is missing and the ROADMAP slice that
-brings it.
+``get_arch(name)`` returns the arch's ``ArchSpec``: its published model
+configuration, FL run settings and pretrain optimizer.
 """
 
 from __future__ import annotations
@@ -29,15 +26,6 @@ ARCH_NAMES = [
     "musicgen-medium",
 ]
 
-# arch -> what the port does not run yet (ROADMAP Queue 1, Slice 2 item 8)
-NOT_PORTED = {
-    "qwen2-vl-2b": "M-RoPE positions",
-    "recurrentgemma-9b": "RG-LRU mixers",
-    "llama4-maverick-400b-a17b": "MoE FFNs",
-    "mixtral-8x7b": "MoE FFNs",
-    "musicgen-medium": "sinusoidal positions",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
@@ -53,10 +41,5 @@ class ArchSpec:
 def get_arch(name: str) -> ArchSpec:
     if name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} needs {NOT_PORTED[name]}, which the port does not run yet "
-            "(ROADMAP Queue 1, Slice 2 item 8)"
-        )
     module = importlib.import_module("repro_torch.configs." + name.replace("-", "_"))
     return module.spec()

@@ -70,7 +70,7 @@ def prefill(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, caches: Dict,
     """Prompts (B, P) through the model into ``caches`` -> (logits of the
     last position (B, 1, V_pad), caches)."""
     b, p = prompts.shape
-    positions = torch.arange(p, dtype=torch.int32, device=prompts.device)[None].expand(b, p)
+    positions = T.mrope_streams(cfg, torch.arange(p, dtype=torch.int32, device=prompts.device)[None].expand(b, p))
     hidden, caches, _ = T.forward(cfg, params, prompts, positions, caches, use_flash=use_flash)
     return T.logits_from_hidden(cfg, params, hidden[:, -1:]), caches
 

@@ -31,7 +31,8 @@ saved every N rounds, and a relaunch resumes from the latest snapshot and
 runs only the rounds left; ``--ckpt`` alone saves the final params (in
 ``--mode pretrain`` the params and the optimizer state).  Flags of
 features the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+their ROADMAP item, and so do the archs it serves but does not train yet
+(``NOT_TRAINED``).
 """
 
 from __future__ import annotations
@@ -54,10 +55,25 @@ from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl.faults import AGGREGATORS, FAULT_NAMES
 from repro_torch.fl.local_algos import ALGO_NAMES
 from repro_torch.fl.scenarios import SCENARIO_NAMES
-from repro_torch.launch.serve import build_model
+from repro_torch.launch import serve as serve_launch
 from repro_torch.models import transformer as T
 
 __all__ = ["main", "run_fl", "run_pretrain"]
+
+# archs the port serves but does not train yet (ROADMAP Queue 1 item 8)
+NOT_TRAINED = ("qwen2-vl-2b", "recurrentgemma-9b", "llama4-maverick-400b-a17b", "mixtral-8x7b", "musicgen-medium")
+
+
+def build_model(arch: str, seed: int, full_width: bool = False, device=None):
+    """``launch.serve.build_model`` for the archs whose LM client path and
+    pretrain are ported; the others raise ``NotImplementedError``."""
+    if arch in NOT_TRAINED:
+        raise NotImplementedError(
+            f"federated LM training and pretraining of {arch} are not ported yet "
+            "(ROADMAP Queue 1 item 8: the client-parallel round keeps C_p model copies, "
+            "which do not fit the card for the MoE archs); launch.serve serves it"
+        )
+    return serve_launch.build_model(arch, seed, full_width=full_width, device=device)
 
 
 def _token_clients(cfg, num_clients, docs_per_client, seq, seed=0):

@@ -6,7 +6,10 @@ Conventions, the JAX package's:
   buffer of ``slots`` entries (slot = pos % slots).  ``pos: (B,)`` tracks
   one position per batch row, so decode slots at different depths share
   one batch (the serving engine's layout);
-* GQA grouping: q heads fold to (Hk, G), so k/v are used ungrouped.
+* GQA grouping: q heads fold to (Hk, G), so k/v are used ungrouped;
+* positions (B, S), or M-RoPE's three streams (3, B, S), whose temporal
+  stream orders the causal mask.  RoPE or M-RoPE is applied to q and k
+  before any kernel sees them.
 
 With a cache, ``apply_attention`` writes the new k/v into the cache's
 tensors **in place** (the port saves a copy of every layer's cache per
@@ -62,13 +65,13 @@ def init_cache(
 
 
 def _positions_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.pos_style == "mrope":
+        return L.apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     if cfg.pos_style == "rope":
+        if positions.ndim == 3:  # M-RoPE streams given to a RoPE model
+            positions = positions[0]
         return L.apply_rope(x, positions, cfg.rope_theta)
-    if cfg.pos_style == "none":
-        return x
-    raise NotImplementedError(
-        f"pos_style={cfg.pos_style!r} is not ported yet (ROADMAP Queue 1, Slice 2 item 8)"
-    )
+    return x  # sinusoidal and none are applied at the embedding
 
 
 def _attend(
@@ -123,9 +126,8 @@ def apply_attention(
     q = L.dense(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = L.dense(p["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = L.dense(p["wv"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    if positions.ndim != 2:
-        raise NotImplementedError("M-RoPE position streams are not ported yet")
-    q_pos = positions
+    # M-RoPE's (3, B, S) streams: causal masking follows the temporal one
+    q_pos = positions if positions.ndim == 2 else positions[0]
     q = _positions_rope(cfg, q, positions)
     k = _positions_rope(cfg, k, positions)
 

@@ -1,4 +1,5 @@
-"""Shared decoder-LM layers: dense, norms, RoPE, MLP variants.
+"""Shared decoder-LM layers: dense, norms, position encodings (RoPE,
+M-RoPE, sinusoidal), MLP variants.
 
 Plain init/apply pairs over dicts of tensors, as in the JAX package, with
 its layouts: activations (B, S, D), a dense weight (d_in, d_out) applied as
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,6 +26,8 @@ __all__ = [
     "apply_norm",
     "rope_freqs",
     "apply_rope",
+    "apply_mrope",
+    "sinusoidal_positions",
     "sigmoid",
     "silu",
     "gelu_tanh",
@@ -111,6 +114,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     inv = rope_freqs(x.shape[-1], theta, device=x.device)  # (hd/2,)
     ang = positions.float()[..., None] * inv  # (B, S, hd/2)
     return _rotate(x, ang[:, :, None, :])
+
+
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: Tuple[int, int, int]
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL §2.1): the hd/2 frequency slots are split
+    into (t, h, w) sections, each rotated by its own position stream.
+
+    x: (B, S, H, hd); positions: (3, B, S) int — temporal, height, width.
+    For text all three streams are equal and M-RoPE is RoPE."""
+    d2 = x.shape[-1] // 2
+    if sum(sections) != d2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim / 2 = {d2}")
+    if positions.ndim != 3 or positions.shape[0] != 3:
+        raise ValueError(f"M-RoPE positions must be (3, B, S), got {tuple(positions.shape)}")
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)  # (hd/2,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=x.device)
+    pos_per_slot = positions.float()[sec_id]  # (hd/2, B, S)
+    ang = pos_per_slot.movedim(0, -1) * inv  # (B, S, hd/2)
+    return _rotate(x, ang[:, :, None, :])
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoidal absolute embeddings (musicgen), fp32: the sines of
+    positions · exp(−log(10⁴) · i / half), then their cosines.
+    positions: (B, S) -> (B, S, d_model)."""
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10_000.0, device=positions.device))
+    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ----------------------------------------------------------------- MLPs

@@ -1,11 +1,19 @@
-"""Composable decoder transformer: the dense ``attn+mlp`` family and the
-RWKV-6 ``rwkv+cmix`` family.
+"""Composable decoder transformer covering every arch of the registry.
 
 A model is a ``block_pattern``, a repeating unit of "mixer+ffn" layer specs
-(``cfg.layer_types()``).  The port runs the attention mixers (``attn``,
-``swa``, ``local``) with the ``mlp`` FFN, and the ``rwkv`` time mix with
-the ``cmix`` channel mix; ``moe`` and ``rglru`` raise
-``NotImplementedError`` until their slice lands.
+(``cfg.layer_types()``):
+
+    mixers:  attn (full GQA) | swa (window=cfg.window) |
+             local (window=cfg.local_window) | rglru | rwkv
+    ffns:    mlp | moe | cmix (with rwkv)
+
+e.g. granite ("attn+mlp",); mixtral ("swa+moe",); llama4 ("attn+mlp",
+"attn+moe"); recurrentgemma ("rglru+mlp", "rglru+mlp", "local+mlp");
+rwkv6 ("rwkv+cmix",).  Positions are (B, S), or (3, B, S) M-RoPE streams
+for ``pos_style="mrope"`` (qwen2-vl); ``sinusoidal`` (musicgen) adds
+absolute embeddings at the input.  ``forward``, ``lm_loss`` and
+``features`` take precomputed ``embeds`` (B, S, D) in place of tokens: the
+VLM and audio frontends are stubs that feed them, as in the JAX package.
 
 Parameters are a plain dict: ``embed.w`` (V_pad, D), ``final_norm``,
 ``lm_head.w`` (D, V_pad) when the embeddings are untied, and ``blocks``,
@@ -16,13 +24,16 @@ Caches keep the JAX package's layer-stacked layout (``init_caches``):
 ``{"unit": (cache of one pattern entry with every leaf stacked (reps, ...),
 ...), "rem": (per-layer caches, ...)}``.  An attention layer's cache is
 ``{"k","v": (B, slots, Hk, hd), "pos"}``, an RWKV layer's ``{"tm_x",
-"wkv", "cm_x", "pos"}`` (``pos: ()`` or ``(B,)``).  ``forward`` hands each
+"wkv", "cm_x", "pos"}``, an RG-LRU layer's ``{"conv", "h", "pos"}``
+(``pos: ()`` or ``(B,)``).  ``forward`` hands each
 layer a view of its row and the layers write their tensors in place; the
 returned caches share those tensors and carry new positions.
 
 ``use_flash`` routes attention through K5/K6 (``attention.py``) and the
 RWKV time mix through K7 at every prefill and decode step
-(``rwkv6.apply_rwkv_tmix(use_kernel=True)``).  The JAX package's model
+(``rwkv6.apply_rwkv_tmix(use_kernel=True)``).  The MoE FFN and the RG-LRU
+mixer reach no kernel, as in the JAX package, and neither do windowed
+attention layers (``swa``, ``local``).  The JAX package's model
 path never sets ``use_kernel`` (its transformer calls the time mix
 without it); the port routes it from the same switch, and with
 ``use_flash=False`` computes exactly what JAX's path computes.
@@ -39,6 +50,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
 __all__ = [
@@ -52,23 +65,25 @@ __all__ = [
     "vocab_padded",
     "lm_loss",
     "features",
+    "mrope_streams",
 ]
 
 ATTN_MIXERS = ("attn", "swa", "local")
+MIXERS = ATTN_MIXERS + ("rglru", "rwkv")
+FFNS = ("mlp", "moe", "cmix")
 
 
 def _parse(btype: str) -> Tuple[str, str]:
     mixer, ffn = btype.split("+")
-    if not ((mixer in ATTN_MIXERS and ffn == "mlp") or (mixer, ffn) == ("rwkv", "cmix")):
-        raise NotImplementedError(
-            f"block {btype!r}: the port runs attn/swa/local mixers with mlp FFNs and "
-            "rwkv with cmix; moe and rglru come later (ROADMAP Queue 1, Slice 2 item 8)"
+    if mixer not in MIXERS or ffn not in FFNS or (ffn == "cmix") != (mixer == "rwkv"):
+        raise ValueError(
+            f"block {btype!r}: mixers are {MIXERS}, FFNs {FFNS}, and cmix goes with rwkv"
         )
     return mixer, ffn
 
 
 def _mixer_window(cfg: ModelConfig, mixer: str) -> Optional[int]:
-    return {"attn": None, "swa": cfg.window, "local": cfg.local_window}[mixer]
+    return {"attn": None, "swa": cfg.window, "local": cfg.local_window}.get(mixer)
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -79,13 +94,19 @@ def vocab_padded(cfg: ModelConfig) -> int:
 
 
 def _init_block(generator: torch.Generator, cfg: ModelConfig, btype: str, device) -> Dict:
-    mixer, _ = _parse(btype)
+    mixer, ffn = _parse(btype)
     p = {"norm1": L.init_norm(cfg, device), "norm2": L.init_norm(cfg, device)}
     if mixer == "rwkv":
         p["mixer"] = rwkv_mod.init_rwkv_tmix(generator, cfg, device)
-        p["ffn"] = rwkv_mod.init_rwkv_cmix(generator, cfg, device)
+    elif mixer == "rglru":
+        p["mixer"] = rglru_mod.init_rglru(generator, cfg, device)
     else:
         p["mixer"] = attn_mod.init_attention(generator, cfg, device)
+    if ffn == "cmix":
+        p["ffn"] = rwkv_mod.init_rwkv_cmix(generator, cfg, device)
+    elif ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(generator, cfg, device)
+    else:
         p["ffn"] = L.init_mlp(generator, cfg, device)
     return p
 
@@ -95,8 +116,10 @@ def init_params(
 ) -> Dict:
     """Random parameters from ``generator`` (which must live on ``device``):
     embeddings N(0, 0.02²), dense weights N(0, 1/d_in), norms 1, the RWKV
-    mixes by the JAX package's laws (``rwkv6.init_rwkv_tmix``).  Leaves
-    are in ``cfg.param_dtype`` except RWKV's ``w0`` and ``u``, fp32."""
+    mixes, MoE experts and RG-LRU blocks by the JAX package's laws
+    (``rwkv6.init_rwkv_tmix``, ``moe.init_moe``, ``rglru.init_rglru``).
+    Leaves are in ``cfg.param_dtype`` except RWKV's ``w0`` and ``u``, the
+    MoE router and RG-LRU's ``lam``, fp32."""
     device = resolve_device(device)
     dtype = L.torch_dtype(cfg.param_dtype)
     v = vocab_padded(cfg)
@@ -115,7 +138,8 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig, device=None) -> Dict:
     Layer ``r * len(pattern) + j`` of the unit part is
     ``np_params["unit"][j][...][r]``; the ``rem`` blocks follow.  Dense
     weights keep JAX's (d_in, d_out) layout, and every leaf keeps its own
-    dtype (RWKV's ``w0`` and ``u`` are fp32 in a bf16 model)."""
+    dtype (RWKV's ``w0`` and ``u``, the MoE router's ``w`` and RG-LRU's
+    ``lam`` are fp32 in a bf16 model)."""
     device = resolve_device(device)
 
     def conv(tree):
@@ -150,7 +174,7 @@ def init_caches(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Dict:
     """Zeroed, layer-stacked caches: KV caches for attention layers, RWKV
-    states for RWKV layers.  ``per_slot=True`` carries one position per
+    and RG-LRU states for their layers.  ``per_slot=True`` carries one position per
     batch row (``pos: (B,)`` in each layer), the serving engine's layout;
     otherwise one shared scalar position."""
     device = resolve_device(device)
@@ -161,6 +185,8 @@ def init_caches(
         mixer, _ = _parse(btype)
         if mixer == "rwkv":  # constant in cache_len
             return rwkv_mod.init_rwkv_state(cfg, batch, per_slot=per_slot, device=device)
+        if mixer == "rglru":  # constant in cache_len
+            return rglru_mod.init_rglru_state(cfg, batch, per_slot=per_slot, device=device)
         return attn_mod.init_cache(
             cfg, batch, cache_len, _mixer_window(cfg, mixer), per_slot=per_slot, device=device
         )
@@ -177,34 +203,45 @@ def init_caches(
 def _apply_block(
     cfg: ModelConfig, p: Dict, btype: str, x: torch.Tensor, positions: torch.Tensor,
     cache: Optional[Dict], use_flash: bool,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    mixer, _ = _parse(btype)
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """-> (x, the layer's new cache, the MoE aux loss (0 for other FFNs))."""
+    mixer, ffn = _parse(btype)
     h = L.apply_norm(cfg, p["norm1"], x)
     if mixer == "rwkv":
         y, new_cache = rwkv_mod.apply_rwkv_tmix(cfg, p["mixer"], h, cache, use_kernel=use_flash)
+    elif mixer == "rglru":
+        y, new_cache = rglru_mod.apply_rglru(cfg, p["mixer"], h, cache)
     else:
         y, new_cache = attn_mod.apply_attention(
             cfg, p["mixer"], h, positions, cache, _mixer_window(cfg, mixer), use_flash
         )
     x = x + y
     h = L.apply_norm(cfg, p["norm2"], x)
-    if mixer == "rwkv":  # cmix shares the rwkv state dict
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "cmix":  # cmix shares the rwkv state dict
         y, new_cache = rwkv_mod.apply_rwkv_cmix(cfg, p["ffn"], h, new_cache)
+    elif ffn == "moe":
+        y, aux = moe_mod.apply_moe(cfg, p["ffn"], h)
     else:
         y = L.apply_mlp(cfg, p["ffn"], h)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
-def _embed_in(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.pos_style not in ("rope", "none"):
-        raise NotImplementedError(
-            f"pos_style={cfg.pos_style!r} is not ported yet (ROADMAP Queue 1, Slice 2 item 8)"
-        )
+def _embed_in(
+    cfg: ModelConfig, params: Dict, tokens: Optional[torch.Tensor], positions: torch.Tensor,
+    embeds: Optional[torch.Tensor],
+) -> torch.Tensor:
     dtype = L.torch_dtype(cfg.dtype)
-    x = params["embed"]["w"][tokens].to(dtype)
+    if embeds is not None:
+        x = embeds.to(dtype)
+    else:
+        x = params["embed"]["w"][tokens].to(dtype)
     if cfg.embed_scale:
         # the factor is rounded to the activation dtype first, as in JAX
         x = x * float(torch.tensor(cfg.d_model**0.5, dtype=dtype))
+    if cfg.pos_style == "sinusoidal":
+        pos = positions if positions.ndim == 2 else positions[0]
+        x = x + L.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
     return x
 
 
@@ -220,27 +257,32 @@ def _layer_cache(caches: Dict, cfg: ModelConfig, layer: int) -> Dict:
 def forward(
     cfg: ModelConfig,
     params: Dict,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor],
     positions: torch.Tensor,
     caches: Optional[Dict] = None,
+    embeds: Optional[torch.Tensor] = None,
     use_flash: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """-> (final hidden (B, S, D), new caches, total aux loss (0 for the
-    dense and RWKV families)).  With caches, each layer's tensors are
-    written in place (module docstring)."""
-    x = _embed_in(cfg, params, tokens)
+    """-> (final hidden (B, S, D), new caches, total aux loss).  The aux
+    loss is the MoE layers' sum, in layer order, on the no-cache path, and
+    0 with caches, as in JAX.  ``embeds`` (B, S, D) replaces the token
+    embeddings.  With caches, each layer's tensors are written in place
+    (module docstring)."""
+    x = _embed_in(cfg, params, tokens, positions, embeds)
     layer_types = cfg.layer_types()
     new_pos: List[torch.Tensor] = []
     new_rem: List[Dict] = []
     reps = cfg.num_layers // len(cfg.block_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, btype) in enumerate(zip(params["blocks"], layer_types)):
         cache = None if caches is None else _layer_cache(caches, cfg, i)
-        x, nc = _apply_block(cfg, p, btype, x, positions, cache, use_flash)
-        if caches is not None:
-            if i < reps * len(cfg.block_pattern):
-                new_pos.append(nc["pos"])
-            else:
-                new_rem.append(nc)
+        x, nc, a = _apply_block(cfg, p, btype, x, positions, cache, use_flash)
+        if caches is None:
+            aux = aux + a
+        elif i < reps * len(cfg.block_pattern):
+            new_pos.append(nc["pos"])
+        else:
+            new_rem.append(nc)
     new_caches = None
     if caches is not None:
         n = len(cfg.block_pattern)
@@ -250,7 +292,7 @@ def forward(
         )
         new_caches = {"unit": unit, "rem": tuple(new_rem)}
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_caches, aux
 
 
 def _head_weight(cfg: ModelConfig, params: Dict) -> torch.Tensor:
@@ -283,8 +325,19 @@ def decode_step(
         positions = pos[:, None].to(torch.int32)
     else:
         positions = pos.to(torch.int32).expand(b, 1)
-    hidden, new_caches, _ = forward(cfg, params, tokens, positions, caches, use_flash=use_flash)
+    hidden, new_caches, _ = forward(
+        cfg, params, tokens, mrope_streams(cfg, positions), caches, use_flash=use_flash
+    )
     return logits_from_hidden(cfg, params, hidden), new_caches
+
+
+def mrope_streams(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """Positions as the model takes them: (B, S) positions of an ``mrope``
+    model become its three M-RoPE streams (3, B, S), equal for text;
+    anything else is returned as it is."""
+    if cfg.pos_style == "mrope" and positions.ndim == 2:
+        return positions[None].expand((3,) + tuple(positions.shape))
+    return positions
 
 
 def _cache_pos(caches: Dict) -> torch.Tensor:
@@ -327,17 +380,18 @@ def lm_loss(
     routes attention through K6 and the RWKV time mix through K7, both
     forward-only.  ``cfg.remat`` is
     not applied: at the sizes the port runs, the activations of a pass fit
-    on the card.  ``embeds`` (the VLM/audio frontends) raises until those
-    archs are ported."""
-    if embeds is not None:
-        raise NotImplementedError(
-            "lm_loss(embeds=...) belongs to the VLM/audio archs, which are not ported yet "
-            "(ROADMAP Queue 1, Slice 2 item 8)"
-        )
-    b, s = tokens.shape
+    on the card.  The VLM and audio frontends pass ``embeds`` (B, S, D)
+    and ``targets`` in place of tokens.  The MoE layers' aux loss is
+    added."""
+    if tokens is None and (embeds is None or targets is None):
+        raise ValueError("lm_loss takes tokens, or embeds with targets")
+    x = tokens if tokens is not None else embeds
+    b, s = x.shape[:2]
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    hidden, _, aux = forward(cfg, params, tokens, positions, use_flash=use_flash)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    hidden, _, aux = forward(
+        cfg, params, tokens, mrope_streams(cfg, positions), embeds=embeds, use_flash=use_flash
+    )
     h_in = hidden[:, :-1]
     if targets is None:
         targets = tokens[:, 1:]
@@ -361,11 +415,18 @@ def lm_loss(
     return total / (b * n) + aux
 
 
-def features(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def features(
+    cfg: ModelConfig,
+    params: Dict,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits of the last position (B, 1, V_pad), mean final hidden (B, D))
     — the FL data profile of an LM client, at positions 0 .. S - 1.  Plain
-    attention, as in the JAX package."""
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    hidden, _, _ = forward(cfg, params, tokens, positions)
+    attention, as in the JAX package.  ``embeds`` (B, S, D) replaces the
+    tokens."""
+    x = tokens if tokens is not None else embeds
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    hidden, _, _ = forward(cfg, params, tokens, mrope_streams(cfg, positions), embeds=embeds)
     return logits_from_hidden(cfg, params, hidden[:, -1:]), hidden.mean(dim=1)

@@ -3,16 +3,18 @@
 The JAX package's engine as PyTorch code that runs eagerly:
 
 * :class:`DecodeState` holds everything a slot batch evolves: per-slot
-  model caches (``init_caches(..., per_slot=True)``: KV caches or RWKV
-  states, every slot at its own depth), the last sampled token, the generated-token buffer, per-slot
+  model caches (``init_caches(..., per_slot=True)``: KV caches, RWKV or
+  RG-LRU states, every slot at its own depth), the last sampled token, the generated-token buffer, per-slot
   counters and budgets, the active and occupancy masks, and one sampling
   ``torch.Generator`` per slot.
 * :func:`make_decode_fn` is one decode step for all slots: the model's
   ``decode_step`` (through K5 or K7 with ``use_flash``), per-slot
   sampling, stop handling and the masked token write.  Inactive slots run
   the model too, on token 0, with their tokens and counters masked; their
-  caches keep advancing (a KV cache wraps, an RWKV state takes the token
-  in), and admission overwrites every row of the slot.
+  caches keep advancing (a KV cache wraps, an RWKV or RG-LRU state takes
+  the token in), and admission overwrites every row of the slot.  Idle
+  slots also take MoE capacity, so they decide, as in JAX, which active
+  tokens an expert drops.
 * :func:`run_scan` and :func:`run_while` loop the step: a fixed count, or
   until every slot has stopped.
 * :func:`make_admit_fn` prefills one queued sequence into a width-1
@@ -195,8 +197,9 @@ def run_while(decode_fn: Callable, params: Dict, state: DecodeState, max_steps: 
 
 
 def _scatter_caches(dst: Dict, src: Dict, slot: int) -> None:
-    """Copy every leaf of the width-1 caches ``src`` (k/v, or an RWKV
-    layer's tm_x/wkv/cm_x, and pos) into row ``slot`` of ``dst``: unit
+    """Copy every leaf of the width-1 caches ``src`` (k/v, an RWKV layer's
+    tm_x/wkv/cm_x or an RG-LRU layer's conv/h, and pos) into row ``slot``
+    of ``dst``: unit
     leaves are layer-stacked (reps, B, ...), so the batch is axis 1;
     remainder leaves lead with B."""
     for d, s in zip(dst["unit"], src["unit"]):
@@ -232,7 +235,7 @@ def make_admit_fn(cfg: ModelConfig, scfg: ServeConfig, prompt_len: int) -> Calla
 
         device = prompt.device
         caches1 = T.init_caches(cfg, 1, scfg.cache_len, per_slot=True, device=device)
-        positions = torch.arange(prompt_len, dtype=torch.int32, device=device)[None, :]
+        positions = T.mrope_streams(cfg, torch.arange(prompt_len, dtype=torch.int32, device=device)[None, :])
         hidden, caches1, _ = T.forward(cfg, params, prompt, positions, caches1, use_flash=scfg.use_flash)
         logits = T.logits_from_hidden(cfg, params, hidden[:, -1:])
         tok = sample_tokens(logits, scfg.temperature, slot_noise(logits, scfg.temperature, [generator]))

@@ -417,6 +417,32 @@ def test_flash_decode_split_kv_matches_plain(card, b, s, h, hk, hd, dtype, lengt
     _check_decode(got, fd_ref.decode_attention_ref(q, k, v, ln), ln)
 
 
+@pytest.mark.parametrize(
+    "h,hk,hd",
+    [(12, 2, 128), (24, 24, 64), (40, 8, 128)],
+    ids=["qwen2-vl-2b", "musicgen-medium", "llama4-maverick"],
+)
+@pytest.mark.parametrize("lengths", ["full", "ragged"])
+def test_flash_decode_at_the_new_archs_decode_shapes(card, h, hk, hd, lengths):
+    """K5 at the serving shapes of the archs of the last model slice, bf16,
+    B = 16 and S = 192 (prompt 128 and 64 generated): GQA groups of 6 and 5
+    (run as padded groups of 8) and MHA (groups of 1); every slot full,
+    and ragged with an empty and a full slot."""
+    b, s = 16, 192
+    q, k, v = _qkv(b, s, h, hk, hd, torch.bfloat16, card, seed=h + hd)
+    if lengths == "full":
+        lengths = [s] * b
+    else:
+        gen = torch.Generator().manual_seed(3)
+        lengths = [0, s] + [int(x) for x in torch.randint(1, s, (b - 2,), generator=gen)]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = _build.LAUNCHES["flash_decode"]
+    got = fd_ops.flash_decode(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_decode"] == before + 1
+    _check_decode(got, fd_ref.decode_attention_ref(q, k, v, ln), ln)
+
+
 def test_flash_decode_all_empty_batch_is_zero(card):
     """Every split of every row empty: the merge gives zeros."""
     q, k, v = _qkv(4, 512, 15, 5, 64, torch.bfloat16, card)
@@ -468,6 +494,37 @@ def test_decode_step_with_flash_launches_k5_once_per_layer(card):
         torch.cuda.synchronize()
         assert _build.LAUNCHES["flash_decode"] - before == (cfg.num_layers if use_flash else 0)
     # fp32 attention summed in another order, carried through the layers
+    scale = float(logits[False].abs().max())
+    torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize(
+    "arch", ["qwen2-vl-2b", "musicgen-medium", "llama4-maverick-400b-a17b", "mixtral-8x7b", "recurrentgemma-9b"]
+)
+def test_new_archs_decode_through_k5_once_per_window_free_layer(card, arch):
+    """The archs of the last model slice, reduced in fp32: a decode step with
+    ``use_flash`` launches K5 once per attention layer without a window
+    (every layer of qwen2-vl, musicgen and llama4; none of mixtral's SWA
+    layers or recurrentgemma's RG-LRU and local layers) and gives the plain
+    step's logits."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as T
+
+    cfg, params = tserve.build_model(arch, 0, device=card)
+    b, p = 3, 5
+    toks = torch.randint(0, cfg.vocab_size, (b, p), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(torch.int32).to(card)
+    pos = T.mrope_streams(cfg, torch.arange(p, dtype=torch.int32, device=card)[None].expand(b, p))
+    window_free = sum(bt.split("+")[0] == "attn" for bt in cfg.layer_types())
+    logits = {}
+    for use_flash in (False, True):
+        caches = T.init_caches(cfg, b, p + 2, per_slot=True, device=card)
+        _, caches, _ = T.forward(cfg, params, toks, pos, caches)
+        before = dict(_build.LAUNCHES)
+        logits[use_flash], _ = T.decode_step(cfg, params, toks[:, -1:], caches, use_flash=use_flash)
+        torch.cuda.synchronize()
+        ran = {n: _build.LAUNCHES[n] - before[n] for n in before}
+        assert ran == {n: (window_free if use_flash and n == "flash_decode" else 0) for n in before}
     scale = float(logits[False].abs().max())
     torch.testing.assert_close(logits[True], logits[False], rtol=1e-4, atol=1e-4 * scale)
 

@@ -206,8 +206,11 @@ def test_lm_loss_soft_cap_and_explicit_targets_match_jax():
     got = tT.lm_loss(tcfg, tp, torch.from_numpy(toks), positions=torch.from_numpy(pos),
                      targets=torch.from_numpy(tgt))
     np.testing.assert_allclose(float(got), float(want), **TOL)
-    with pytest.raises(NotImplementedError, match="VLM/audio"):
-        tT.lm_loss(tcfg, tp, embeds=torch.zeros(2, 12, tcfg.d_model))
+    # the VLM/audio frontends' path: embeddings and targets in place of tokens
+    emb = np.random.default_rng(36).normal(scale=0.05, size=(2, 12, tcfg.d_model)).astype(np.float32)
+    want = jT.lm_loss(jcfg, jp, embeds=jnp.asarray(emb), targets=jnp.asarray(tgt), loss_chunk=7)
+    got = tT.lm_loss(tcfg, tp, embeds=torch.from_numpy(emb), targets=torch.from_numpy(tgt), loss_chunk=7)
+    np.testing.assert_allclose(float(got), float(want), **TOL)
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma-7b"])

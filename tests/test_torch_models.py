@@ -28,7 +28,6 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 
 from repro_torch.configs import ARCH_NAMES, get_arch  # noqa: E402
-from repro_torch.configs.registry import NOT_PORTED  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tflash  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tflash_ref  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -75,11 +74,14 @@ def test_dense_configs_are_the_jax_configs(arch):
         assert (full_t.q_dim, full_t.kv_dim) == (full_j.q_dim, full_j.kv_dim)
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_get_arch_refuses_archs_not_ported(arch):
-    assert arch in ARCH_NAMES
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        get_arch(arch)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_get_arch_gives_every_arch_the_jax_config(arch):
+    """All ten archs: the port's ``ModelConfig`` equals JAX's field by
+    field, at full width and reduced, with the same layer types."""
+    jm, tm = jget_arch(arch).model, get_arch(arch).model
+    for full_j, full_t in ((jm, tm), (jm.reduced(), tm.reduced())):
+        assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j), arch
+        assert full_t.layer_types() == full_j.layer_types()
 
 
 # --------------------------------------------------------------- layers
@@ -517,10 +519,16 @@ def test_init_params_layout_and_scale():
     assert tT.vocab_padded(get_arch("granite-3-2b").model) == 49_280
 
 
-def test_unported_blocks_and_training_path_raise():
-    _, tcfg = _cfgs("smollm-360m", block_pattern=("attn+moe",))
-    with pytest.raises(NotImplementedError, match="moe"):
+def test_moe_and_rglru_blocks_initialise():
+    """``moe`` FFNs and ``rglru`` mixers get their parameters and caches;
+    an unknown block type raises."""
+    _, tcfg = _cfgs("smollm-360m", block_pattern=("attn+moe", "rglru+mlp"), num_experts=4,
+                    experts_per_token=2, rnn_width=128)
+    tp = tT.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    assert tp["blocks"][0]["ffn"]["wi"].shape == (4, tcfg.d_model, tcfg.d_ff)
+    assert tp["blocks"][1]["mixer"]["w_r"]["w"].shape == (128, 128)
+    caches = tT.init_caches(tcfg, 1, 4, device="cpu")
+    assert set(caches["unit"][0]) == {"k", "v", "pos"} and set(caches["unit"][1]) == {"conv", "h", "pos"}
+    _, tcfg = _cfgs("smollm-360m", block_pattern=("attn+cmix",))
+    with pytest.raises(ValueError, match="cmix goes with rwkv"):
         tT.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    _, tcfg = _cfgs("smollm-360m", block_pattern=("rglru+mlp",))
-    with pytest.raises(NotImplementedError, match="rglru"):
-        tT.init_caches(tcfg, 1, 4, device="cpu")

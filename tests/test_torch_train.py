@@ -25,7 +25,7 @@ from repro.launch import train as jtrain  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 
 from repro_torch import optim as toptim  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, get_arch  # noqa: E402
 from repro_torch.core import selection as tsel  # noqa: E402
 from repro_torch.data import make_token_dataset  # noqa: E402
 from repro_torch.fl import engine as tengine  # noqa: E402
@@ -361,6 +361,18 @@ def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 def test_launcher_refuses_flags_not_ported(mode, flag, value):
     with pytest.raises(NotImplementedError, match=f"{flag} .ROADMAP Queue 1 item"):
         ttrain.main(["--mode", mode, flag, value, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", sorted(ttrain.NOT_TRAINED))
+@pytest.mark.parametrize("mode", ["fl", "pretrain"])
+def test_launcher_refuses_the_archs_it_does_not_train_yet(mode, arch):
+    """The five archs the port serves but does not train yet: both modes
+    refuse them, naming ROADMAP Queue 1 item 8; their configs and
+    optimizers are JAX's."""
+    assert arch in ARCH_NAMES and get_arch(arch).optimizer == jget_arch(arch).optimizer
+    assert get_arch(arch).fl.lr == jget_arch(arch).fl.lr
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        ttrain.main(["--mode", mode, "--arch", arch, "--rounds", "1", "--steps", "1", "--device", "cpu"])
 
 
 def test_flash_in_pretrain_raises():
