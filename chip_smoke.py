@@ -96,6 +96,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    loss and GEMD are finite, and holds the refresh through K6 against the
    same refresh without it (losses, and the final hidden states with a
    control that breaks the bound).
+5b. The LM client path and pretrain of the six later archs, each through
+   the launcher's ``main`` (``TRAIN_PATHS``), each model freed before the
+   next is built: ``--mode fl --flash`` (10 clients, 4 a round, 16 docs of
+   128 tokens, 1 round of 2 local steps of 4) and ``--mode pretrain`` (2
+   steps of 4 x 128, the arch's optimizer as JAX steps it):
+   rwkv6-7b cut to 8 layers (K7 on the refresh), qwen2-vl-2b and
+   musicgen-medium whole (K6), recurrentgemma-9b cut to 6 layers and
+   mixtral-8x7b to 1 (no kernel: their attention layers have windows),
+   llama4-maverick's reduced fp32 config (K6's fp32 kernel).  The checks
+   of phase 5: launches exact (K6 once per window-free attention layer and
+   K7 once per RWKV layer of each refresh forward, K1 and K2 once, nothing
+   in a gradient pass or in pretrain), cohorts, finite losses, GEMDs and
+   params, the eq.-14 kernel against the plain chain, and the refresh
+   through the kernel against the same refresh without it, with controls
+   that must break the bound (K6 through a 64-position window, and for
+   musicgen also positions half a sequence deep; K7 without its bonus u,
+   bounded by three bf16 witnesses without K7, one of them K7's own
+   arithmetic taken in torch, by the plain bf16 path's distance from the
+   fp32 model, and on an fp32 copy).  Prints
+   each run's seconds, per-round split, peak memory beside its reckoning,
+   the peak of one local step with and without remat, and pretrain tok/s.
 6. The RWKV-6 serving path: rwkv6-7b at full width (32 layers, d_model
    4096, 64 WKV heads of 64, bf16, random weights from seed 0) with
    ``use_flash=True``, in scan mode and through ``ServeEngine`` as in 4;
@@ -106,8 +127,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    far correct bf16 paths part, and K7's bf16 logits are held to them.  The
    continuous tokens are held on an engine over the fp32 copy.
 6b. The five archs of the last model slice, served as in 4 through the
-   launcher's ``build_model`` at full width (the depth-cut ones through
-   ``init_params`` on the cut config), each freed before the next
+   launchers' ``build_model`` at full width (the depth-cut ones with its
+   ``layers``), each freed before the next
    loads: qwen2-vl-2b (M-RoPE, all 28 layers) and musicgen-medium
    (sinusoidal positions, all 48) through K5, recurrentgemma-9b (RG-LRU
    and local attention, all 38) through no kernel, mixtral-8x7b (every
@@ -126,12 +147,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``FP32_SKIPPED``) with the byte count that rules it out; for any other
    arch a copy that does not fit fails the run.
 7. Prints, for each shape a path gives K1 or K3, each shape the RWKV
-   path gave K7 and each new arch's decode shape of K5, its launches
-   there beside that shape's cold device time
-   and bound (K1 and K3 also their plan and library time); then one JSON line
-   describing every kernel (K1 and K2 also at the funnel's shape and at the
-   unfunnelled init's C = 4,096, and K5 at the three new decode shapes),
-   then the
+   path gave K7, each new arch's decode shape of K5 and each refresh shape
+   of K6 in phase 5b, its launches there beside that shape's cold device
+   time and bound (K1 and K3 also their plan and library time); then one
+   JSON line describing every kernel (K1 and K2 also at the funnel's shape
+   and at the unfunnelled init's C = 4,096, K5 at the three new decode
+   shapes, and K1, K6 and K7 at phase 5b's shapes), then the
    device line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -159,13 +180,17 @@ PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 FLUSH_BYTES = 256 << 20
 
 ROUNDS = 5
+# K1 at the inits of phase 5b: the profiles' widths (qwen2-vl-2b and
+# musicgen-medium, rwkv6-7b, recurrentgemma-9b and mixtral-8x7b, llama4's
+# reduced config)
+TRAIN_K1_SHAPES = [(10, 1536, "fp32"), (10, 4096, "fp32"), (10, 256, "fp32")]
 SHAPES = [  # (C, Q, dtype name): the FL main path's shape first, then the LM path's
     (100, 128, "fp32"),
     (10, 960, "fp32"),
     (1000, 700, "fp32"),
     (4096, 128, "fp32"),
     (513, 257, "bf16"),
-]
+] + TRAIN_K1_SHAPES
 # K5: (B, S, H, Hk, hd, dtype name, lengths); None = ragged with an empty
 # and a full slot; "full" = every slot at S.  The serving path's shape first.
 DECODE_SHAPES = [
@@ -234,6 +259,15 @@ ATTN_SHAPES = [
     (1, 128, 4, 1, 64, "fp32", 32),
     (1, 32, 2, 2, 8, "fp32", None),
 ]
+# K6 at the refresh of phase 5b (16 docs of 128 tokens): qwen2-vl-2b and
+# musicgen-medium in bf16, llama4-maverick's reduced config in fp32; their
+# device time is also taken cold, as the refresh finds its inputs
+TRAIN_ATTN_SHAPES = [
+    (16, 128, 12, 2, 128, "bf16", None),
+    (16, 128, 24, 24, 64, "bf16", None),
+    (16, 128, 4, 2, 64, "fp32", None),
+]
+ATTN_SHAPES += TRAIN_ATTN_SHAPES
 # K7: (B, T, H, hd, dtype name, decays); rwkv6-7b's decode step first,
 # then its prefill of one admitted request and of the scan batch.  Decays:
 # None = the JAX test's (fp32) or the model's law (bf16); "edge" = the
@@ -281,6 +315,27 @@ PRETRAIN_STEPS = 6
 # before the first run (PERF.md): per-client losses, and the relative
 # Frobenius distance of the final hidden states of one refresh batch
 LM_LOSS_BOUND, LM_HIDDEN_BOUND, CONTROL_WINDOW = 2e-3, 0.03, 64
+# phase 5b: the LM client path and pretrain of the six archs of the last
+# model slice through the launcher, one model at a time; arch -> (the
+# launcher's depth flags, the kernel its refresh takes or None).  Depth is
+# cut where a round's C_p updated copies do not fit the card (PERF.md §4):
+# rwkv6-7b to 8 of 32 layers, recurrentgemma-9b to 6 of 38 (two units of
+# its pattern), mixtral-8x7b to 1 of 32; llama4-maverick trains its
+# reduced fp32 config, as the JAX launcher does, since one full-width MoE
+# layer with its gradients and copies does not fit one card
+TRAIN_PATHS = {
+    "rwkv6-7b": (["--full-width", "--layers", "8"], "wkv6"),
+    "qwen2-vl-2b": (["--full-width"], "flash_attention"),
+    "musicgen-medium": (["--full-width"], "flash_attention"),
+    "recurrentgemma-9b": (["--full-width", "--layers", "6"], None),
+    "mixtral-8x7b": (["--full-width", "--layers", "1"], None),
+    "llama4-maverick-400b-a17b": ([], "flash_attention"),
+}
+# one round and two pretrain steps: the phase took 185.7 s with two rounds
+# and three steps on a slow host, past the script's budget of ~800 s
+# (PERF.md §6), and rwkv6-7b's plain scan under autograd (2.5 s a local
+# step) is most of it
+TRAIN_ROUNDS, TRAIN_SEQ, TRAIN_PRETRAIN_STEPS = 1, 128, 2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -447,6 +502,7 @@ def serve_phase(torch, dev, arch: str):
 
     import numpy as np
 
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import layers as L
@@ -456,13 +512,9 @@ def serve_phase(torch, dev, arch: str):
 
     t_phase = time.perf_counter()
     kernel, label, at_prefill, width, depth, strict = SERVE_PATHS[arch]
-    published = serve_launch.get_arch(arch).model.num_layers
-    if depth == published:
-        cfg, params = serve_launch.build_model(arch, 0, full_width=True, device=dev)
-    else:
-        # the launcher's builder on the config cut to ``depth`` layers
-        cfg = dataclasses.replace(serve_launch.get_arch(arch).model, num_layers=depth)
-        params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    published = get_arch(arch).model.num_layers
+    cfg, params = serve_launch.build_model(arch, 0, full_width=True, device=dev,
+                                           layers=None if depth == published else depth)
     torch.cuda.synchronize()
     check((cfg.num_layers, cfg.d_model, cfg.dtype) == (depth, width, "bfloat16"), f"not full width: {cfg}")
     layers = cfg.num_layers
@@ -1837,7 +1889,6 @@ def lm_phase(torch, dev) -> int:
 
     import numpy as np
 
-    from repro_torch import optim
     from repro_torch.configs import get_arch
     from repro_torch.core import similarity
     from repro_torch.fl import rounds
@@ -1985,12 +2036,367 @@ def lm_phase(torch, dev) -> int:
           f"{steady:.1f} tok/s over steps {first['step'] + 1}-{end['step']} "
           f"(first step {first['seconds']:.3f} s)")
     # one more step of the same construction under the profiler
-    opt = getattr(optim, spec.optimizer)(1e-3)
+    opt = train_launch.pretrain_optimizer(cfg, spec.optimizer, 1e-3)
     step = rounds.build_fedsgd_step(lambda p, b: T.lm_loss(cfg, p, b["tokens"]), opt, grad_clip=1.0)
     batch = {"tokens": xs[:, :1].reshape(-1, LM_SEQ)[:4]}
     _print_profile(torch, f"one pretrain step (4 x {LM_SEQ} tokens, Adam)",
                    lambda: step(pre_params, pre_state, batch), "flash_attention")
     return launches["flash_attention"]
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def train_phase(torch, dev, arch: str) -> dict:
+    """Phase 5b for one arch: ``--mode fl --flash`` and ``--mode pretrain``
+    through the launcher's ``main`` at the depth of ``TRAIN_PATHS``, with
+    the checks of phase 5 (g) and (h); returns the kernels' launches on the
+    FL run, the phase's seconds and its profile width."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch, model_config
+    from repro_torch.core import similarity
+    from repro_torch.fl.local_algos import make_grad_fn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    t_phase = time.perf_counter()
+    depth, kernel = TRAIN_PATHS[arch]
+    common = ["--arch", arch, "--seq", str(TRAIN_SEQ), "--log-every", "1"] + depth
+    fl_argv = ["--mode", "fl", "--flash", "--rounds", str(TRAIN_ROUNDS), "--clients", str(LM_CLIENTS),
+               "--per-round", str(LM_PER_ROUND), "--docs-per-client", str(LM_DOCS)] + common
+    print(f"[5b {arch}] python -m repro_torch.launch.train {' '.join(fl_argv)}")
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, outs = train_launch.main(fl_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_fl = torch.cuda.max_memory_allocated(dev)
+    launches = dict(_build.LAUNCHES)
+    params = state.params
+    spec = get_arch(arch)
+    layers = int(depth[depth.index("--layers") + 1]) if "--layers" in depth else None
+    cfg = model_config(arch, "--full-width" in depth, layers)
+    n_params = T.param_count(params)
+    largest = max(x.numel() for x in tree_leaves(params))
+    esize = tree_leaves(params)[0].element_size()
+    # a round's peak, reckoned: the (C_p, ...) stack, the global params, the
+    # training client's params and gradients, and the eq.-6 average's fp32
+    # (C_p, leaf) products of the largest leaf
+    reckon = (LM_PER_ROUND + 3) * n_params * esize + 32 * largest
+    mixers = [bt.split("+")[0] for bt in cfg.layer_types()]
+    refreshes = TRAIN_ROUNDS * LM_PER_ROUND
+    print(f"[5b {arch}] {cfg.num_layers} layers {cfg.block_pattern}, d_model {cfg.d_model}, {cfg.param_dtype}, "
+          f"remat {cfg.remat}: {n_params:,} parameters, largest leaf {largest:,}; {TRAIN_ROUNDS} rounds in "
+          f"{wall:.3f} s with set-up; max_memory_allocated {_gib(peak_fl)} against a reckoned "
+          f"({LM_PER_ROUND} + 3) * P * {esize} + 32 * L = {_gib(reckon)}; launches {launches}")
+    for i in range(TRAIN_ROUNDS):
+        parts = [float(outs[n][i]) for n in ("t_select", "t_local", "t_refresh")]
+        print(f"  round {int(outs['round'][i])}: {sum(parts):.4f} s = selection {parts[0]:.4f} "
+              f"+ local updates {parts[1]:.4f} + refresh {parts[2]:.4f}")
+    # (g) the kernels of the refresh: K6 in every window-free attention
+    # layer, K7 in every RWKV layer, once per refresh forward (one per cohort
+    # client and round), and nothing in a gradient pass (the wrappers raise
+    # there); K1 and K2 once at the init; nothing else
+    want = {"flash_attention": mixers.count("attn") * refreshes, "wkv6": mixers.count("rwkv") * refreshes,
+            "pairwise_dists_stats": 1, "normalized_gram": 1}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"{arch}: launches {launches}, want {want} and no other kernel")
+    check((kernel is None) == (want["flash_attention"] + want["wkv6"] == 0), f"{arch}: TRAIN_PATHS' kernel")
+    sel = outs["selected"].numpy()
+    check(sel.shape == (TRAIN_ROUNDS, LM_PER_ROUND), f"{arch}: cohorts {sel.shape}")
+    check(all(len(set(r)) == LM_PER_ROUND and r.min() >= 0 and r.max() < LM_CLIENTS for r in sel),
+          f"{arch}: bad cohorts {sel.tolist()}")
+    check(bool(np.isfinite(outs["loss"].numpy()).all()), f"{arch}: round losses {outs['loss']}")
+    check(bool(((outs["gemd"] >= 0) & (outs["gemd"] <= 2)).all()), f"{arch}: GEMDs {outs['gemd']}")
+    losses = state.losses
+    check(bool(torch.isfinite(losses).all()), f"{arch}: non-finite client losses")
+    check(bool((losses[sorted(set(sel.ravel().tolist()))] != 1.0).all()),
+          f"{arch}: a selected client's loss was not refreshed")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(params)), f"{arch}: non-finite params")
+    # the eq.-14 kernel of K1 + K2 against the plain chain, around an fp64
+    # chain with the fp32 chain's own slack (phase 5)
+    prof, kern = state.profiles, state.kernel
+    check(tuple(prof.shape) == (LM_CLIENTS, cfg.d_model) and prof.dtype == torch.float32,
+          f"{arch}: profiles {tuple(prof.shape)} {prof.dtype}")
+    plain_k = gram_ref.kernel_from_profiles_ref(prof)
+    exact = similarity.kernel_from_profiles(prof.double())
+    slack = (plain_k.double() - exact).abs()
+    kerr, kerr64 = float((kern - plain_k).abs().max()), float((kern.double() - exact).abs().max())
+    print(f"  eq.-14 kernel ({LM_CLIENTS} x {cfg.d_model} profiles): |K1+K2 - plain| {kerr:.3e}; vs an fp64 "
+          f"chain: K1+K2 {kerr64:.3e}, plain {float(slack.max()):.3e}")
+    check(bool(torch.all((kern.double() - exact).abs() <= 1e-5 + 1e-5 * exact.abs() + slack)),
+          f"{arch}: the eq.-14 kernel off the plain chain: {kerr}")
+
+    # (h) the refresh through the kernel against the same refresh without
+    # it, on the final params: the last cohort's losses, and the final
+    # hidden states of one client's batch
+    last = outs["selected"][-1].long().to(dev)
+    xs = state.client_xs[last]
+    pos = T.mrope_streams(cfg, torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)[None].expand(LM_DOCS,
+                                                                                                    TRAIN_SEQ))
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    @torch.no_grad()
+    def hidden(c, prm, use_flash, positions=pos):
+        return T.forward(c, prm, xs[0], positions, use_flash=use_flash)[0].float()
+
+    @torch.no_grad()
+    def refresh(c, prm, use_flash):
+        """The cohort's losses and one client's final hidden states."""
+        return torch.stack([T.lm_loss(c, prm, x, use_flash=use_flash) for x in xs]), hidden(c, prm, use_flash)
+
+    real_fa, real_k7, real_ref = fa_ops.flash_attention, wkv_ops.wkv6, rwkv_mod.wkv6_scan_ref
+
+    def patched(fn, fa=real_fa, k7=real_k7, ref=real_ref):
+        """``fn()`` with K6's and K7's wrappers and the plain scan swapped."""
+        fa_ops.flash_attention, wkv_ops.wkv6, rwkv_mod.wkv6_scan_ref = fa, k7, ref
+        try:
+            return fn()
+        finally:
+            fa_ops.flash_attention, wkv_ops.wkv6, rwkv_mod.wkv6_scan_ref = real_fa, real_k7, real_ref
+
+    k_l, k_h = refresh(cfg, params, True)
+    p_l, p_h = refresh(cfg, params, False)
+    d_path = float((k_l - losses[last]).abs().max())
+    d_loss, d_h = float((k_l - p_l).abs().max()), rel(k_h, p_h)
+    check(bool(torch.isfinite(k_l).all() and torch.isfinite(k_h).all()), f"{arch}: non-finite refresh")
+    check(d_path <= LM_LOSS_BOUND, f"{arch}: the path's refresh {d_path} off a refresh through the kernel")
+    label = {"flash_attention": "K6", "wkv6": "K7", None: "use_flash"}[kernel]
+    print(f"  refresh of cohort {sel[-1].tolist()} on the final params: losses through {label} "
+          f"{[round(float(x), 6) for x in k_l]}: max |{label} - plain| {d_loss:.3e}, |{label} - the path's "
+          f"refresh| {d_path:.3e}; final hidden of {LM_DOCS} x {TRAIN_SEQ} tokens |{label} - plain| / |plain| "
+          f"{d_h:.4e}")
+    bytes32 = 4 * n_params
+    fits32 = cfg.dtype != "float32" and torch.cuda.memory_allocated(dev) + bytes32 + (8 << 30) <= \
+        torch.cuda.get_device_properties(dev).total_memory
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    if kernel is None:
+        # no kernel on the path: --flash changes nothing but the launch
+        # count (none), within the bounds of the runs' own nondeterminism
+        check(d_loss <= LM_LOSS_BOUND and d_h <= LM_HIDDEN_BOUND,
+              f"{arch}: the refresh with --flash parts from the plain one: {d_loss}, {d_h}")
+    elif kernel == "flash_attention":
+        # phase 5's bounds and controls: K6 through a 64-position window
+        # (a kernel dropping every key more than a tile back), and for
+        # musicgen, whose positions swamp its token embeddings at random
+        # init, also the refresh read half a sequence too deep
+        windowed = lambda q, k, v, window=None: real_fa(q, k, v, window=CONTROL_WINDOW)  # noqa: E731
+        ctrl = {f"a {CONTROL_WINDOW}-position window": rel(patched(lambda: hidden(cfg, params, True),
+                                                                   fa=windowed), p_h)}
+        if cfg.pos_style == "sinusoidal":
+            ctrl["positions half a sequence deep"] = rel(hidden(cfg, params, True, pos + TRAIN_SEQ // 2), p_h)
+        print("  controls, hidden |control - plain| / |plain|: "
+              + "; ".join(f"{n} {v:.4e}" for n, v in ctrl.items()))
+        check(d_loss <= LM_LOSS_BOUND, f"{arch}: refresh losses through K6 off the plain path by {d_loss}")
+        check(d_h <= LM_HIDDEN_BOUND, f"{arch}: hidden through K6 off the plain path by {d_h}")
+        check(all(v > LM_HIDDEN_BOUND for v in ctrl.values()), f"{arch}: a control stayed in the bound: {ctrl}")
+        if fits32:
+            with torch.no_grad():
+                h32 = T.forward(cfg32, _to_float(torch, params), xs[0], pos)[0]
+            e_k, e_p = rel(k_h, h32), rel(p_h, h32)
+            print(f"  vs the fp32 model: K6 {e_k:.4e}, plain {e_p:.4e}")
+            check(e_k <= 1.25 * e_p, f"{arch}: K6 {e_k} further from fp32 than the plain path {e_p}")
+            del h32
+    else:
+        # K7 as phase 6 holds it: three witnesses without K7 show how far
+        # correct bf16 paths part from the plain one in this chaotic
+        # random-init model: the plain scan with its sums reordered, with
+        # one bf16 step added to one element of layer 0's y in every
+        # forward, and K7's own arithmetic taken in torch (``k7_arith``:
+        # chunks of 16, running decay products, each product as 3xTF32, as
+        # csrc/wkv6.cu takes them and tests/test_torch_rwkv.py holds to
+        # fp64).  K7's losses and hidden states may part from the plain
+        # path's by at most a quarter over the farthest witness; and, as
+        # phases 5 and 6 hold their kernels, its bf16 refresh may be no
+        # further from the fp32 model than the plain bf16 path (within a
+        # quarter).  The control (K7 dropping the bonus u, the current
+        # token's own term) must break both.  A refresh keeps no state, so
+        # phase 6's control (the state never advanced) would change nothing
+        # here.  On the fp32 copy K7 and the plain scan part only by the
+        # order of fp32 sums, and are held to phase 5's bounds with the
+        # same control.
+        def reordered(r, k, v, w, u, s0):
+            r, k, v, w = (a.float() for a in (r, k, v, w))
+            st, ys = s0.float(), []
+            for i in range(r.shape[1]):
+                bonus = (r[:, i] * u.float() * k[:, i]).sum(-1, keepdim=True) * v[:, i]
+                ys.append(torch.einsum("bhk,bhkv->bhv", r[:, i], st) + bonus)
+                st = w[:, i, :, :, None] * st + k[:, i, :, :, None] * v[:, i, :, None, :]
+            return torch.stack(ys, dim=1), st
+
+        calls = [0]
+        rwkv_layers = mixers.count("rwkv")
+
+        def one_ulp(r, k, v, w, u, s0):
+            y, s_new = real_ref(r, k, v, w, u, s0)
+            if calls[0] % rwkv_layers == 0:  # layer 0 of each forward
+                y = y.clone()
+                bits = y[:1, :1, :1, :1].to(torch.bfloat16).view(torch.int16) + 1
+                y[:1, :1, :1, :1] = bits.view(torch.bfloat16).float()
+            calls[0] += 1
+            return y, s_new
+
+        def no_bonus(r, k, v, w, u, s0):
+            return real_k7(r, k, v, w, torch.zeros_like(u), s0)
+
+        wit = {}
+        for name, ref in (("sums reordered", reordered), ("one bf16 step in layer 0", one_ulp),
+                          ("K7's arithmetic in torch", lambda *a: k7_arith(torch, *a))):
+            calls[0] = 0
+            w_l, w_h = patched(lambda: refresh(cfg, params, False), ref=ref)
+            wit[name] = (float((w_l - p_l).abs().max()), rel(w_h, p_h))
+        bound_l, bound_h = (1.25 * max(v[i] for v in wit.values()) for i in (0, 1))
+        c_h = patched(lambda: hidden(cfg, params, True), k7=no_bonus)
+        d_ch = rel(c_h, p_h)
+        print("  bf16 witnesses without K7, |witness - plain|: " + "; ".join(
+            f"{n}: losses {v[0]:.3e}, hidden {v[1]:.4e}" for n, v in wit.items())
+            + f"; |K7 - plain|: losses {d_loss:.3e} (bound {bound_l:.3e}), hidden {d_h:.4e} (bound "
+              f"{bound_h:.4e}); control with the bonus u dropped: hidden {d_ch:.4e}")
+        check(d_loss <= bound_l and d_h <= bound_h,
+              f"{arch}: K7's bf16 refresh off the plain one past its witnesses: {d_loss}, {d_h}")
+        check(d_ch > bound_h, f"{arch}: the bonus control stayed within the witnesses' bound: {d_ch}")
+        check(fits32, f"{arch}: the fp32 copy does not fit")
+        params32 = _to_float(torch, params)
+        k32_l, k32_h = refresh(cfg32, params32, True)
+        p32_l, p32_h = refresh(cfg32, params32, False)
+        dist = lambda a, b: float((a - b).abs().max())  # noqa: E731
+        e_l, e_pl, e_h, e_ph = dist(k_l, p32_l), dist(p_l, p32_l), rel(k_h, p32_h), rel(p_h, p32_h)
+        e_ch = rel(c_h, p32_h)
+        print(f"  bf16 vs the fp32 model: losses K7 {e_l:.3e}, plain {e_pl:.3e}; hidden K7 {e_h:.4e}, plain "
+              f"{e_ph:.4e}, control with the bonus u dropped {e_ch:.4e}")
+        check(e_l <= 1.25 * e_pl and e_h <= 1.25 * e_ph,
+              f"{arch}: K7's bf16 refresh further from fp32 than the plain one: {e_l}, {e_h}")
+        check(e_ch > 1.25 * e_ph, f"{arch}: the bonus control stayed within the bound")
+        dc32 = rel(patched(lambda: hidden(cfg32, params32, True), k7=no_bonus), p32_h)
+        d32_l, d32_h = dist(k32_l, p32_l), rel(k32_h, p32_h)
+        print(f"  fp32 copy: |K7 - plain| losses {d32_l:.3e}, hidden {d32_h:.4e} (bounds {LM_LOSS_BOUND:g}, "
+              f"{LM_HIDDEN_BOUND:g}); control {dc32:.4e}")
+        check(d32_l <= LM_LOSS_BOUND and d32_h <= LM_HIDDEN_BOUND, f"{arch}: fp32 K7 off: {d32_l}, {d32_h}")
+        check(dc32 > LM_HIDDEN_BOUND, f"{arch}: the fp32 bonus control stayed within the bound")
+        del params32
+    if kernel is not None and not fits32:
+        print(f"  the fp32 leg: {'the model is fp32 already' if cfg.dtype == 'float32' else 'does not fit'}")
+    check(kernel is None or cfg.dtype == "float32" or fits32, f"{arch}: the fp32 copy does not fit")
+
+    # remat: the activations one local step's forward keeps for its
+    # backward pass, with and without it; then where a step's time goes
+    batch = (xs[0][:4], None)
+    held = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        loss = T.lm_loss(c, tree_unflatten(params, live), batch[0])
+        held[remat] = torch.cuda.memory_allocated(dev) - base
+        del loss, live
+    print(f"  one local step (4 x {TRAIN_SEQ} tokens): activations kept for the backward pass, remat off "
+          f"{_gib(held[False])}, on {_gib(held[True])}")
+    grad_fn = make_grad_fn(lambda p, b: T.lm_loss(cfg, p, b[0]))
+    _print_profile(torch, f"[5b {arch}] one local step's gradient (4 x {TRAIN_SEQ} tokens)",
+                   lambda: grad_fn(params, batch), "gemm")
+    del state, outs, params, xs, k_h, p_h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # pretrain: the arch's optimizer as JAX steps it, clip 1.0
+    pre_argv = ["--mode", "pretrain", "--steps", str(TRAIN_PRETRAIN_STEPS), "--local-batch", "4"] + common
+    print(f"[5b {arch}] python -m repro_torch.launch.train {' '.join(pre_argv)}")
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, hist = train_launch.main(pre_argv)
+    peak_pre = torch.cuda.max_memory_allocated(dev)
+    pre_launches = dict(_build.LAUNCHES)
+    check(all(n == 0 for n in pre_launches.values()), f"{arch}: kernels ran in pretrain: {pre_launches}")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"{arch}: pretrain losses {hist}")
+    first, end = hist[0], hist[-1]
+    steady = (end["step"] - first["step"]) * 4 * TRAIN_SEQ / (end["seconds"] - first["seconds"])
+    print(f"  pretrain ({spec.optimizer}): losses {[round(h['loss'], 4) for h in hist]}; {steady:.1f} tok/s over "
+          f"steps {first['step'] + 1}-{end['step']} (first step {first['seconds']:.3f} s); max_memory_allocated "
+          f"{_gib(peak_pre)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[5b {arch}] {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds, "d_model": cfg.d_model}
+
+
+def _tf32(torch, x):
+    """fp32 -> TF32 by clearing the 13 low mantissa bits (toward zero), as
+    K7 forms the high part of an operand and as the tensor cores read one."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mma3(torch, a, b, exact_b: bool):
+    """a (.., M, K) @ b (.., K, N) as K7's 3xTF32 products: each k-step of 8
+    a fresh fp32 sum lo.hi + hi.lo + hi.hi of the exact splits x = hi + lo
+    (no hi.lo where b is exact in TF32, as bf16 v is), added to the total."""
+    out = None
+    for k0 in range(0, a.shape[-1], 8):
+        ak, bk = a[..., k0 : k0 + 8], b[..., k0 : k0 + 8, :]
+        ahi, bhi = _tf32(torch, ak), _tf32(torch, bk)
+        d = _tf32(torch, ak - ahi) @ bhi
+        if not exact_b:
+            d = d + ahi @ _tf32(torch, bk - bhi)
+        d = d + ahi @ bhi
+        out = d if out is None else out + d
+    return out
+
+
+def k7_arith(torch, r, k, v, w, u, s0, chunk: int = 16):
+    """The WKV6 recurrence in K7's chunked arithmetic (``csrc/wkv6.cu``),
+    in torch without K7: per chunk of ``chunk`` tokens (a last partial one
+    padded with r = k = v = 0, w = 1), r~ = r * prod_{m<t} w_m, k~_s = k_s *
+    prod_{s<m<chunk} w_m and the chunk's decay D from running products, the
+    triangle A_ts = sum_i r_ti k_si prod_{s<m<t} w_mi (A_tt the bonus
+    r . (u * k)), then y = R~ S + A V and S <- D S + K~^T V, the products
+    as ``_mma3``.  -> (y (B, T, H, hd) fp32, final state fp32), the plain
+    scan's outputs."""
+    b, t, h, hd = r.shape
+    exact_v = v.dtype == torch.bfloat16
+    r, k, v, w = (x.float().permute(0, 2, 1, 3) for x in (r, k, v, w))  # (B, H, T, hd)
+    s, u = s0.float().clone(), u.float()
+    ones = torch.ones(b, h, hd, device=r.device)
+    ys = []
+    for c0 in range(0, t, chunk):
+        tc = min(chunk, t - c0)
+        rc, kc, vc, wc = (x[:, :, c0 : c0 + tc] for x in (r, k, v, w))
+        if tc < chunk:
+            pad = torch.zeros(b, h, chunk - tc, hd, device=r.device)
+            rc, kc, vc = (torch.cat([x, pad], 2) for x in (rc, kc, vc))
+            wc = torch.cat([wc, torch.ones_like(pad)], 2)
+        rt, kt = torch.empty_like(rc), torch.empty_like(kc)
+        p = ones
+        for i in range(chunk):
+            rt[:, :, i] = rc[:, :, i] * p
+            p = p * wc[:, :, i]
+        dec, p = p, ones
+        for i in reversed(range(chunk)):
+            kt[:, :, i] = kc[:, :, i] * p
+            p = p * wc[:, :, i]
+        a = torch.zeros(b, h, chunk, chunk, device=r.device)
+        kp = kc.clone()
+        for i in range(chunk):
+            a[:, :, i, i] = (rc[:, :, i] * u[None] * kc[:, :, i]).sum(-1)
+            if i:
+                a[:, :, i, :i] = (rc[:, :, i, None, :] * kp[:, :, :i]).sum(-1)
+                kp[:, :, :i] = kp[:, :, :i] * wc[:, :, i, None, :]
+        y = _mma3(torch, rt, s, False) + _mma3(torch, a, vc, exact_v)
+        s = dec[..., None] * s + _mma3(torch, kt.transpose(-1, -2), vc, exact_v)
+        ys.append(y[:, :, :tc])
+    return torch.cat(ys, 2).permute(0, 2, 1, 3), s
 
 
 def _to_float(torch, tree):
@@ -2104,7 +2510,7 @@ def main() -> int:
         lmax = float(wp.abs().max())
         if kind == "bf16":
             tol = 3e-2 * lmax  # bf16 products vs the fp32 chain: the JAX test's bound
-        elif (c, q, kind) in SHAPES[:2]:
+        elif (c, q, kind) in SHAPES[:2] + TRAIN_K1_SHAPES:
             tol = None  # a main path's shape: rtol 1e-5 / atol 1e-5 elementwise
             check(
                 bool(torch.all((lp - wp).abs() <= 1e-5 + 1e-5 * wp.abs())),
@@ -2247,6 +2653,10 @@ def main() -> int:
         k6_ms = time_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), **reps)
         k6_dev = device_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), "flash_attention",
                            calls=reps.get("launches", 20))
+        k6_cold = None
+        if (b, s, h, hk, hd, kind, window) in TRAIN_ATTN_SHAPES:
+            k6_cold = device_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), "flash_attention",
+                                cold=True)
         k6_plain = time_ms(torch, lambda: fd_ref.attention_ref(q, k, v, window=window), **reps)
         k6_lib = time_ms(torch, sdpa, **reps)
         # least work: q, k, v read once and out written once; 4 FLOPs per
@@ -2255,15 +2665,17 @@ def main() -> int:
         pairs = int(mask.sum())
         esize = q.element_size()
         b6 = bound(2 * b * s * (h + hk) * hd * esize, 4.0 * b * h * hd * pairs, kind)
-        attn_rows[(b, s, kind, window)] = dict(
-            max_abs_err=err, ms=k6_ms, device_ms=k6_dev, plain_ms=k6_plain, library_ms=k6_lib,
-            bound_ms=b6[0], bound_by=b6[1],
+        attn_rows[(b, s, h, hk, hd, kind, window)] = dict(
+            max_abs_err=err, ms=k6_ms, device_ms=k6_dev, device_ms_cold=k6_cold, plain_ms=k6_plain,
+            library_ms=k6_lib, bound_ms=b6[0], bound_by=b6[1],
         )
         print(
             f"K6 B={b} S={s} H={h} Hk={hk} hd={hd} {kind} window={window}: err={err:.3e} "
             f"(tol {'2^-7*|out| + at most ' if kind == 'bf16' else ''}{tol:.3e}) ms={k6_ms:.5f} "
-            f"device_ms={fmt_ms(k6_dev)} plain={k6_plain:.5f} sdpa={k6_lib:.5f} bound={b6[0]:.6f} ({b6[1]}) "
+            f"device_ms={fmt_ms(k6_dev)}{'' if k6_cold is None else f' cold={fmt_ms(k6_cold)}'} "
+            f"plain={k6_plain:.5f} sdpa={k6_lib:.5f} bound={b6[0]:.6f} ({b6[1]}) "
             f"= {b6[0] / k6_ms:.4f} of the kernel's time"
+            + ("" if k6_cold is None else share(b6[0], k6_cold, f"K6 {(b, s, h, hk, hd, kind)}"))
         )
 
     # K7 on its own against its plain version; no PyTorch call computes WKV6
@@ -2505,6 +2917,16 @@ def main() -> int:
     # ------------------------------------------------ 5. the LM client path
     lm_launches = lm_phase(torch, dev)
 
+    # ------------- 5b. the LM client path and pretrain of the six later archs
+    # each model is freed before the next one is built
+    trained = {}
+    for arch in TRAIN_PATHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained[arch] = train_phase(torch, dev, arch)
+    print("phase 5b (s): " + ", ".join(f"{a} {r['seconds']:.1f}" for a, r in trained.items())
+          + f"; {sum(r['seconds'] for r in trained.values()):.1f} in all")
+
     # ------------------------------------------ 6. the RWKV-6 serving path
     # the earlier phases' models are out of scope: hand their memory back
     # before the RWKV model and its fp32 copy
@@ -2555,7 +2977,7 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:86",
-            attn_rows[ATTN_SHAPES[0][0], ATTN_SHAPES[0][1], ATTN_SHAPES[0][5], ATTN_SHAPES[0][6]],
+            attn_rows[ATTN_SHAPES[0]],
             lm_launches,
         ),
         "wkv6": (
@@ -2584,6 +3006,34 @@ def main() -> int:
             f"launches {new_serve[arch][0]}, ms {r['ms']:.5f}, device_ms cold {fmt_ms(r['device_ms'])}, "
             f"bound {r['bound_ms']:.6f} ({r['bound_by']}), plain {r['plain_ms']:.5f}, sdpa {r['library_ms']:.5f}"
         )
+    # K6 at the refresh shape of each arch of phase 5b that reaches it, and
+    # K1 at each of their profile widths: the path's launches beside the
+    # shape's cold device time, bound and library call
+    from repro_torch.configs import model_config
+
+    k6_train = {}
+    for arch, res in trained.items():
+        depth, kernel = TRAIN_PATHS[arch]
+        if kernel != "flash_attention":
+            continue
+        layers = int(depth[depth.index("--layers") + 1]) if "--layers" in depth else None
+        m = model_config(arch, "--full-width" in depth, layers)
+        shape = (LM_DOCS, TRAIN_SEQ, m.num_heads, m.num_kv_heads, m.head_dim,
+                 "bf16" if m.dtype == "bfloat16" else "fp32", None)
+        check(shape in TRAIN_ATTN_SHAPES, f"K6 path shape {shape} of {arch} is not among TRAIN_ATTN_SHAPES")
+        k6_train[arch] = (shape, attn_rows[shape], res["launches"]["flash_attention"])
+        r = attn_rows[shape]
+        print(f"K6 path shape B={shape[0]} S={shape[1]} H={shape[2]} Hk={shape[3]} hd={shape[4]} {shape[5]} "
+              f"({arch} refresh): launches {k6_train[arch][2]}, ms {r['ms']:.5f}, device_ms cold "
+              f"{fmt_ms(r['device_ms_cold'])} hot {fmt_ms(r['device_ms'])}, bound {r['bound_ms']:.6f} "
+              f"({r['bound_by']}), plain {r['plain_ms']:.5f}, sdpa {r['library_ms']:.5f}")
+    k1_train = {shape: sum(1 for r in trained.values() if r["d_model"] == shape[1]) for shape in TRAIN_K1_SHAPES}
+    check(sum(k1_train.values()) == len(trained), f"phase 5b's profile widths {k1_train} miss TRAIN_K1_SHAPES")
+    k7_train = trained["rwkv6-7b"]["launches"]["wkv6"]
+    r = wkv_rows[(LM_DOCS, TRAIN_SEQ, "bf16", None)]
+    print(f"K7 path shape B={LM_DOCS} T={TRAIN_SEQ} (rwkv6-7b refresh, phase 5b): launches {k7_train}, "
+          f"device_ms cold {fmt_ms(r['device_ms'])}, bound {r['bound_ms']:.6f} ({r['bound_by']}), "
+          f"plain {r['plain_ms']:.5f}")
     # K1 and K3 at each shape a path gives them: launches there beside the
     # shape's plan, cold device time, bound and library call (the LM path's
     # one K1 launch and the stage-wise route's one K3 launch a profile set
@@ -2592,6 +3042,9 @@ def main() -> int:
         ("K1", "pairwise_dists_stats", SHAPES[0], launches["pairwise_dists_stats"], "CNN FL"),
         ("K1", "pairwise_dists_stats", SHAPES[1], 1, "LM FL"),
         ("K1", "pairwise_dists_stats", SHAPES[3], unfunnelled["pairwise_dists_stats"], "CNN FL unfunnelled init"),
+    ) + tuple(
+        ("K1", "pairwise_dists_stats", shape, n, "phase 5b inits") for shape, n in k1_train.items()
+    ) + (
         ("K3", "pairwise_sq_dists", K3_SHAPES[0], 1, "stage-wise, FC-1 profiles"),
         ("K3", "pairwise_sq_dists", K3_SHAPES[1], 1, "stage-wise, representative profiles"),
         ("K3", "pairwise_sq_dists", K3_SHAPES[2], 1, "stage-wise, gradient profiles"),
@@ -2664,6 +3117,30 @@ def main() -> int:
             launches=unfunnelled[name], max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    # phase 5b's shapes: K1 at each profile width, K6 at each refresh shape
+    # (its cold device time), K7 at rwkv6-7b's refresh
+    for shape, n in k1_train.items():
+        r = rows["pairwise_dists_stats"][shape]
+        table.append(dict(
+            name=f"pairwise_dists_stats train {shape[0]}x{shape[1]}", route="cuda",
+            source=sources["pairwise_dists_stats"][0], replaces=sources["pairwise_dists_stats"][1], launches=n,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    for arch, (shape, r, n) in k6_train.items():
+        table.append(dict(
+            name=f"flash_attention {arch} {shape[0]}x{shape[1]}x{shape[2]}/{shape[3]}x{shape[4]} {shape[5]}",
+            route="cuda", source=sources["flash_attention"][0], replaces=sources["flash_attention"][1],
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms_cold"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    r = wkv_rows[(LM_DOCS, TRAIN_SEQ, "bf16", None)]
+    table.append(dict(
+        name=f"wkv6 rwkv6-7b refresh {LM_DOCS}x{TRAIN_SEQ}", route="cuda", source=sources["wkv6"][0],
+        replaces=sources["wkv6"][1], launches=k7_train, max_abs_err=r["max_abs_err"], ms=r["ms"],
+        device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"],
+    ))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({

@@ -56,12 +56,15 @@ Params = Any  # a tree of tensors
 
 
 def make_grad_fn(loss_fn: Callable) -> Callable[[Params, tuple], Tuple[torch.Tensor, Params]]:
-    """``grad_fn(params, batch) -> (loss, grad)`` on the full batch."""
+    """``grad_fn(params, batch) -> (loss, grad)`` on the full batch.  A leaf
+    the loss does not read (RWKV's ``mu_x``) gets a zero gradient of its
+    shape and dtype, as ``jax.grad`` gives it."""
 
     def grad_fn(params: Params, batch: tuple):
         live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
         loss = loss_fn(tree_unflatten(params, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(live, grads)]
         return loss.detach(), tree_unflatten(params, grads)
 
     return grad_fn

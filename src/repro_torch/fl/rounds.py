@@ -94,6 +94,16 @@ def build_local_update(
     return build_local_algo_update(None, loss_fn, lr, grad_clip=grad_clip)
 
 
+def _write_row(stack: Optional[Params], tree: Params, i: int, m: int) -> Params:
+    """Row ``i`` of a tree of ``(m, ...)`` stacks set to ``tree``'s leaves;
+    the stacks are allocated at the first row."""
+    if stack is None:
+        stack = tree_map(lambda x: torch.empty((m,) + tuple(x.shape), dtype=x.dtype, device=x.device), tree)
+    for row, x in zip(tree_leaves(stack), tree_leaves(tree)):
+        row[i].copy_(x)
+    return stack
+
+
 def build_client_parallel_round(
     loss_fn: LossFn,
     lr: float,
@@ -133,21 +143,23 @@ def build_client_parallel_round(
                 f"client batches hold {client_batches[0].shape[1]} steps, "
                 f"the round runs {local_steps}"
             )
-        new_params, new_states, losses = [], [], []
-        for i in range(client_weights.shape[0]):
+        m = client_weights.shape[0]
+        stacked = new_states = None
+        losses = []
+        for i in range(m):
             batch = tuple(x[i] for x in client_batches)
             if stateful:
                 p, st, l = local_update(global_params, tree_map(lambda s: s[i], client_states), batch)
-                new_states.append(st)
+                new_states = _write_row(new_states, st, i, m)
             else:
                 p, l = local_update(global_params, batch)
-            new_params.append(p)
+            # each client's params go into the (C_p, ...) stack as they come,
+            # and its own copy is dropped before the next client trains
+            stacked = _write_row(stacked, p, i, m)
+            del p
             losses.append(l)
-        stacked = tree_map(lambda *xs: torch.stack(xs), *new_params)
         losses = torch.stack(losses)
-        out = ()
-        if stateful:
-            out = (tree_map(lambda *xs: torch.stack(xs), *new_states),)
+        out = (new_states,) if stateful else ()
         if update_transform is None:
             return (weighted_average(stacked, client_weights), torch.mean(losses)) + out
         stacked, w, losses, flagged = update_transform(

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_NAMES, get_arch
+from repro_torch.configs import ARCH_NAMES, model_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
@@ -50,13 +50,14 @@ from repro_torch.serve import (
 )
 
 
-def build_model(arch: str, seed: int, full_width: bool = False, device=None) -> Tuple[ModelConfig, Dict]:
-    """The arch's config (reduced to fp32 unless ``full_width``) and random
-    parameters from ``seed``, on ``device`` (default ``cuda``)."""
+def build_model(
+    arch: str, seed: int, full_width: bool = False, device=None, layers: Optional[int] = None
+) -> Tuple[ModelConfig, Dict]:
+    """``configs.model_config(arch, full_width, layers)`` and random
+    parameters from ``seed``, on ``device`` (default ``cuda``); both
+    launchers build their model here."""
+    cfg = model_config(arch, full_width, layers)
     device = resolve_device(device)
-    cfg = get_arch(arch).model
-    if not full_width:
-        cfg = cfg.reduced(param_dtype="float32", dtype="float32", remat=False)
     params = T.init_params(torch.Generator(device=device).manual_seed(seed), cfg, device)
     return cfg, params
 

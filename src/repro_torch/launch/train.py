@@ -31,15 +31,19 @@ saved every N rounds, and a relaunch resumes from the latest snapshot and
 runs only the rounds left; ``--ckpt`` alone saves the final params (in
 ``--mode pretrain`` the params and the optimizer state).  Flags of
 features the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP item, and so do the archs it serves but does not train yet
-(``NOT_TRAINED``).
+their ROADMAP item.
+
+Every arch of the registry trains in both modes.  ``--layers N`` (with
+``--full-width``) keeps the first N layers of the published config, a
+multiple of its block pattern's length: one card holds neither the large
+archs whole nor the C_p updated copies a round keeps of them.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +51,7 @@ import torch
 from repro_torch import optim as optim_lib
 from repro_torch.checkpoint import latest_step, save
 from repro_torch.configs import ARCH_NAMES, get_arch
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.selection import make_strategy
 from repro_torch.data import make_token_dataset
 from repro_torch.device import resolve_device
@@ -55,25 +60,21 @@ from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl.faults import AGGREGATORS, FAULT_NAMES
 from repro_torch.fl.local_algos import ALGO_NAMES
 from repro_torch.fl.scenarios import SCENARIO_NAMES
-from repro_torch.launch import serve as serve_launch
+from repro_torch.launch.serve import build_model
 from repro_torch.models import transformer as T
 
-__all__ = ["main", "run_fl", "run_pretrain"]
-
-# archs the port serves but does not train yet (ROADMAP Queue 1 item 8)
-NOT_TRAINED = ("qwen2-vl-2b", "recurrentgemma-9b", "llama4-maverick-400b-a17b", "mixtral-8x7b", "musicgen-medium")
+__all__ = ["main", "parse_args", "pretrain_optimizer", "run_fl", "run_pretrain"]
 
 
-def build_model(arch: str, seed: int, full_width: bool = False, device=None):
-    """``launch.serve.build_model`` for the archs whose LM client path and
-    pretrain are ported; the others raise ``NotImplementedError``."""
-    if arch in NOT_TRAINED:
-        raise NotImplementedError(
-            f"federated LM training and pretraining of {arch} are not ported yet "
-            "(ROADMAP Queue 1 item 8: the client-parallel round keeps C_p model copies, "
-            "which do not fit the card for the MoE archs); launch.serve serves it"
-        )
-    return serve_launch.build_model(arch, seed, full_width=full_width, device=device)
+def pretrain_optimizer(cfg: ModelConfig, name: str, lr: float) -> optim_lib.Optimizer:
+    """The pretrain optimizer ``name`` as the JAX package steps it on its
+    layer-stacked params: adafactor factors its second moments and clips
+    its RMS over each pattern entry's layers as one leaf
+    (``transformer.layer_groups``); sgd and adam are elementwise, and step
+    the port's own leaves."""
+    if name == "adafactor":
+        return optim_lib.adafactor(lr, groups=lambda tree: T.layer_groups(cfg, tree))
+    return getattr(optim_lib, name)(lr)
 
 
 def _token_clients(cfg, num_clients, docs_per_client, seq, seed=0):
@@ -111,17 +112,20 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(used)}")
 
 
-def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
+def run_fl(
+    args, model: Optional[Tuple[ModelConfig, Dict]] = None
+) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
     """Federated LM training through the engine -> (final state, per-round
     outputs stacked over rounds, with the host seconds of each round's
     selection, local updates and loss refresh; empty when a resumed run
-    has no round left)."""
+    has no round left).  ``model`` (config, params on the device) trains in
+    place of the random model the flags describe."""
     _refuse_unported(args)
     if args.ckpt_every is not None and not args.ckpt:
         raise SystemExit("--ckpt-every requires --ckpt DIR")
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
-    cfg, params = build_model(args.arch, args.seed, full_width=args.full_width, device=device)
+    cfg, params = model or build_model(args.arch, args.seed, args.full_width, device, layers=args.layers)
     clients = _token_clients(cfg, args.clients, args.docs_per_client, args.seq)
     c, n_docs, _ = clients.shape
     num_topics = min(10, args.clients)
@@ -214,10 +218,12 @@ def run_fl(args) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
     return state, outs
 
 
-def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
+def run_pretrain(
+    args, model: Optional[Tuple[ModelConfig, Dict]] = None
+) -> Tuple[Dict, object, List[Dict[str, float]]]:
     """Optimizer steps on random batches -> (params, optimizer state, one
     record per logged step: step, loss, host seconds since the first step
-    began, tokens/s so far)."""
+    began, tokens/s so far).  ``model`` as in :func:`run_fl`."""
     _refuse_unported(args)
     fl_only = [flag for flag, on in (("--scenario", args.scenario is not None),
                                      ("--candidate-frac", args.candidate_frac is not None),
@@ -236,8 +242,8 @@ def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
         )
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
-    cfg, params = build_model(args.arch, args.seed, full_width=args.full_width, device=device)
-    opt = getattr(optim_lib, spec.optimizer)(args.lr)
+    cfg, params = model or build_model(args.arch, args.seed, args.full_width, device, layers=args.layers)
+    opt = pretrain_optimizer(cfg, spec.optimizer, args.lr)
     opt_state = opt.init(params)
     docs, _ = make_token_dataset(
         n_docs=4096, doc_len=args.seq, vocab=min(cfg.vocab_size, 512), seed=args.seed
@@ -264,7 +270,9 @@ def run_pretrain(args) -> Tuple[Dict, object, List[Dict[str, float]]]:
     return params, opt_state, history
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags -> the namespace ``run_fl`` and ``run_pretrain``
+    take."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=ARCH_NAMES, default="smollm-360m")
     ap.add_argument("--mode", choices=("fl", "pretrain"), default="fl")
@@ -283,6 +291,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--full-width", action="store_true",
                     help="the arch's own widths, depth and dtypes instead of the reduced fp32 model")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="with --full-width: the first N layers of the published config, a "
+                         "multiple of its block pattern's length")
     ap.add_argument("--flash", action="store_true",
                     help="route the attention of gradient-free passes (the loss refresh) through K6")
     ap.add_argument("--scenario", choices=SCENARIO_NAMES, default=None,
@@ -317,7 +328,11 @@ def main(argv=None):
     ap.add_argument("--staleness-alpha", type=float, default=0.5)
     ap.add_argument("--telemetry", default=None, metavar="PATH")
     ap.add_argument("--profile-dir", default=None, metavar="PATH")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     return (run_fl if args.mode == "fl" else run_pretrain)(args)
 
 

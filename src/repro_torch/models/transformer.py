@@ -53,6 +53,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 __all__ = [
     "init_params",
@@ -62,6 +63,7 @@ __all__ = [
     "decode_step",
     "param_count",
     "params_from_jax",
+    "layer_groups",
     "vocab_padded",
     "lm_loss",
     "features",
@@ -163,6 +165,28 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig, device=None) -> Dict:
     return out
 
 
+def layer_groups(cfg: ModelConfig, tree: Dict) -> List[Union[int, List[int]]]:
+    """The leaves of ``tree`` (params of ``cfg``, or grads of their shapes),
+    by index in ``tree_leaves`` order, grouped as the JAX package stacks
+    them: each leaf outside the blocks alone (an int); for pattern entry
+    ``j``, each of its leaves over the repeat units as one stacked leaf (a
+    list of the layers' indices, in unit order, even of one unit); and the
+    remainder layers' leaves alone."""
+    index = tree_unflatten(tree, range(len(tree_leaves(tree))))
+    n = len(cfg.block_pattern)
+    reps = cfg.num_layers // n
+    out: List[Union[int, List[int]]] = []
+    for key, value in index.items():
+        if key != "blocks":
+            out += tree_leaves(value)
+            continue
+        for j in range(n):
+            out += [list(g) for g in zip(*(tree_leaves(b) for b in value[j : reps * n : n]))]
+        for b in value[reps * n :]:
+            out += tree_leaves(b)
+    return out
+
+
 def _index(tree, r: int):
     if isinstance(tree, Mapping):
         return {k: _index(v, r) for k, v in tree.items()}
@@ -254,6 +278,40 @@ def _layer_cache(caches: Dict, cfg: ModelConfig, layer: int) -> Dict:
     return caches["rem"][j]
 
 
+def _run_layers(
+    cfg: ModelConfig, blocks: List[Dict], layer_types: Tuple[str, ...], x: torch.Tensor, aux: torch.Tensor,
+    positions: torch.Tensor, use_flash: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers without caches, their aux losses added to ``aux`` in order."""
+    for p, btype in zip(blocks, layer_types):
+        x, _, a = _apply_block(cfg, p, btype, x, positions, None, use_flash)
+        aux = aux + a
+    return x, aux
+
+
+def _forward_remat(
+    cfg: ModelConfig, params: Dict, x: torch.Tensor, aux: torch.Tensor, positions: torch.Tensor,
+    use_flash: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cfg.remat``: each repeat unit of the block pattern is checkpointed,
+    its activations recomputed in the backward pass, and the remainder
+    layers are not, as JAX checkpoints its layer scan's body.  The same
+    operations in the same order as without remat, so the loss and the
+    gradients are the same bits."""
+    from torch.utils.checkpoint import checkpoint
+
+    n = len(cfg.block_pattern)
+    reps = cfg.num_layers // n
+    blocks = params["blocks"]
+    for r in range(reps):
+        x, aux = checkpoint(
+            _run_layers, cfg, blocks[r * n : (r + 1) * n], cfg.block_pattern, x, aux, positions, use_flash,
+            use_reentrant=False, preserve_rng_state=False,  # the forward draws no random numbers
+        )
+    rest = cfg.layer_types()[reps * n :]
+    return _run_layers(cfg, blocks[reps * n :], rest, x, aux, positions, use_flash)
+
+
 def forward(
     cfg: ModelConfig,
     params: Dict,
@@ -267,13 +325,17 @@ def forward(
     loss is the MoE layers' sum, in layer order, on the no-cache path, and
     0 with caches, as in JAX.  ``embeds`` (B, S, D) replaces the token
     embeddings.  With caches, each layer's tensors are written in place
-    (module docstring)."""
+    (module docstring).  With ``cfg.remat``, a pass without caches that
+    records gradients checkpoints each repeat unit (``_forward_remat``)."""
     x = _embed_in(cfg, params, tokens, positions, embeds)
     layer_types = cfg.layer_types()
     new_pos: List[torch.Tensor] = []
     new_rem: List[Dict] = []
     reps = cfg.num_layers // len(cfg.block_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if caches is None and cfg.remat and torch.is_grad_enabled():
+        x, aux = _forward_remat(cfg, params, x, aux, positions, use_flash)
+        return L.apply_norm(cfg, params["final_norm"], x), None, aux
     for i, (p, btype) in enumerate(zip(params["blocks"], layer_types)):
         cache = None if caches is None else _layer_cache(caches, cfg, i)
         x, nc, a = _apply_block(cfg, p, btype, x, positions, cache, use_flash)
@@ -378,11 +440,10 @@ def lm_loss(
     JAX package.  ``targets`` default to the shifted tokens (a (B, S)
     tensor is shifted, a (B, S - 1) one is taken as it is).  ``use_flash``
     routes attention through K6 and the RWKV time mix through K7, both
-    forward-only.  ``cfg.remat`` is
-    not applied: at the sizes the port runs, the activations of a pass fit
-    on the card.  The VLM and audio frontends pass ``embeds`` (B, S, D)
-    and ``targets`` in place of tokens.  The MoE layers' aux loss is
-    added."""
+    forward-only.  ``cfg.remat`` checkpoints each repeat unit of a pass
+    that records gradients, as in JAX (``forward``).  The VLM and audio
+    frontends pass ``embeds`` (B, S, D) and ``targets`` in place of tokens.
+    The MoE layers' aux loss is added."""
     if tokens is None and (embeds is None or targets is None):
         raise ValueError("lm_loss takes tokens, or embeds with targets")
     x = tokens if tokens is not None else embeds

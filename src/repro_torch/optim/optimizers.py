@@ -14,7 +14,7 @@ the parameters' dtype; ``apply_updates`` casts back.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -130,8 +130,14 @@ def adamw(lr: float, weight_decay: float = 0.01, **kw) -> Optimizer:
 
 class AdafactorState(NamedTuple):
     step: torch.Tensor  # () int32
-    vr: Params  # row second moments (the full v for < 2-D tensors)
-    vc: Params  # column second moments (a () zero for < 2-D tensors)
+    vr: Any  # row second moments (the full v for < 2-D tensors), one per leaf or group
+    vc: Any  # column second moments (a () zero for < 2-D tensors), one per leaf or group
+
+
+# leaf indices (``tree_leaves`` order) grouped into the leaves adafactor
+# factors and clips: an int is a leaf alone, a list the leaves stacked along
+# a new first axis as one leaf
+Groups = List[Union[int, List[int]]]
 
 
 def adafactor(
@@ -139,24 +145,45 @@ def adafactor(
     decay: float = 0.8,
     eps: float = 1e-30,
     clip_threshold: float = 1.0,
+    groups: Optional[Callable[[Params], Groups]] = None,
 ) -> Optimizer:
     """Adafactor (Shazeer & Stern) with factored second moments for >= 2-D
-    tensors: O(n + m) state instead of O(n * m)."""
+    tensors: O(n + m) state instead of O(n * m).
+
+    ``groups(tree)`` steps the tree as if some of its leaves were stacked
+    into one (a transformer's layers, as the JAX package stacks them): a
+    group's second moments are factored over the stacked shape and its
+    update is clipped by the RMS of the whole group, without forming the
+    stack for leaves of >= 2 dims.  The state then holds one entry per
+    group, in the stacked shape; without ``groups`` one per leaf, in the
+    tree's structure."""
+
+    def vr_init(shape, like):
+        return _zeros32(shape[:-1] if len(shape) >= 2 else shape, like)
+
+    def vc_init(shape, like):
+        return _zeros32(shape[:-2] + shape[-1:] if len(shape) >= 2 else (), like)
+
+    def shape_of(leaves, g):
+        return tuple(leaves[g].shape) if isinstance(g, int) else (len(g),) + tuple(leaves[g[0]].shape)
 
     def init(params: Params) -> AdafactorState:
-        def vr_init(p):
-            return _zeros32(p.shape[:-1] if p.ndim >= 2 else p.shape, p)
-
-        def vc_init(p):
-            return _zeros32(p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else (), p)
-
-        return AdafactorState(_step0(params), tree_map(vr_init, params), tree_map(vc_init, params))
+        if groups is None:
+            vr = tree_map(lambda p: vr_init(tuple(p.shape), p), params)
+            vc = tree_map(lambda p: vc_init(tuple(p.shape), p), params)
+            return AdafactorState(_step0(params), vr, vc)
+        leaves = tree_leaves(params)
+        shapes = [shape_of(leaves, g) for g in groups(params)]
+        return AdafactorState(
+            _step0(params), [vr_init(s, leaves[0]) for s in shapes], [vc_init(s, leaves[0]) for s in shapes]
+        )
 
     def update(grads: Params, state: AdafactorState, params: Optional[Params] = None):
         step = state.step + 1
         beta = 1.0 - step.float() ** (-decay)
 
-        def upd(g, vr, vc):
+        def scaled(g, vr, vc):
+            """The unclipped update of one tensor and its new moments."""
             g = g.float()
             g2 = g * g + eps
             if g.ndim >= 2:
@@ -168,16 +195,42 @@ def adafactor(
                 vr_n = beta * vr + (1 - beta) * g2
                 vc_n = vc
                 v = vr_n
-            u = g / torch.sqrt(torch.clamp_min(v, eps))
-            rms = torch.sqrt(torch.mean(u * u) + eps)
-            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
-            return -lr * u, vr_n, vc_n
+            return g / torch.sqrt(torch.clamp_min(v, eps)), vr_n, vc_n
 
-        out = [
-            upd(g, vr, vc)
-            for g, vr, vc in zip(tree_leaves(grads), tree_leaves(state.vr), tree_leaves(state.vc))
-        ]
-        updates, vr, vc = (tree_unflatten(grads, [o[i] for o in out]) for i in range(3))
-        return updates, AdafactorState(step, vr, vc)
+        def clipped(us):
+            """-lr times ``us``, clipped by the RMS over all of them."""
+            ms = sum(torch.sum(u * u) for u in us) / sum(u.numel() for u in us)
+            div = torch.clamp_min(torch.sqrt(ms + eps) / clip_threshold, 1.0)
+            return [-lr * (u / div) for u in us]
+
+        leaves = tree_leaves(grads)
+        if groups is None:
+            vr_l, vc_l = tree_leaves(state.vr), tree_leaves(state.vc)
+            grouped = list(range(len(leaves)))
+        else:
+            vr_l, vc_l, grouped = state.vr, state.vc, groups(grads)
+        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        vrs, vcs = [], []
+        for g, vr, vc in zip(grouped, vr_l, vc_l):
+            if isinstance(g, int):
+                u, vr_n, vc_n = scaled(leaves[g], vr, vc)
+                (out[g],) = clipped([u])
+            elif leaves[g[0]].ndim < 2:
+                # a stack of vectors or scalars: small, so it is formed
+                u, vr_n, vc_n = scaled(torch.stack([leaves[i] for i in g]), vr, vc)
+                for i, x in zip(g, clipped([u])[0].unbind(0)):
+                    out[i] = x
+            else:
+                # each layer's rows and columns are its own: only the clip
+                # reads the whole stack
+                parts = [scaled(leaves[i], vr[j], vc[j]) for j, i in enumerate(g)]
+                for i, x in zip(g, clipped([p[0] for p in parts])):
+                    out[i] = x
+                vr_n, vc_n = torch.stack([p[1] for p in parts]), torch.stack([p[2] for p in parts])
+            vrs.append(vr_n)
+            vcs.append(vc_n)
+        if groups is None:
+            vrs, vcs = tree_unflatten(grads, vrs), tree_unflatten(grads, vcs)
+        return tree_unflatten(grads, out), AdafactorState(step, vrs, vcs)
 
     return Optimizer(init, update)

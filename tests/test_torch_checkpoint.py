@@ -175,8 +175,9 @@ def _args(**kw):
     base = dict(
         arch="smollm-360m", mode="fl", selection="fedavg", rounds=2, steps=3, clients=6, per_round=3,
         docs_per_client=4, local_steps=1, local_batch=2, seq=16, lr=1e-3, seed=0, log_every=100,
-        device="cpu", full_width=False, flash=False, shard_clients=0, cohort_cap=None, scenario=None,
-        staleness_bound=None, staleness_decay="polynomial", staleness_alpha=0.5, candidate_frac=None,
+        device="cpu", full_width=False, layers=None, flash=False, shard_clients=0, cohort_cap=None,
+        scenario=None, staleness_bound=None, staleness_decay="polynomial", staleness_alpha=0.5,
+        candidate_frac=None,
         faults=None, aggregator="mean", local_algo="fedavg", prox_mu=None, feddyn_alpha=None,
         ckpt_every=None, ckpt=None, telemetry=None, profile_dir=None,
     )

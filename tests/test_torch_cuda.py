@@ -5,6 +5,7 @@ file imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import gc
 import os
 import tempfile
 import warnings
@@ -38,12 +39,15 @@ def _profiles(c, q, dtype, device, seed=0):
 # K1's and K3's path shapes: the FL paths' K1 (FC-1 and LM profiles) and
 # the stage-wise route's K3 (FC-1, representative and gradient profiles)
 PAIRWISE_PATH_SHAPES = [(10, 960, torch.float32), (100, 1280, torch.float32), (100, 4096, torch.float32)]
+# K1 at the LM path's inits of the later archs: their profile widths
+# (qwen2-vl-2b and musicgen-medium; rwkv6-7b, recurrentgemma-9b, mixtral-8x7b)
+TRAIN_PROFILE_SHAPES = [(10, 1536, torch.float32), (10, 4096, torch.float32)]
 
 
 @pytest.mark.parametrize(
     "c,q,dtype",
     [(100, 128, torch.float32), (1000, 700, torch.float32), (513, 257, torch.bfloat16), (5, 3, torch.float32)]
-    + PAIRWISE_PATH_SHAPES,
+    + PAIRWISE_PATH_SHAPES + TRAIN_PROFILE_SHAPES,
 )
 def test_pairwise_dists_stats_kernel_matches_plain(card, c, q, dtype):
     f = _profiles(c, q, dtype, card)
@@ -562,6 +566,8 @@ def _assert_one_bf16_step(got, want):
         (1, 128, 4, 1, 64, 32, torch.float32),
         (1, 32, 2, 2, 8, None, torch.float32),
         (16, 512, 15, 5, 64, None, torch.bfloat16),  # the LM path's refresh shape
+        (16, 128, 12, 2, 128, None, torch.bfloat16),  # qwen2-vl-2b's refresh
+        (16, 128, 24, 24, 64, None, torch.bfloat16),  # musicgen-medium's refresh
         (2, 1000, 48, 8, 128, None, torch.bfloat16),  # ragged: 1000 = 15 * 64 + 40
         (1, 300, 16, 16, 256, 100, torch.bfloat16),
         (2, 200, 6, 3, 40, None, torch.bfloat16),  # hd not a multiple of 64
@@ -873,3 +879,57 @@ def test_funnel_fields_launch_k1_and_k2_once_on_the_candidate_block(card):
     want = gram_ref.kernel_from_profiles_ref(f[cand.long()])
     assert kern.shape == (512, 512) and torch.equal(kern, kern.T)
     assert float((kern - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize(
+    "arch",
+    ["rwkv6-7b", "qwen2-vl-2b", "musicgen-medium", "recurrentgemma-9b", "mixtral-8x7b",
+     "llama4-maverick-400b-a17b"],
+)
+def test_full_width_gradient_step_through_one_unit_launches_no_kernel(card, arch):
+    """One gradient step of the LM loss at the arch's published widths and
+    dtypes, through one unit of each family's block pattern (RWKV, M-RoPE,
+    sinusoidal, mixtral's softmax top-2 MoE; recurrentgemma's RG-LRU,
+    RG-LRU and local attention; llama4's attn+mlp and attn+moe layers, the
+    second with its sigmoid router, 128 experts and the shared expert,
+    ~18.6 B parameters and as many gradients in bf16): finite, no kernel
+    launched (K6 and K7 are forward-only and the gradient path takes the
+    plain versions), and the same with remat, which recomputes the unit in
+    the backward pass (MoE's scatter-add sums in the order its atomics
+    land).  The first pass's gradients wait on the host while the second
+    runs, since two sets of llama4's do not fit the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.fl.local_algos import make_grad_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    full = get_arch(arch).model
+    cfg = dataclasses.replace(full, num_layers=len(full.block_pattern))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = T.init_params(torch.Generator(device=card).manual_seed(0), cfg, card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1)).to(card)
+    before = dict(_build.LAUNCHES)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        loss, grads = make_grad_fn(lambda p, b: T.lm_loss(c, p, b))(params, toks)
+        out[remat] = (loss, grads if remat else [g.cpu() for g in tree_leaves(grads)])
+        del grads
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before
+    (l0, g0), (l1, g1) = out[False], out[True]
+    assert bool(torch.isfinite(l0)) and float(l0) > 0
+    torch.testing.assert_close(l1, l0, rtol=1e-5, atol=0.0)
+    piece = 1 << 26  # elements compared at a time: an fp32 copy of an expert leaf would not fit
+    for a, b in zip(tree_leaves(g1), g0):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        scale = max(float(y.to(card).float().abs().max()) for y in b.flatten().split(piece))
+        for x, y in zip(a.flatten().split(piece), b.flatten().split(piece)):
+            assert bool(torch.isfinite(x).all())
+            torch.testing.assert_close(x.float(), y.to(card).float(), rtol=0.0, atol=1e-2 * scale + 1e-30)
+    del params, out, g1
+    gc.collect()
+    torch.cuda.empty_cache()

@@ -277,6 +277,74 @@ def test_guarded_round_step_matches_jax(aggregator):
         np.testing.assert_allclose(tagg[n].numpy(), np.asarray(jagg[n]), rtol=0, atol=1e-6, err_msg=n)
 
 
+def _listed_round(loss_fn, lr, guard, algo):
+    """``build_client_parallel_round`` as it stood before each client's
+    params went into a preallocated stack: a list of the clients' new
+    params (and states), stacked once they were all trained."""
+    from repro_torch.core.metrics import finite_mean
+    from repro_torch.tree import tree_map
+
+    local = trounds.build_local_algo_update(algo, loss_fn, lr)
+    stateful = algo is not None and algo.stateful
+
+    def step(gp, batches, weights, *g_args, client_states=None):
+        ps, sts, ls = [], [], []
+        for i in range(weights.shape[0]):
+            batch = tuple(x[i] for x in batches)
+            if stateful:
+                p, st, loss = local(gp, tree_map(lambda s: s[i], client_states), batch)
+                sts.append(st)
+            else:
+                p, loss = local(gp, batch)
+            ps.append(p)
+            ls.append(loss)
+        stacked, losses = tree_map(lambda *xs: torch.stack(xs), *ps), torch.stack(ls)
+        out = (tree_map(lambda *xs: torch.stack(xs), *sts),) if stateful else ()
+        if guard is None:
+            return (trounds.weighted_average(stacked, weights), torch.mean(losses)) + out
+        stacked, w, losses, flagged = guard(stacked, gp, weights, losses, *g_args)
+        entry = torch.mean(losses, dim=tuple(range(1, losses.ndim)))
+        survivors = torch.sum((w > 0).to(torch.int32))
+        return (trounds.weighted_average(stacked, w), finite_mean(entry, where=w > 0), flagged, survivors) + out
+
+    return step
+
+
+@pytest.mark.parametrize("case", ["unguarded"] + list(jfaults.AGGREGATORS) + ["feddyn+trimmed_mean"])
+def test_round_step_equals_the_list_then_stack_round_bit_for_bit(case):
+    """Writing each client's new params into a preallocated ``(C_p, ...)``
+    stack changes no bit: the aggregate, the mean loss, the guard's
+    ``flagged`` and ``survivors`` and FedDyn's new states equal those of
+    the round that listed the clients' params and stacked them, under
+    every aggregator with injected faults (a NaN and a garbage update among
+    them)."""
+    from repro_torch.fl.local_algos import FedDyn, init_client_states
+
+    aggregator = case.split("+")[-1]
+    algo = FedDyn(0.05) if case.startswith("feddyn") else None
+    guard = None if case == "unguarded" else tfaults.make_update_guard(aggregator, 3.0, garbage_scale=50.0,
+                                                                         inject=True)
+    xs, ys, params = _federation(6)
+    params = {n: torch.from_numpy(v) for n, v in params.items()}
+    masks = () if guard is None else tuple(torch.from_numpy(m) for m in (
+        np.array([1, 1, 1, 0, 1, 1], bool), np.arange(6) == 1, np.arange(6) == 4, np.arange(6) == 5))
+    batches = (torch.from_numpy(xs.reshape(6, 2, 3, FEAT)), torch.from_numpy(ys.reshape(6, 2, 3)))
+    weights = torch.arange(1.0, 7.0)
+    kw = {}
+    if algo is not None:
+        states = init_client_states(algo, params, 6)
+        kw["client_states"] = {n: s + 0.01 * torch.randn(s.shape, generator=torch.Generator().manual_seed(1))
+                               for n, s in states.items()}
+    loss_fn = lambda p, b: linear_loss(p, b[0], b[1])  # noqa: E731
+    new = trounds.build_client_parallel_round(loss_fn, 0.1, 2, update_transform=guard, algo=algo)(
+        params, batches, weights, *masks, **kw)
+    old = _listed_round(loss_fn, 0.1, guard, algo)(params, batches, weights, *masks, **kw)
+    assert len(new) == len(old)
+    for a, b in zip(new, old):
+        for x, y in zip(*(list(t.values()) if isinstance(t, dict) else [t] for t in (a, b))):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
 # ------------------------------------------------------- config contract
 
 

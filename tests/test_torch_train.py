@@ -25,7 +25,7 @@ from repro.launch import train as jtrain  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 
 from repro_torch import optim as toptim  # noqa: E402
-from repro_torch.configs import ARCH_NAMES, get_arch  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import selection as tsel  # noqa: E402
 from repro_torch.data import make_token_dataset  # noqa: E402
 from repro_torch.fl import engine as tengine  # noqa: E402
@@ -34,6 +34,16 @@ from repro_torch.kernels.flash_attention import ops as tflash  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small models on the CPU: one intra-op thread keeps the port's side
+    from contending for the cores with the other test workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _np(tree):
@@ -168,7 +178,7 @@ def _args(**kw):
     base = dict(
         arch="smollm-360m", mode="fl", selection="fl-dp3s", rounds=ROUNDS, steps=3, clients=C,
         per_round=K, docs_per_client=DOCS, local_steps=STEPS, local_batch=BATCH, seq=SEQ,
-        lr=1e-3, seed=0, log_every=1, device="cpu", full_width=False, flash=False,
+        lr=1e-3, seed=0, log_every=1, device="cpu", full_width=False, layers=None, flash=False,
         shard_clients=0, cohort_cap=None, scenario=None, staleness_bound=None,
         staleness_decay="polynomial", staleness_alpha=0.5, candidate_frac=None, faults=None,
         aggregator="mean", local_algo="fedavg", prox_mu=None, feddyn_alpha=None,
@@ -228,10 +238,6 @@ def test_lm_fl_slice_matches_jax_run_scanned(monkeypatch, flash):
     ``--flash``) against JAX's scanned engine, round by round."""
     jparams, jprof, jkern, jouts, jfinal, plans = _jax_lm_fl()
     tcfg = get_arch("smollm-360m").model.reduced(param_dtype="float32", dtype="float32", remat=False)
-    monkeypatch.setattr(
-        ttrain, "build_model",
-        lambda arch, seed, full_width, device: (tcfg, tT.params_from_jax(_np(jparams), tcfg, device=device)),
-    )
     monkeypatch.setattr(ttrain, "make_strategy", lambda name: _Replay(jouts["selected"]))
     queue = [torch.from_numpy(p.astype(np.int64)) for p in plans]
 
@@ -244,7 +250,7 @@ def test_lm_fl_slice_matches_jax_run_scanned(monkeypatch, flash):
     calls = []
     k6 = tflash.flash_attention
     monkeypatch.setattr(tflash, "flash_attention", lambda *a, **kw: calls.append(1) or k6(*a, **kw))
-    state, outs = ttrain.run_fl(_args(flash=flash))
+    state, outs = ttrain.run_fl(_args(flash=flash), model=(tcfg, tT.params_from_jax(_np(jparams), tcfg, device="cpu")))
     assert not queue
     # K6 takes every layer of each refresh forward (one per cohort client
     # and round) and nothing else
@@ -363,16 +369,29 @@ def test_launcher_refuses_flags_not_ported(mode, flag, value):
         ttrain.main(["--mode", mode, flag, value, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", sorted(ttrain.NOT_TRAINED))
+def test_layers_cuts_the_published_config():
+    """``--layers N`` keeps the first N layers of the full-width config,
+    its widths and dtypes as published."""
+    cfg, params = ttrain.build_model("smollm-360m", 0, full_width=True, layers=2, device="cpu")
+    full = get_arch("smollm-360m").model
+    assert cfg.num_layers == 2 and len(params["blocks"]) == 2
+    assert (cfg.d_model, cfg.param_dtype, cfg.remat) == (full.d_model, full.param_dtype, full.remat)
+    assert params["embed"]["w"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "argv,match",
+    [
+        (["--arch", "rwkv6-7b", "--layers", "2"], "needs --full-width"),
+        (["--arch", "llama4-maverick-400b-a17b", "--full-width", "--layers", "3"], "multiple of its block pattern"),
+        (["--arch", "recurrentgemma-9b", "--full-width", "--layers", "4"], "multiple of its block pattern"),
+        (["--arch", "mixtral-8x7b", "--full-width", "--layers", "33"], "at most its 32"),
+    ],
+)
 @pytest.mark.parametrize("mode", ["fl", "pretrain"])
-def test_launcher_refuses_the_archs_it_does_not_train_yet(mode, arch):
-    """The five archs the port serves but does not train yet: both modes
-    refuse them, naming ROADMAP Queue 1 item 8; their configs and
-    optimizers are JAX's."""
-    assert arch in ARCH_NAMES and get_arch(arch).optimizer == jget_arch(arch).optimizer
-    assert get_arch(arch).fl.lr == jget_arch(arch).fl.lr
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        ttrain.main(["--mode", mode, "--arch", arch, "--rounds", "1", "--steps", "1", "--device", "cpu"])
+def test_layers_refuses_cuts_the_pattern_does_not_take(mode, argv, match):
+    with pytest.raises(ValueError, match=match):
+        ttrain.main(["--mode", mode, "--device", "cpu"] + argv)
 
 
 def test_flash_in_pretrain_raises():
