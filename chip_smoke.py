@@ -146,6 +146,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    beside it, so check (e)'s fp32 leg is skipped for that arch alone
    (``FP32_SKIPPED``) with the byte count that rules it out; for any other
    arch a copy that does not fit fails the run.
+6c. Observability (``obs_phase``): FL-DP³S at the paper's cell through
+   ``FLTrainer.run`` (4 rounds re-profiled every 2, ``chaos`` with
+   ``trimmed_mean``, cuDNN deterministic) with telemetry and a sink and
+   without, from trainers built alike: outputs, final state, history and
+   generators bit for bit, the events (a manifest naming the card, a
+   ``fl_round`` a round, one ``fl_reprofile``) and their fields; then
+   smollm-360m at full width with K5 through ``ServeEngine`` (16
+   requests, budgets in [8, 32], chunks of 8) with a sink and without:
+   the same tokens, one shape signature per entry point, the events, K5
+   once per layer and decode step in both; then ``--profile-dir``: the
+   serve launcher at full width (``--continuous --flash``, 4 requests of
+   16 tokens in 4 slots) and a 2-round CNN run of 20 clients under
+   ``tracing.trace``: each Chrome trace parses and holds the engines'
+   host spans, and the device kernels it recorded are printed beside the
+   launch counters (or that it recorded none).  Phase 5's FL run also
+   writes ``--telemetry``: one ``fl_round`` a round equal to its outputs,
+   rendered by the report.
 7. Prints, for each shape a path gives K1 or K3, each shape the RWKV
    path gave K7, each new arch's decode shape of K5 and each refresh shape
    of K6 in phase 5b, its launches there beside that shape's cold device
@@ -161,6 +178,8 @@ It needs no network and imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import math
@@ -336,6 +355,20 @@ TRAIN_PATHS = {
 # (PERF.md §6), and rwkv6-7b's plain scan under autograd (2.5 s a local
 # step) is most of it
 TRAIN_ROUNDS, TRAIN_SEQ, TRAIN_PRETRAIN_STEPS = 1, 128, 2
+# phase 6c, observability: the CNN run with and without telemetry (rounds,
+# reprofiled every OBS_EVERY); the serving run with and without a sink
+# (requests, budgets, decode chunk; SERVE_BATCH slots, SERVE_PROMPT
+# tokens); the traced runs, kept small (a trace of full-width rounds holds
+# tens of thousands of aten ops a step): the serve launcher's requests,
+# tokens and slots, and a CNN run of OBS_TRACE_C clients of the phase-3
+# data for 2 rounds
+OBS_ROUNDS, OBS_EVERY = 4, 2
+# the order of the runs with telemetry (True) and without, in (a) and (c)
+OBS_TURNS = (False, True, True, False)
+OBS_REQUESTS, OBS_BUDGETS, OBS_CHUNK = 16, (8, 32), 8
+OBS_TRACE_REQUESTS, OBS_TRACE_GEN, OBS_TRACE_BATCH, OBS_TRACE_C = 4, 16, 4, 20
+# the device kernels of the traced paths, by a part of their names
+OBS_DEVICE_KERNELS = {"K1": "pairwise_kernel", "K2": "gram_syrk_kernel", "K5": "flash_decode"}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1899,18 +1932,43 @@ def lm_phase(torch, dev) -> int:
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
 
+    import tempfile
+
+    from repro_torch.analysis import report
+    from repro_torch.obs import load_events
+
     cfg = get_arch("smollm-360m").model
     common = ["--arch", "smollm-360m", "--full-width", "--seq", str(LM_SEQ), "--log-every", "1"]
-    fl_argv = ["--mode", "fl", "--flash", "--rounds", str(LM_ROUNDS), "--clients", str(LM_CLIENTS),
-               "--per-round", str(LM_PER_ROUND), "--docs-per-client", str(LM_DOCS)] + common
-    print(f"LM FL: python -m repro_torch.launch.train {' '.join(fl_argv)}")
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, outs = train_launch.main(fl_argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        telemetry = f"{tmp}/lm_fl.jsonl"
+        fl_argv = ["--mode", "fl", "--flash", "--rounds", str(LM_ROUNDS), "--clients", str(LM_CLIENTS),
+                   "--per-round", str(LM_PER_ROUND), "--docs-per-client", str(LM_DOCS),
+                   "--telemetry", telemetry] + common
+        print(f"LM FL: python -m repro_torch.launch.train {' '.join(fl_argv)}")
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, outs = train_launch.main(fl_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = load_events(telemetry)
     launches = dict(_build.LAUNCHES)
+    # (6c b) the run's telemetry: one fl_round a round, equal to its outputs
+    rounds_ev = [e for e in events if e["event"] == "fl_round"]
+    check([e["event"] for e in events] == ["manifest"] + ["fl_round"] * LM_ROUNDS,
+          f"LM telemetry events {[e['event'] for e in events]}")
+    check(events[0]["device_kind"] == torch.cuda.get_device_name(0) and events[0]["arch"] == "smollm-360m",
+          f"LM manifest {events[0]}")
+    for i, e in enumerate(rounds_ev):
+        check(e["round"] == i + 1 and e["loss"] == float(outs["loss"][i]) and e["gemd"] == float(outs["gemd"][i])
+              and e["selected"] == outs["selected"][i].tolist(), f"fl_round event {i} off the outputs: {e}")
+    text = report.summarize(events)
+    check(f"training: {LM_ROUNDS} rounds" in text, f"the report of the LM run: {text}")
+    print(f"LM FL telemetry (6c b): {len(events)} events, each fl_round's loss, GEMD and cohort equal to the "
+          f"run's outputs; cache_age {[e['cache_age'] for e in rounds_ev]}, spectrum_erank "
+          f"{[round(e['spectrum_erank'], 4) for e in rounds_ev]}; the report renders 'training: {LM_ROUNDS} rounds'")
     layers, refreshes = cfg.num_layers, LM_ROUNDS * LM_PER_ROUND
     print(f"LM FL: {LM_ROUNDS} rounds in {wall:.3f} s with set-up (model, data, profiles, "
           f"K1 + K2, eigh); launches {launches}")
@@ -2331,6 +2389,265 @@ def train_phase(torch, dev, arch: str) -> dict:
     seconds = time.perf_counter() - t_phase
     print(f"[5b {arch}] {seconds:.1f} s")
     return {"launches": launches, "seconds": seconds, "d_model": cfg.d_model}
+
+
+def _trace_of(path) -> dict:
+    """The one Chrome trace under ``path``: its host spans and device
+    kernels by name, its size in bytes."""
+    import collections
+    import glob
+
+    files = glob.glob(f"{path}/*.pt.trace.json")
+    check(len(files) == 1, f"traces under {path}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return {
+        "spans": collections.Counter(e["name"] for e in events if e.get("cat") == "user_annotation"),
+        "kernels": collections.Counter(e["name"] for e in events if e.get("cat") == "kernel"),
+        "bytes": Path(files[0]).stat().st_size,
+        "events": len(events),
+    }
+
+
+def _device_line(what: str, trace: dict, launched: dict) -> str:
+    """The traced device kernels of ``OBS_DEVICE_KERNELS`` beside the launch
+    counters' counts of the same run (the profiler has dropped device
+    events on this card before; the counters show that a kernel ran)."""
+    if not trace["kernels"]:
+        return (f"{what}: the profiler recorded no device event; the launch counters show "
+                + ", ".join(f"{k} {n}" for k, n in launched.items()))
+    counts = {k: sum(n for name, n in trace["kernels"].items() if mark in name)
+              for k, mark in OBS_DEVICE_KERNELS.items() if k in launched}
+    return (f"{what}: {sum(trace['kernels'].values())} device kernel events of {len(trace['kernels'])} names; "
+            + ", ".join(f"{k} {counts[k]} traced / {launched[k]} launched" for k in launched))
+
+
+def obs_phase(torch, dev, exp, client_xs, client_ys) -> None:
+    """Observability on the card, phase 6c.
+
+    (a) FL-DP³S at the paper's cell through ``FLTrainer.run``, ``OBS_ROUNDS``
+    rounds re-profiled every ``OBS_EVERY`` under ``chaos`` with
+    ``trimmed_mean``, from trainers built alike, with telemetry and a sink
+    and without, in turns (``OBS_TURNS``): each segment's outputs (but the
+    host timings), the final state (every tensor and generator state), the
+    history and the trainer's generators equal bit for bit; the events are
+    one manifest (naming this card), a ``fl_round`` a round and one
+    ``fl_reprofile``; ``cache_age`` restarts at the boundary, at most k
+    survivors, ``spectrum_erank`` in [1, C].  cuDNN deterministic, as in
+    3d and 3e.  (c) smollm-360m at full width with K5 through
+    ``ServeEngine`` (``OBS_REQUESTS`` requests, budgets in ``OBS_BUDGETS``,
+    chunks of ``OBS_CHUNK``) with a sink and without, in turns: the same tokens bit
+    for bit, one shape signature per entry point, a submission, admission
+    and finish per request with its budget's tokens, K5 once per layer and
+    decode step in both runs.  (d) ``--profile-dir``: the serve launcher
+    at full width (``--continuous --flash``, small traffic) and a 2-round
+    CNN ``FLTrainer.run`` of ``OBS_TRACE_C`` clients under
+    ``tracing.trace``, its init included: each Chrome trace parses and
+    holds the engines' host spans; the device kernels it recorded are
+    printed beside the launch counters.  (b) is in phase 5."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core import selection
+    from repro_torch.fl import engine
+    from repro_torch.fl.trainer import FLTrainer
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import cnn
+    from repro_torch.obs import TelemetrySink, load_events, tracing
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    same_hist = lambda a, b: all(  # noqa: E731
+        len(a[k]) == len(b[k]) and all(x == y or (math.isnan(x) and math.isnan(y)) for x, y in zip(a[k], b[k]))
+        for k in a)
+
+    # ------------------------------------------ (a) the CNN, on and off
+    # in turns, off, on, on, off: a run's first call pays warm-up the
+    # others do not, and the host's speed drifts within a call
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = []
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for i, telemetry in enumerate(OBS_TURNS):
+            cfg = dataclasses.replace(paper_cnn.fl_config(exp, seed=0), reprofile_every=OBS_EVERY, faults="chaos",
+                                      aggregator="trimmed_mean", telemetry=telemetry)
+            params = cnn.init_cnn(torch.Generator(device=dev).manual_seed(0), channels=exp.cnn_channels,
+                                  fc1_dim=exp.fc1_dim)
+            trainer = FLTrainer(cfg, params, cnn.cnn_loss, cnn.apply_with_features, client_xs, client_ys,
+                                selection.DPPSelection(), accuracy_fn=cnn.accuracy)
+            with contextlib.ExitStack() as stack:
+                sink = None
+                if telemetry:
+                    sink = stack.enter_context(TelemetrySink(f"{tmp}/cnn{i}.jsonl"))
+                    sink.write_manifest(config=cfg, extra={"mode": "fl", "arch": "paper-cnn"})
+                spy = stack.enter_context(_Spy(engine, "run_scanned"))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hist = trainer.run(rounds=OBS_ROUNDS, sink=sink)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            runs.append((telemetry, trainer, hist, [c[2] for c in spy.calls], wall,
+                         load_events(f"{tmp}/cnn{i}.jsonl") if telemetry else None))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    _, t_ref, h_ref, seg_ref, _, _ = runs[0]
+    want = _state_tensors(seg_ref[-1][0])
+    for telemetry, trainer, hist, segs, _, events in runs[1:]:
+        check(len(segs) == len(seg_ref) == OBS_ROUNDS // OBS_EVERY, f"(6c a) segments {len(segs)}")
+        for (_, o_ref), (_, o) in zip(seg_ref, segs):
+            check(set(o) == set(o_ref) | ({"telemetry"} if telemetry else set()), f"(6c a) outputs {sorted(o)}")
+            for k in o_ref:
+                if not k.startswith("t_"):
+                    check(_same(torch, o_ref[k], o[k]), f"(6c a) output {k} differs (telemetry={telemetry})")
+        got = _state_tensors(segs[-1][0])
+        off = [k for k in want if k not in got or not _same(torch, want[k], got[k])]
+        check(set(want) == set(got) and not off, f"(6c a) final state differs (telemetry={telemetry}) in {off}")
+        check(same_hist(h_ref, hist), f"(6c a) histories {h_ref} and {hist}")
+        for g in ("generator", "funnel_generator", "fault_generator"):
+            check(torch.equal(getattr(t_ref, g).get_state(), getattr(trainer, g).get_state()), f"(6c a) {g} differs")
+        if not telemetry:
+            continue
+        kinds = [e["event"] for e in events]
+        want_kinds = ["manifest"] + (["fl_round"] * OBS_EVERY + ["fl_reprofile"]) * (OBS_ROUNDS // OBS_EVERY - 1) \
+            + ["fl_round"] * OBS_EVERY
+        check(kinds == want_kinds, f"(6c a) events {kinds}")
+        check(events[0]["device_kind"] == card and events[0]["backend"] == "cuda", f"(6c a) manifest {events[0]}")
+        rounds_ev = [e for e in events if e["event"] == "fl_round"]
+        ages = [e["cache_age"] for e in rounds_ev]
+        check(ages == [t % OBS_EVERY for t in range(OBS_ROUNDS)], f"(6c a) cache_age {ages}")
+        check(all(e["survivors"] <= exp.clients_per_round and 1 <= e["spectrum_erank"] <= exp.num_clients
+                  for e in rounds_ev), f"(6c a) survivors or erank off: {rounds_ev}")
+        check(all(o["telemetry"].survivors.device.type == "cpu" for _, o in segs),
+              "(6c a) stacked telemetry not on the host")
+    walls = {t: [r[4] for r in runs if r[0] == t] for t in (False, True)}
+    print(f"obs (a) CNN at C={exp.num_clients}, k={exp.clients_per_round}, chaos + trimmed_mean, {OBS_ROUNDS} "
+          f"rounds re-profiled every {OBS_EVERY}, in turns {list(OBS_TURNS)}: with telemetry "
+          f"{[round(w, 4) for w in walls[True]]} s, without {[round(w, 4) for w in walls[False]]} s (means "
+          f"{(statistics.mean(walls[True]) - statistics.mean(walls[False])) / OBS_ROUNDS * 1e3:+.2f} ms a round); "
+          f"outputs, final state ({len(want)} tensors and generator states), history and generators of all "
+          f"{len(runs)} runs equal bit for bit; events {dict(collections.Counter(kinds))}; cache_age {ages}, "
+          f"survivors {[e['survivors'] for e in rounds_ev]}, flagged {[e['flagged'] for e in rounds_ev]}, "
+          f"spectrum_erank {[round(e['spectrum_erank'], 4) for e in rounds_ev]}")
+    del runs, t_ref, seg_ref, trainer, segs
+
+    # ------------------------------------------- (c) serving, on and off
+    cfg, params = serve_launch.build_model("smollm-360m", 0, full_width=True, device=dev)
+    layers = cfg.num_layers
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(OBS_REQUESTS, SERVE_PROMPT), dtype=np.int32)
+    budgets = rng.integers(OBS_BUDGETS[0], OBS_BUDGETS[1] + 1, size=OBS_REQUESTS)
+    scfg = ServeConfig(batch=SERVE_BATCH, cache_len=SERVE_PROMPT + OBS_BUDGETS[1], max_new=OBS_BUDGETS[1],
+                       decode_chunk=OBS_CHUNK, use_flash=True)
+    served = []
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for i, on in enumerate(OBS_TURNS):
+            with contextlib.ExitStack() as stack:
+                sink = stack.enter_context(TelemetrySink(f"{tmp}/serve{i}.jsonl")) if on else None
+                eng = ServeEngine(cfg, scfg, params, prompt_len=SERVE_PROMPT, telemetry=sink)
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for j in range(OBS_REQUESTS):
+                    eng.submit(prompts[j], int(budgets[j]))
+                fin = eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            served.append((on, {f.seq_id: f.tokens for f in fin}, eng.compile_counts(), eng.state.step,
+                           _build.LAUNCHES["flash_decode"], wall,
+                           load_events(f"{tmp}/serve{i}.jsonl") if on else None))
+    tok_ref = served[0][1]
+    check(set(tok_ref) == set(range(OBS_REQUESTS)), f"(6c c) sequences {sorted(tok_ref)}")
+    for on, toks, cc, steps, k5, _, events in served:
+        check(set(toks) == set(tok_ref) and all(np.array_equal(toks[i], tok_ref[i]) for i in toks),
+              f"(6c c) tokens differ (sink={on})")
+        check(cc == {"decode_chunk": 1, "admit": 1}, f"(6c c) shape signatures {cc} (sink={on})")
+        check(k5 == layers * steps and steps == served[0][3],
+              f"(6c c) K5 launches {k5} for {steps} decode steps of {layers} layers (sink={on})")
+        if not on:
+            continue
+        kinds = collections.Counter(e["event"] for e in events)
+        check(kinds["serve_submit"] == kinds["serve_admit"] == kinds["serve_finish"] == OBS_REQUESTS
+              and kinds["serve_chunk"] >= 1, f"(6c c) events {dict(kinds)}")
+        fin_ev = {e["seq_id"]: e["n_tokens"] for e in events if e["event"] == "serve_finish"}
+        check(fin_ev == {i: int(budgets[i]) for i in range(OBS_REQUESTS)}, f"(6c c) n_tokens {fin_ev}")
+        ttft = [e["ttft_s"] for e in events if e["event"] == "serve_admit"]
+        check(all(t >= 0 for t in ttft), f"(6c c) TTFT {ttft}")
+        chunks = [e for e in events if e["event"] == "serve_chunk"]
+    walls = {t: [r[5] for r in served if r[0] == t] for t in (False, True)}
+    print(f"obs (c) smollm-360m full width, K5, {OBS_REQUESTS} requests of budgets {budgets.tolist()}, chunk "
+          f"{OBS_CHUNK}, in turns {list(OBS_TURNS)}: with a sink {[round(w, 4) for w in walls[True]]} s, without "
+          f"{[round(w, 4) for w in walls[False]]} s ({len(chunks)} chunks; means "
+          f"{(statistics.mean(walls[True]) - statistics.mean(walls[False])) / len(chunks) * 1e3:+.2f} ms a "
+          f"chunk); tokens of all {len(served)} runs equal bit for bit, shape signatures {served[0][2]}, K5 "
+          f"{served[0][4]} launches = {layers} x {served[0][3]} decode steps in each run; events {dict(kinds)}; "
+          f"TTFT s p50 {statistics.median(ttft):.4f} max {max(ttft):.4f}; chunk dt_s "
+          f"{[e['dt_s'] for e in chunks]}, tok_s {[e['tok_s'] for e in chunks]}")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------- (d) the traces
+    real_handler = torch.profiler.tensorboard_trace_handler
+    export_s = []
+
+    def timed_handler(*a, **kw):
+        handler = real_handler(*a, **kw)
+
+        def on_ready(prof):
+            t0 = time.perf_counter()
+            handler(prof)
+            export_s.append(time.perf_counter() - t0)
+
+        return on_ready
+
+    torch.profiler.tensorboard_trace_handler = timed_handler
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            argv = ["--arch", "smollm-360m", "--full-width", "--continuous", "--flash", "--requests",
+                    str(OBS_TRACE_REQUESTS), "--gen", str(OBS_TRACE_GEN), "--batch", str(OBS_TRACE_BATCH),
+                    "--profile-dir", f"{tmp}/serve"]
+            print(f"obs (d): python -m repro_torch.launch.serve {' '.join(argv)}")
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            serve_launch.main(argv)
+            t_serve = time.perf_counter() - t0
+            k5 = _build.LAUNCHES["flash_decode"]
+            serve_trace = _trace_of(f"{tmp}/serve")
+
+            cfg = dataclasses.replace(paper_cnn.fl_config(exp, seed=0), num_clients=OBS_TRACE_C,
+                                      reprofile_every=2)
+            params = cnn.init_cnn(torch.Generator(device=dev).manual_seed(0), channels=exp.cnn_channels,
+                                  fc1_dim=exp.fc1_dim)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with tracing.trace(f"{tmp}/cnn"):
+                trainer = FLTrainer(cfg, params, cnn.cnn_loss, cnn.apply_with_features, client_xs[:OBS_TRACE_C],
+                                    client_ys[:OBS_TRACE_C], selection.DPPSelection(), accuracy_fn=cnn.accuracy)
+                trainer.run(rounds=2)
+                torch.cuda.synchronize()
+            t_cnn = time.perf_counter() - t0
+            k1, k2 = (_build.LAUNCHES[n] for n in FL_KERNELS)
+            cnn_trace = _trace_of(f"{tmp}/cnn")
+    finally:
+        torch.profiler.tensorboard_trace_handler = real_handler
+    check(serve_trace["spans"]["serve.admit"] == OBS_TRACE_REQUESTS and serve_trace["spans"]["serve.decode_chunk"] >= 1,
+          f"(6c d) serving spans {dict(serve_trace['spans'])}")
+    check(cnn_trace["spans"]["fl.scan_chunk[2]"] == 1 and cnn_trace["spans"]["fl.reprofile"] == 1,
+          f"(6c d) CNN spans {dict(cnn_trace['spans'])}")
+    check(k5 > 0 and k1 >= 1 and k2 >= 1, f"(6c d) launches K5 {k5}, K1 {k1}, K2 {k2}")
+    for what, tr, secs, exp_s in (("serve launcher", serve_trace, t_serve, export_s[0]),
+                                  ("CNN FLTrainer", cnn_trace, t_cnn, export_s[1])):
+        print(f"obs (d) {what} trace: {tr['events']} events, {tr['bytes'] / 2**20:.2f} MiB, exported in "
+              f"{exp_s:.3f} s of the run's {secs:.3f} s; host spans {dict(tr['spans'])}")
+    print("obs (d) " + _device_line("serving", serve_trace, {"K5": k5}))
+    print("obs (d) " + _device_line("CNN init and rounds", cnn_trace, {"K1": k1, "K2": k2}))
+    print(f"phase 6c: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _tf32(torch, x):
@@ -2944,6 +3261,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("serving phases (s): " + ", ".join(f"{a} {new_serve[a][2]:.1f}" for a in NEW_SERVE_ARCHS))
+
+    # ------------------------------------------------- 6c. observability
+    obs_phase(torch, dev, exp, client_xs, client_ys)
 
     # ---------------------------------------------------------- 7. results
     main_shape = SHAPES[0]

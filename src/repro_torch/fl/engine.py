@@ -6,7 +6,7 @@ reads the same in both packages.  One default differs: ``use_pallas_kernel``
 is True here, so a config left as it is builds the eq.-(14) kernel through
 the port's K1 + K2 on the card.  ``__post_init__`` validates the fields as
 JAX does and refuses those whose features this package does not run yet
-(mesh slots, staleness, telemetry), each with its ROADMAP item.
+(mesh slots, staleness), each with its ROADMAP item.
 
 The engine is the JAX package's single-device engine:
 :func:`init_server_state` (Algorithm-1 init into a :class:`ServerState`,
@@ -19,7 +19,10 @@ guard and eq.-(6) aggregation, loss refresh, GEMD and accuracy; the JAX
 ``lax.scan``, here a host loop that stacks each round's outputs),
 :func:`run_many` over a grid of states, :func:`run_checkpointed` with
 :func:`save_server_state` and :func:`restore_server_state` (crash-resume),
-:func:`funnel_fields` and :func:`history_from_outputs`.  JAX's server key
+:func:`funnel_fields` and :func:`history_from_outputs`.  With
+``FLConfig.telemetry`` a round also returns its :class:`~repro_torch.obs.Telemetry`,
+and the runners take a :class:`~repro_torch.obs.TelemetrySink` that each
+segment's outputs are drained to after its last round.  JAX's server key
 becomes one ``torch.Generator`` that the round draws from, in place: the
 cohort first, then the batch plans.  JAX branches the scenario's draws,
 the fault draws and the funnel's predictions off that key with a salt;
@@ -48,6 +51,9 @@ from repro_torch.fl import faults as faults_lib
 from repro_torch.fl import local_algos as local_algos_lib
 from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl import scenarios as scenarios_lib
+from repro_torch.obs import sink as obs_sink_lib
+from repro_torch.obs import telemetry as obs_telemetry_lib
+from repro_torch.obs import tracing as obs_tracing_lib
 from repro_torch.tree import tree_map
 
 __all__ = [
@@ -66,6 +72,7 @@ __all__ = [
     "save_server_state",
     "restore_server_state",
     "stack_states",
+    "concat_outputs",
     "unstack_outputs",
     "history_from_outputs",
 ]
@@ -117,6 +124,8 @@ class FLConfig:
     local_algo: str = "fedavg"
     prox_mu: Optional[float] = None
     feddyn_alpha: Optional[float] = None
+    # a round also returns its obs.Telemetry under "telemetry"; every other
+    # output and the state stay as they are without it, bit for bit
     telemetry: bool = False
 
     def local_algo_obj(self) -> local_algos_lib.LocalAlgo:
@@ -142,7 +151,6 @@ class FLConfig:
             "cohort_cap": (self.cohort_cap is not None, 15),
             # JAX runs staleness on a mesh only, which item 15 brings
             "staleness_bound": (self.staleness_bound is not None, 15),
-            "telemetry": (self.telemetry, 13),
         }
         fields = [f"{name} (ROADMAP Queue 1 item {item})" for name, (used, item) in not_ported.items() if used]
         if fields:
@@ -588,7 +596,9 @@ def make_round_fn(
     with a scenario ``sim_time`` (the slowest selected client's latency,
     the synchronous barrier) and, with an availability model, ``avail``;
     guarded, ``survivors``, ``identity_round``, ``flagged`` and
-    ``quarantined`` (int32); and ``t_select``, ``t_local``, ``t_refresh``:
+    ``quarantined`` (int32); with ``cfg.telemetry``, ``telemetry`` (an
+    :class:`~repro_torch.obs.Telemetry` computed from values the round
+    holds, on its device); and ``t_select``, ``t_local``, ``t_refresh``:
     host seconds of the three parts, each closed by a device synchronise
     (the scenario's and the fault draws count to selection, the accuracy
     to the refresh)."""
@@ -713,6 +723,14 @@ def make_round_fn(
             out["identity_round"] = (~kept).to(torch.int32)
             out["flagged"] = torch.sum(flagged_c.to(torch.int32))
             out["quarantined"] = torch.sum((q > 0).to(torch.int32))
+        if cfg.telemetry:
+            # it adds outputs only: no draw, no state field, no synchronise
+            out["telemetry"] = obs_telemetry_lib.round_telemetry(
+                cfg, state, t=t, avail=avail,
+                flagged=flagged_c if guarded else None,
+                survivors=survivors if guarded else None,
+                quarantine=q if guarded else None,
+            )
         out.update(t_select=t1 - t0, t_local=t2 - t1, t_refresh=t3 - t2)
         return new_state, out
 
@@ -722,27 +740,50 @@ def make_round_fn(
 # ------------------------------------------------------------------ runners
 
 
-def _stack(outs: List[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+def _join(outs: List[Dict[str, Any]], fn: Callable) -> Dict[str, Any]:
+    """``fn`` over each output's list of values in ``outs`` (a stack or a
+    concatenation); the ``telemetry`` record field by field."""
+
+    def one(values):
+        if isinstance(values[0], obs_telemetry_lib.Telemetry):
+            return obs_telemetry_lib.Telemetry.combine(values, fn)
+        return fn(values)
+
+    return {name: one([o[name] for o in outs]) for name in outs[0]}
+
+
+def _stack(outs: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Per-round output dicts -> each output stacked on a leading axis, on
     the CPU."""
-    return {
-        name: torch.stack([torch.as_tensor(o[name]).detach().cpu() for o in outs])
-        for name in outs[0]
-    }
+    return _join(outs, lambda vs: torch.stack([torch.as_tensor(v).detach().cpu() for v in vs]))
+
+
+def concat_outputs(outs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Segments' stacked outputs joined along the round axis."""
+    return _join(outs, torch.cat)
 
 
 def run_scanned(
-    round_fn, state: ServerState, num_rounds: int
-) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+    round_fn, state: ServerState, num_rounds: int,
+    sink: Optional[obs_sink_lib.TelemetrySink] = None,
+) -> Tuple[ServerState, Dict[str, Any]]:
     """Run ``num_rounds`` rounds -> (final state, per-round outputs stacked
     on a leading ``(num_rounds,)`` axis, on the CPU).  JAX compiles the
     rounds into one ``lax.scan``; here they run eagerly in a host loop
-    (capturing them as a CUDA graph is later work)."""
+    (capturing them as a CUDA graph is later work).
+
+    ``sink`` takes one ``fl_round`` event per round, drained from the
+    stacked outputs after the loop, never inside a round, so a sink
+    changes no round."""
     outs: List[Dict[str, Any]] = []
-    for _ in range(num_rounds):
-        state, out = round_fn(state)
-        outs.append(out)
-    return state, (_stack(outs) if outs else {})
+    with obs_tracing_lib.annotate(f"fl.scan_chunk[{num_rounds}]"):
+        for _ in range(num_rounds):
+            state, out = round_fn(state)
+            outs.append(out)
+        stacked = _stack(outs) if outs else {}
+    if sink is not None and num_rounds:
+        obs_sink_lib.drain_fl_outputs(sink, stacked)
+    return state, stacked
 
 
 # ------------------------------------------------------------ crash-resume
@@ -805,25 +846,30 @@ def run_checkpointed(
     round_fn, state: ServerState, num_rounds: int,
     ckpt_dir: Optional[str] = None,
     ckpt_every: Optional[int] = None,
-) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+    sink: Optional[obs_sink_lib.TelemetrySink] = None,
+) -> Tuple[ServerState, Dict[str, Any]]:
     """:func:`run_scanned` in ``ckpt_every``-round segments, the whole state
     saved (:func:`save_server_state`) after each.  Segmenting changes no
     number, and a run restored from a snapshot continues as the
     uninterrupted one (run N == run n, restore, run N − n).  With
-    ``ckpt_dir`` or ``ckpt_every`` unset this is :func:`run_scanned`."""
+    ``ckpt_dir`` or ``ckpt_every`` unset this is :func:`run_scanned`.
+    ``sink`` takes each segment's rounds and an ``fl_checkpoint`` event
+    after each save."""
     if ckpt_dir is None or not ckpt_every:
-        return run_scanned(round_fn, state, num_rounds)
+        return run_scanned(round_fn, state, num_rounds, sink=sink)
     done = 0
-    outs: List[Dict[str, torch.Tensor]] = []
+    outs: List[Dict[str, Any]] = []
     while done < num_rounds:
         n = min(ckpt_every, num_rounds - done)
-        state, seg = run_scanned(round_fn, state, n)
+        state, seg = run_scanned(round_fn, state, n, sink=sink)
         outs.append(seg)
         save_server_state(ckpt_dir, state)
+        if sink is not None:
+            sink.emit("fl_checkpoint", round=state.round)
         done += n
     if not outs:
         return state, {}
-    return state, {name: torch.cat([o[name] for o in outs]) for name in outs[0]}
+    return state, concat_outputs(outs)
 
 
 def stack_states(states: Sequence[ServerState]) -> Tuple[ServerState, ...]:
@@ -861,15 +907,16 @@ def run_many(
         outs.append(out)
     if num_rounds == 0:
         return tuple(finals), {}
-    return tuple(finals), {name: torch.stack([o[name] for o in outs]) for name in outs[0]}
+    return tuple(finals), _join(outs, torch.stack)
 
 
-def unstack_outputs(outputs: Dict[str, torch.Tensor]) -> List[Dict[str, np.ndarray]]:
-    """:func:`run_many` outputs -> one per-run dict of numpy arrays each."""
+def unstack_outputs(outputs: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """:func:`run_many` outputs -> one per-run dict of numpy arrays each
+    (the ``telemetry`` record's fields as numpy arrays too)."""
     if not outputs:
         return []
-    n = next(iter(outputs.values())).shape[0]
-    return [{name: np.asarray(v[i]) for name, v in outputs.items()} for i in range(n)]
+    n = outputs["round"].shape[0]
+    return [_join([outputs], lambda vs, i=i: np.asarray(vs[0][i])) for i in range(n)]
 
 
 # ------------------------------------------------------------------ history

@@ -39,6 +39,7 @@ from repro_torch.fl import engine as engine_lib
 from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl import scenarios as scenarios_lib
 from repro_torch.fl.engine import FLConfig
+from repro_torch.obs import tracing as obs_tracing_lib
 
 __all__ = ["FLConfig", "FLTrainer"]
 
@@ -264,7 +265,7 @@ class FLTrainer:
         self.fault_generator = state.fault_generator
 
     # ------------------------------------------------------------------
-    def run(self, rounds: Optional[int] = None, progress: bool = False) -> Dict[str, List]:
+    def run(self, rounds: Optional[int] = None, progress: bool = False, sink=None) -> Dict[str, List]:
         """Run rounds through the engine, in segments that end at the
         multiples of ``reprofile_every``; after each such boundary the
         trainer re-profiles every client, re-fits the clusters and, under
@@ -276,10 +277,21 @@ class FLTrainer:
         grid.  Round numbers continue from earlier ``run`` calls.  A
         strategy that does not override ``draw_fn`` runs the legacy loop,
         which refuses faults, robust aggregation and a local algorithm other
-        than FedAvg."""
+        than FedAvg.
+
+        ``sink`` (an :class:`~repro_torch.obs.TelemetrySink`) takes each
+        segment's rounds after the segment, and an ``fl_reprofile`` event
+        at each boundary the next segment starts from (JAX's events for a
+        run from round 0: none at a boundary that ends the run).  The
+        legacy loop has no telemetry, so a sink there is a ``ValueError``."""
         cfg = self.cfg
         rounds = rounds or cfg.rounds
         if not self._supports_engine():
+            if sink is not None:
+                raise ValueError(
+                    f"a telemetry sink needs the engine: strategy {self.strategy.name!r} runs the legacy "
+                    "loop (it does not override draw_fn), which has no telemetry"
+                )
             return self.run_legacy(rounds=rounds, progress=progress)
         round_fn = self.round_fn()
         start = self.round_state.round
@@ -290,15 +302,18 @@ class FLTrainer:
         t = start
         while t < end:
             n = end - t if not every else min(end - t, every - t % every)
-            state, seg = engine_lib.run_scanned(round_fn, state, n)
+            state, seg = engine_lib.run_scanned(round_fn, state, n, sink=sink)
             outs.append(seg)
             t += n
             self._absorb(state)
             if every and t % every == 0:
-                self._init_profiles()  # re-profile and re-fit the clusters
+                with obs_tracing_lib.annotate("fl.reprofile"):
+                    self._init_profiles()  # re-profile and re-fit the clusters
                 if t < end:
+                    if sink is not None:
+                        sink.emit("fl_reprofile", round=t, funneled=cfg.candidate_frac is not None)
                     state = dataclasses.replace(state, **self._selection_fields())
-        merged = {name: torch.cat([o[name] for o in outs]) for name in outs[0]}
+        merged = engine_lib.concat_outputs(outs)
         final_acc = self._evaluate() if end % cfg.eval_every != 0 else None
         hist = engine_lib.history_from_outputs(merged, cfg.eval_every, final_acc=final_acc)
         for name in self.history:

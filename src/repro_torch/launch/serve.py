@@ -23,11 +23,19 @@ fp32; with it, the arch's own widths and dtypes.  Weights are random from
 ``np.random.default_rng(seed)``.  Prefill is charged the ``b*p`` prompt
 tokens and samples the first generated token; decode is charged the other
 ``b*(g-1)``.  Timings are host clock up to a device synchronise.
+
+``--telemetry PATH`` writes the run's manifest and, with ``--continuous``,
+the engine's events (submissions, admissions with TTFT, decode chunks,
+finishes), in the other modes one ``serve_summary`` event, as JSONL that
+``python -m repro_torch.analysis.report PATH`` renders.  ``--profile-dir
+DIR`` traces the whole run with ``torch.profiler`` into a Chrome trace
+there.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -38,6 +46,8 @@ from repro_torch.configs import ARCH_NAMES, model_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.obs import TelemetrySink
+from repro_torch.obs import tracing as obs_tracing_lib
 from repro_torch.serve import (
     Finished,
     ServeConfig,
@@ -136,7 +146,9 @@ def run_continuous(cfg: ModelConfig, params: Dict, prompts: np.ndarray, budgets,
                    temperature: float = 0.0, decode_chunk: int = 8,
                    use_flash: bool = False, seed: int = 0, telemetry=None):
     """Stream ``len(prompts)`` requests through ``batch`` slots.
-    -> (finished list, {"t_total": s, "tokens": n, "compiles": {...}})."""
+    -> (finished list, {"t_total": s, "tokens": n, "compiles": {...}}).
+    ``telemetry`` (a :class:`~repro_torch.obs.TelemetrySink`) takes the
+    engine's events."""
     n, p = prompts.shape
     gmax = int(max(budgets))
     scfg = ServeConfig(batch=batch, cache_len=p + gmax, max_new=gmax,
@@ -155,10 +167,6 @@ def run_continuous(cfg: ModelConfig, params: Dict, prompts: np.ndarray, budgets,
 
 
 def serve(args) -> Optional[np.ndarray | List[Finished]]:
-    if args.telemetry or args.profile_dir:
-        raise NotImplementedError(
-            "--telemetry and --profile-dir are not ported yet (ROADMAP Queue 1, Slice 4)"
-        )
     device = resolve_device(args.device)
     cfg, params = build_model(args.arch, args.seed, args.full_width, device)
     b, p, g = args.batch, args.prompt_len, args.gen
@@ -166,31 +174,52 @@ def serve(args) -> Optional[np.ndarray | List[Finished]]:
     width = "full width" if args.full_width else "reduced"
     print(f"arch={args.arch} ({width}, {cfg.dtype}) batch={b} prompt={p} gen={g} on {device}")
 
-    if args.continuous:
-        n = args.requests or 2 * b
-        all_prompts = rng.integers(0, cfg.vocab_size, size=(n, p), dtype=np.int32)
-        budgets = rng.integers(max(1, g // 4), g + 1, size=n) if args.mixed else np.full(n, g)
-        finished, stats = run_continuous(
-            cfg, params, all_prompts, budgets, b, temperature=args.temperature,
-            use_flash=args.flash, seed=args.seed,
-        )
-        print(f"continuous: {len(finished)} seqs, {stats['tokens']} generated "
-              f"tokens in {stats['t_total']*1e3:.1f} ms "
-              f"({stats['tokens']/stats['t_total']:,.0f} tok/s aggregate)")
-        print(f"compiled programs: {stats['compiles']}")
-        return finished
+    # the trace spans the whole run; the sink closes however the run ends
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(obs_tracing_lib.trace(args.profile_dir))
+        sink = None
+        if args.telemetry:
+            sink = stack.enter_context(TelemetrySink(args.telemetry))
+            sink.write_manifest(
+                config={"arch": args.arch, "batch": b, "prompt_len": p, "gen": g,
+                        "temperature": args.temperature, "use_flash": bool(args.flash), "seed": args.seed,
+                        "full_width": bool(args.full_width)},
+                extra={"mode": "serve"}, device=device,
+            )
 
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p), dtype=np.int32), device=device)
-    if args.scan:
-        gen_toks, t = run_scan_mode(cfg, params, prompts, g, temperature=args.temperature,
-                                    use_flash=args.flash, seed=args.seed)
-        mode = "scan"
-    else:
-        if args.temperature:
-            raise SystemExit("--temperature requires --scan or --continuous "
-                             "(the legacy oracle is greedy-only)")
-        gen_toks, t = run_legacy(cfg, params, prompts, g)
-        mode = "legacy"
+        if args.continuous:
+            n = args.requests or 2 * b
+            all_prompts = rng.integers(0, cfg.vocab_size, size=(n, p), dtype=np.int32)
+            budgets = rng.integers(max(1, g // 4), g + 1, size=n) if args.mixed else np.full(n, g)
+            finished, stats = run_continuous(
+                cfg, params, all_prompts, budgets, b, temperature=args.temperature,
+                use_flash=args.flash, seed=args.seed, telemetry=sink,
+            )
+            print(f"continuous: {len(finished)} seqs, {stats['tokens']} generated "
+                  f"tokens in {stats['t_total']*1e3:.1f} ms "
+                  f"({stats['tokens']/stats['t_total']:,.0f} tok/s aggregate)")
+            print(f"compiled programs: {stats['compiles']}")
+            if sink is not None:
+                print(f"telemetry -> {args.telemetry} (render with "
+                      f"`python -m repro_torch.analysis.report {args.telemetry}`)")
+            return finished
+
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, p), dtype=np.int32), device=device)
+        if args.scan:
+            gen_toks, t = run_scan_mode(cfg, params, prompts, g, temperature=args.temperature,
+                                        use_flash=args.flash, seed=args.seed)
+            mode = "scan"
+        else:
+            if args.temperature:
+                raise SystemExit("--temperature requires --scan or --continuous "
+                                 "(the legacy oracle is greedy-only)")
+            gen_toks, t = run_legacy(cfg, params, prompts, g)
+            mode = "legacy"
+        if sink is not None:
+            # the batch modes have no admission queue: one summary event
+            sink.emit("serve_summary", mode=mode, t_prefill_s=t["t_prefill"], t_decode_s=t["t_decode"],
+                      tokens=b * g, decode_tok_s=b * (g - 1) / max(t["t_decode"], 1e-9))
+            print(f"telemetry -> {args.telemetry}")
 
     print(f"prefill: {t['t_prefill']*1e3:.1f} ms "
           f"({b*p/t['t_prefill']:,.0f} prompt tok/s, +{b} sampled)")
@@ -227,8 +256,10 @@ def main(argv=None):
                     help="route attention through K5/K6 and the RWKV-6 time mix through K7")
     ap.add_argument("--check", action="store_true",
                     help="assert scan tokens match the legacy oracle")
-    ap.add_argument("--telemetry", default=None, metavar="PATH", help="not ported yet")
-    ap.add_argument("--profile-dir", default=None, metavar="PATH", help="not ported yet")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write the run's manifest and serving events as JSONL to PATH")
+    ap.add_argument("--profile-dir", default=None, metavar="PATH",
+                    help="trace the run with torch.profiler into a Chrome trace (*.pt.trace.json) in PATH")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--full-width", action="store_true",
                     help="the arch's own widths and dtypes instead of the reduced fp32 model")

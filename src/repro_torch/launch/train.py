@@ -29,9 +29,14 @@ k-DPP draws from.  ``--faults`` injects a fault model's client failures,
 objective.  With ``--ckpt DIR --ckpt-every N`` the whole server state is
 saved every N rounds, and a relaunch resumes from the latest snapshot and
 runs only the rounds left; ``--ckpt`` alone saves the final params (in
-``--mode pretrain`` the params and the optimizer state).  Flags of
-features the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+``--mode pretrain`` the params and the optimizer state).  ``--telemetry
+PATH`` writes the run's manifest and one ``fl_round`` event a round (with
+the per-round diagnostics of ``FLConfig.telemetry``) as JSONL, which
+``python -m repro_torch.analysis.report PATH`` renders, and
+``--profile-dir DIR`` traces the rounds with ``torch.profiler`` into a
+Chrome trace there; both only in ``--mode fl``.  Flags of features the
+port does not run yet raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 Every arch of the registry trains in both modes.  ``--layers N`` (with
 ``--full-width``) keeps the first N layers of the published config, a
@@ -42,6 +47,8 @@ archs whole nor the C_p updated copies a round keeps of them.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -62,6 +69,8 @@ from repro_torch.fl.local_algos import ALGO_NAMES
 from repro_torch.fl.scenarios import SCENARIO_NAMES
 from repro_torch.launch.serve import build_model
 from repro_torch.models import transformer as T
+from repro_torch.obs import TelemetrySink
+from repro_torch.obs import tracing as obs_tracing_lib
 
 __all__ = ["main", "parse_args", "pretrain_optimizer", "run_fl", "run_pretrain"]
 
@@ -104,8 +113,6 @@ def _refuse_unported(args) -> None:
         ("--staleness-bound", args.staleness_bound is not None, 15),
         ("--staleness-decay", args.staleness_decay != "polynomial", 15),
         ("--staleness-alpha", args.staleness_alpha != 0.5, 15),
-        ("--telemetry", args.telemetry is not None, 13),
-        ("--profile-dir", args.profile_dir is not None, 13),
     ]
     used = [f"{flag} (ROADMAP Queue 1 item {item})" for flag, on, item in checks if on]
     if used:
@@ -117,9 +124,10 @@ def run_fl(
 ) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
     """Federated LM training through the engine -> (final state, per-round
     outputs stacked over rounds, with the host seconds of each round's
-    selection, local updates and loss refresh; empty when a resumed run
-    has no round left).  ``model`` (config, params on the device) trains in
-    place of the random model the flags describe."""
+    selection, local updates and loss refresh, and with ``--telemetry``
+    each round's ``telemetry``; empty when a resumed run has no round
+    left).  ``model`` (config, params on the device) trains in place of the
+    random model the flags describe."""
     _refuse_unported(args)
     if args.ckpt_every is not None and not args.ckpt:
         raise SystemExit("--ckpt-every requires --ckpt DIR")
@@ -164,57 +172,72 @@ def run_fl(
         local_algo=args.local_algo,
         prox_mu=args.prox_mu,
         feddyn_alpha=args.feddyn_alpha,
+        telemetry=args.telemetry is not None,
     )
-    state = engine_lib.init_server_state(
-        flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device,
-        loss_fn=loss_fn,
-    )
-    tag = f"[fl:{args.selection}]"
-    if flcfg.candidate_frac is not None:
-        print(f"{tag} funnel: C={c} -> Q={flcfg.candidate_count()} candidates "
-              f"(kernel {tuple(state.kernel.shape)})")
-    round_fn = engine_lib.make_round_fn(flcfg, loss_fn, (strategy,))
-    # crash-resume: with --ckpt-every the directory holds whole-state
-    # snapshots, so a relaunch continues from the latest and runs only the
-    # rounds left, as the uninterrupted run would have
-    checkpointed = flcfg.ckpt_every is not None
-    start = 0
-    if checkpointed:
-        step = latest_step(args.ckpt)
-        if step is not None:
-            state = engine_lib.restore_server_state(args.ckpt, state, step=step)
-            start = state.round
-            print(f"{tag} resumed round {start} from {args.ckpt}/step_{step:08d}")
-    remaining = max(args.rounds - start, 0)
-    state, outs = engine_lib.run_checkpointed(
-        round_fn, state, remaining, ckpt_dir=args.ckpt, ckpt_every=flcfg.ckpt_every
-    )
-    for i in range(remaining):
-        t = int(outs["round"][i])
-        if t % args.log_every == 0 or t == args.rounds:
-            print(f"{tag} round {t:4d} sel={outs['selected'][i].tolist()} "
-                  f"loss={float(outs['loss'][i]):.4f} gemd={float(outs['gemd'][i]):.3f}")
-            print(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
-                  f"local updates {float(outs['t_local'][i]):.4f} "
-                  f"refresh {float(outs['t_refresh'][i]):.4f}")
-    if flcfg.guarded() and remaining:
-        # identity rounds and all-corrupt cohorts report NaN round losses
-        surv, losses = outs["survivors"].double(), outs["loss"].double()
-        finite = losses[torch.isfinite(losses)]
-        best = f"{float(finite.min()):.4f}" if finite.numel() else "n/a (no finite round losses)"
-        print(f"{tag} faults={flcfg.faults or 'none'} aggregator={flcfg.aggregator}: "
-              f"mean survivors {float(surv.mean()):.1f}/{args.per_round}, "
-              f"flagged {int(outs['flagged'].sum())}, "
-              f"identity rounds {int(outs['identity_round'].sum())}, best finite loss {best}")
-    if "sim_time" in outs:
-        sim = outs["sim_time"].double()
-        print(f"{tag} scenario={args.scenario} (synchronous barrier): simulated wall clock "
-              f"{float(sim.sum()):.2f} (mean round {float(sim.mean()):.2f})")
-    if args.ckpt and not checkpointed:
-        # the final params alone; with --ckpt-every the directory already
-        # holds whole-state snapshots
-        save(args.ckpt, args.rounds, state.params)
-        print(f"checkpoint -> {args.ckpt}")
+    # the run's events; the sink closes however the run ends
+    with contextlib.ExitStack() as stack:
+        sink = None
+        if args.telemetry:
+            sink = stack.enter_context(TelemetrySink(args.telemetry))
+            sink.write_manifest(
+                config=dataclasses.asdict(flcfg), device=device,
+                extra={"mode": "fl", "arch": args.arch, "selection": args.selection},
+            )
+        state = engine_lib.init_server_state(
+            flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device,
+            loss_fn=loss_fn,
+        )
+        tag = f"[fl:{args.selection}]"
+        if flcfg.candidate_frac is not None:
+            print(f"{tag} funnel: C={c} -> Q={flcfg.candidate_count()} candidates "
+                  f"(kernel {tuple(state.kernel.shape)})")
+        round_fn = engine_lib.make_round_fn(flcfg, loss_fn, (strategy,))
+        # crash-resume: with --ckpt-every the directory holds whole-state
+        # snapshots, so a relaunch continues from the latest and runs only the
+        # rounds left, as the uninterrupted run would have
+        checkpointed = flcfg.ckpt_every is not None
+        start = 0
+        if checkpointed:
+            step = latest_step(args.ckpt)
+            if step is not None:
+                state = engine_lib.restore_server_state(args.ckpt, state, step=step)
+                start = state.round
+                print(f"{tag} resumed round {start} from {args.ckpt}/step_{step:08d}")
+        remaining = max(args.rounds - start, 0)
+        with obs_tracing_lib.trace(args.profile_dir):
+            state, outs = engine_lib.run_checkpointed(
+                round_fn, state, remaining, ckpt_dir=args.ckpt, ckpt_every=flcfg.ckpt_every, sink=sink
+            )
+        for i in range(remaining):
+            t = int(outs["round"][i])
+            if t % args.log_every == 0 or t == args.rounds:
+                print(f"{tag} round {t:4d} sel={outs['selected'][i].tolist()} "
+                      f"loss={float(outs['loss'][i]):.4f} gemd={float(outs['gemd'][i]):.3f}")
+                print(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
+                      f"local updates {float(outs['t_local'][i]):.4f} "
+                      f"refresh {float(outs['t_refresh'][i]):.4f}")
+        if flcfg.guarded() and remaining:
+            # identity rounds and all-corrupt cohorts report NaN round losses
+            surv, losses = outs["survivors"].double(), outs["loss"].double()
+            finite = losses[torch.isfinite(losses)]
+            best = f"{float(finite.min()):.4f}" if finite.numel() else "n/a (no finite round losses)"
+            print(f"{tag} faults={flcfg.faults or 'none'} aggregator={flcfg.aggregator}: "
+                  f"mean survivors {float(surv.mean()):.1f}/{args.per_round}, "
+                  f"flagged {int(outs['flagged'].sum())}, "
+                  f"identity rounds {int(outs['identity_round'].sum())}, best finite loss {best}")
+        if "sim_time" in outs:
+            sim = outs["sim_time"].double()
+            print(f"{tag} scenario={args.scenario} (synchronous barrier): simulated wall clock "
+                  f"{float(sim.sum()):.2f} (mean round {float(sim.mean()):.2f})")
+        if args.ckpt and not checkpointed:
+            # the final params alone; with --ckpt-every the directory already
+            # holds whole-state snapshots
+            save(args.ckpt, args.rounds, state.params)
+            print(f"checkpoint -> {args.ckpt}")
+        if sink is not None:
+            n_ev = sum(sink.event_counts.values())
+            print(f"{tag} telemetry -> {args.telemetry} ({n_ev} events; render with "
+                  f"`python -m repro_torch.analysis.report {args.telemetry}`)")
     return state, outs
 
 
@@ -232,8 +255,11 @@ def run_pretrain(
                                      ("--local-algo", args.local_algo != "fedavg"),
                                      ("--prox-mu", args.prox_mu is not None),
                                      ("--feddyn-alpha", args.feddyn_alpha is not None),
-                                     ("--ckpt-every", args.ckpt_every is not None)) if on]
+                                     ("--ckpt-every", args.ckpt_every is not None),
+                                     ("--telemetry", args.telemetry is not None),
+                                     ("--profile-dir", args.profile_dir is not None)) if on]
     if fl_only:
+        # the JAX launcher ignores them in pretrain; the port refuses them
         raise ValueError(f"{', '.join(fl_only)} select federation features: use --mode fl")
     if args.flash:
         raise NotImplementedError(
@@ -320,14 +346,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt", default=None, metavar="DIR",
                     help="checkpoint directory; without --ckpt-every the final params (and, "
                          "in --mode pretrain, the optimizer state) are saved there")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="--mode fl: write the run's manifest and per-round diagnostics as JSONL to "
+                         "PATH (turns on FLConfig.telemetry)")
+    ap.add_argument("--profile-dir", default=None, metavar="PATH",
+                    help="--mode fl: trace the rounds with torch.profiler into a Chrome trace "
+                         "(*.pt.trace.json) in PATH")
     # the JAX launcher's flags of features not ported yet: each raises
     ap.add_argument("--shard-clients", type=int, default=0)
     ap.add_argument("--cohort-cap", type=int, default=None)
     ap.add_argument("--staleness-bound", type=int, default=None)
     ap.add_argument("--staleness-decay", default="polynomial")
     ap.add_argument("--staleness-alpha", type=float, default=0.5)
-    ap.add_argument("--telemetry", default=None, metavar="PATH")
-    ap.add_argument("--profile-dir", default=None, metavar="PATH")
     return ap.parse_args(argv)
 
 

@@ -20,7 +20,9 @@ The JAX package's engine as PyTorch code that runs eagerly:
 * :func:`make_admit_fn` prefills one queued sequence into a width-1
   per-slot cache and installs it in the first unoccupied slot.
 * :class:`ServeEngine` is the host side: an admission queue, decode in
-  chunks of ``decode_chunk`` steps, harvest of finished slots, refill.
+  chunks of ``decode_chunk`` steps, harvest of finished slots, refill,
+  and, with a :class:`~repro_torch.obs.TelemetrySink`, the events of
+  each submission, admission, decode chunk and finish.
 
 **In place.**  The step and the admission write the caches, the token
 buffer and the per-slot buffers of the state they are given in place (a
@@ -41,6 +43,7 @@ chunk is captured as a CUDA graph, which is left for a later change.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -49,6 +52,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.obs import tracing as obs_tracing_lib
 from repro_torch.serve.sampling import sample_tokens, slot_noise
 
 __all__ = [
@@ -293,14 +297,18 @@ class _ShapeCounted:
 class ServeEngine:
     """Host-side continuous batching: an admission queue, decode in chunks
     of ``scfg.decode_chunk`` steps, harvest of stopped slots and refill.
-    Runs on the device of ``params``."""
+    Runs on the device of ``params``.
+
+    ``telemetry`` (a :class:`~repro_torch.obs.TelemetrySink`) takes
+    ``serve_submit``, ``serve_admit`` (with TTFT), ``serve_chunk`` and
+    ``serve_finish`` events, emitted between the device's work at the
+    queue's boundaries.  Without one the engine adds no synchronise and
+    records no clock; with one it reads the generated counts around each
+    chunk (two host reads a chunk) and nothing else changes: the same
+    tokens, the same shape signatures."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Dict,
                  prompt_len: int, seed: int = 0, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "serving telemetry is not ported yet (ROADMAP Queue 1, Slice 4)"
-            )
         if prompt_len < 1:
             raise ValueError(f"prompt_len={prompt_len} must be >= 1")
         if scfg.cache_len < prompt_len + scfg.max_new:
@@ -322,6 +330,9 @@ class ServeEngine:
         self.finished: List[Finished] = []
         self._queue: List[Tuple[int, np.ndarray, int]] = []
         self._next_id = 0
+        self._sink = telemetry
+        self._t_submit: Dict[int, float] = {}
+        self._pending_admits: List[Tuple[int, int]] = []  # (seq_id, queue depth)
 
     # -- queue ------------------------------------------------------------
 
@@ -335,6 +346,9 @@ class ServeEngine:
         seq_id = self._next_id
         self._next_id += 1
         self._queue.append((seq_id, prompt, gen_target))
+        if self._sink is not None:
+            self._t_submit[seq_id] = time.perf_counter()
+            self._sink.emit("serve_submit", seq_id=seq_id, gen_target=gen_target, queue_depth=len(self._queue))
         return seq_id
 
     # -- engine steps ------------------------------------------------------
@@ -347,7 +361,13 @@ class ServeEngine:
             seq_id, prompt, tgt = self._queue.pop(0)
             gen = _slot_generator(_seed(self._host), self.device)
             tokens = torch.as_tensor(prompt, device=self.device)[None]
-            self.state = self._admit(self.params, self.state, tokens, tgt, seq_id, gen)
+            with obs_tracing_lib.annotate("serve.admit"):
+                self.state = self._admit(self.params, self.state, tokens, tgt, seq_id, gen)
+            if self._sink is not None:
+                # TTFT is taken in _harvest, after its done-mask read, which
+                # waits for the wave's prefills as the path without a sink
+                # does: a read here would serialise the admissions
+                self._pending_admits.append((seq_id, len(self._queue)))
         # budget-1 sequences finish at admission; harvest them like any
         # stopped slot
         self._harvest()
@@ -356,13 +376,30 @@ class ServeEngine:
         """Collect slots that stopped (budget or EOS) and mark them free."""
         st = self.state
         done = (~st.active & (st.seq_ids >= 0) & (st.n_gen > 0)).cpu().numpy()
+        if self._sink is not None and self._pending_admits:
+            # the read above waited for the admitted sequences' first tokens
+            now = time.perf_counter()
+            occupancy = int((st.seq_ids >= 0).sum())
+            for seq_id, depth in self._pending_admits:
+                self._sink.emit(
+                    "serve_admit", seq_id=seq_id, ttft_s=round(now - self._t_submit.get(seq_id, now), 6),
+                    queue_depth=depth, occupancy=occupancy,
+                )
+            self._pending_admits = []
         if not done.any():
             return
         out = st.out_tokens.cpu().numpy()
         n_gen = st.n_gen.cpu().numpy()
         ids = st.seq_ids.cpu().numpy()
         for slot in np.nonzero(done)[0]:
-            self.finished.append(Finished(int(ids[slot]), out[slot, : int(n_gen[slot])].copy()))
+            seq_id = int(ids[slot])
+            self.finished.append(Finished(seq_id, out[slot, : int(n_gen[slot])].copy()))
+            if self._sink is not None:
+                now = time.perf_counter()
+                self._sink.emit(
+                    "serve_finish", seq_id=seq_id, n_tokens=int(n_gen[slot]),
+                    latency_s=round(now - self._t_submit.pop(seq_id, now), 6),
+                )
         mask = torch.as_tensor(done, device=self.device)
         self.state = dataclasses.replace(
             st, seq_ids=torch.where(mask, -1, st.seq_ids), n_gen=torch.where(mask, 0, st.n_gen)
@@ -375,10 +412,31 @@ class ServeEngine:
         self._maybe_refill(drain)
         while self._queue or bool(self.state.active.any()):
             if bool(self.state.active.any()):
-                self.state = self._chunk(self.params, self.state)
+                if self._sink is None:
+                    with obs_tracing_lib.annotate("serve.decode_chunk"):
+                        self.state = self._chunk(self.params, self.state)
+                else:
+                    self._timed_chunk()
             self._harvest()
             self._maybe_refill(drain)
         return self.finished
+
+    def _timed_chunk(self) -> None:
+        """One decode chunk and its ``serve_chunk`` event: the chunk's wall
+        time up to the read of the generated counts after it, the tokens it
+        generated, tok/s, active slots and queue depth.  Only with a sink:
+        the reads wait for the device."""
+        n_before, active = torch.stack([self.state.n_gen.sum(), self.state.active.sum()]).tolist()
+        t0 = time.perf_counter()
+        with obs_tracing_lib.annotate("serve.decode_chunk"):
+            self.state = self._chunk(self.params, self.state)
+        tokens = int(self.state.n_gen.sum()) - n_before
+        dt = time.perf_counter() - t0
+        self._sink.emit(
+            "serve_chunk", steps=self.scfg.decode_chunk, tokens=tokens, dt_s=round(dt, 6),
+            tok_s=round(tokens / max(dt, 1e-9), 1), active_slots=active, batch=self.scfg.batch,
+            queue_depth=len(self._queue),
+        )
 
     def _maybe_refill(self, drain: bool) -> None:
         if drain and bool(self.state.active.any()):
@@ -394,6 +452,8 @@ class ServeEngine:
         self.finished = []
         self._queue = []
         self._next_id = 0
+        self._t_submit = {}
+        self._pending_admits = []
 
     # -- introspection -----------------------------------------------------
 

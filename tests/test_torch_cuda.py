@@ -933,3 +933,133 @@ def test_full_width_gradient_step_through_one_unit_launches_no_kernel(card, arch
     del params, out, g1
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _state_tensors(state):
+    """Every tensor of a ServerState by a dotted name, on the CPU, and each
+    generator's state."""
+    import dataclasses
+
+    out = {}
+
+    def walk(name, v):
+        if isinstance(v, torch.Generator):
+            out[name] = v.get_state()
+        elif isinstance(v, torch.Tensor):
+            out[name] = v.cpu()
+        elif isinstance(v, dict):
+            for key, x in v.items():
+                walk(f"{name}.{key}", x)
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{name}.{i}", x)
+        elif dataclasses.is_dataclass(v):
+            for f in dataclasses.fields(v):
+                walk(f"{name}.{f.name}", getattr(v, f.name))
+        elif v is not None:
+            out[name] = torch.tensor(v)
+
+    for f in dataclasses.fields(state):
+        walk(f.name, getattr(state, f.name))
+    return out
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, NaN where NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    eq = a == b
+    if a.is_floating_point():
+        eq |= torch.isnan(a) & torch.isnan(b)
+    return bool(eq.all())
+
+
+def test_cnn_engine_with_telemetry_equals_the_run_without_on_the_card(card):
+    """FL-DP³S on a small CNN federation under ``chaos`` + ``trimmed_mean``
+    with FedDyn, 4 rounds through the engine, from two states built alike
+    (K1 + K2 at each init), with and without ``telemetry``: every output
+    but the host timings, every state tensor and every generator's state
+    equal bit for bit, and the telemetry's tensors computed on the card.
+    cuDNN deterministic for the comparison (nothing else gives the CNN's
+    rounds the same bits twice on the card)."""
+    import numpy as np
+
+    from repro_torch.core import profiles, selection
+    from repro_torch.data import make_image_dataset, skewness_partition
+    from repro_torch.fl import engine
+    from repro_torch.models import cnn
+    from repro_torch.obs import Telemetry
+
+    c, n_c = 20, 30
+    ds = make_image_dataset(n=c * n_c, seed=2)
+    shards = skewness_partition(ds.ys, c, 0.8, 10, samples_per_client=n_c, seed=0)
+    xs = torch.as_tensor(np.stack([ds.xs[s] for s in shards]), device=card)
+    ys = torch.as_tensor(np.stack([ds.ys[s] for s in shards]), device=card)
+    params = cnn.init_cnn(torch.Generator(device=card).manual_seed(0), channels=(4, 8), fc1_dim=16)
+    deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        prof = profiles.profile_all_clients(cnn.apply_with_features, params, list(xs))
+        with torch.no_grad():
+            losses = torch.stack([cnn.cnn_loss(params, x, y) for x, y in zip(xs, ys)])
+        runs = {}
+        for telemetry in (False, True):
+            cfg = engine.FLConfig(num_clients=c, clients_per_round=4, local_epochs=1, lr=0.05, eval_every=2,
+                                  faults="chaos", aggregator="trimmed_mean", local_algo="feddyn",
+                                  feddyn_alpha=0.1, telemetry=telemetry)
+            before = dict(_build.LAUNCHES)
+            state = engine.init_server_state(cfg, params, xs, ys, prof, losses, selection.DPPSelection(),
+                                             device=card, loss_fn=cnn.cnn_loss)
+            assert _build.LAUNCHES["pairwise_dists_stats"] == before["pairwise_dists_stats"] + 1
+            assert _build.LAUNCHES["normalized_gram"] == before["normalized_gram"] + 1
+            fn = engine.make_round_fn(cfg, cnn.cnn_loss, (selection.DPPSelection(),), accuracy_fn=cnn.accuracy)
+            runs[telemetry] = engine.run_scanned(fn, state, 4)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    (off_state, off), (on_state, on) = runs[False], runs[True]
+    a, b = _state_tensors(off_state), _state_tensors(on_state)
+    assert set(a) == set(b) and all(_bits_equal(a[k], b[k]) for k in a), [k for k in a if not _bits_equal(a[k], b[k])]
+    assert set(on) == set(off) | {"telemetry"}
+    for name in off:
+        if not name.startswith("t_"):
+            assert _bits_equal(off[name], on[name]), name
+    tel = on["telemetry"]
+    assert isinstance(tel, Telemetry) and tel.cache_age.tolist() == [0, 1, 2, 3]
+    assert torch.equal(tel.survivors.long(), on["survivors"].long())
+    assert bool(((tel.spectrum_erank >= 1) & (tel.spectrum_erank <= c)).all())
+
+
+def test_serve_engine_with_a_sink_equals_the_engine_without_on_the_card(card, tmp_path):
+    """smollm-360m (reduced fp32) with K5 through ``ServeEngine``: 7
+    requests of mixed budgets with a sink and without: the same tokens bit
+    for bit, one shape signature per entry point, K5 launched as often in
+    both runs, and 7 submissions, admissions and finishes."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_model
+    from repro_torch.obs import TelemetrySink, load_events
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, params = build_model("smollm-360m", 0, device=card)
+    b, p, g = 3, 6, 8
+    scfg = ServeConfig(batch=b, cache_len=p + g, max_new=g, decode_chunk=4, use_flash=True)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(7, p)).astype(np.int32)
+    budgets = [8, 3, 1, 5, 8, 2, 4]
+
+    def traffic(sink):
+        eng = ServeEngine(cfg, scfg, params, prompt_len=p, telemetry=sink)
+        for i, n in enumerate(budgets):
+            eng.submit(prompts[i], n)
+        before = _build.LAUNCHES["flash_decode"]
+        fin = eng.run()
+        torch.cuda.synchronize()
+        assert eng.compile_counts() == {"decode_chunk": 1, "admit": 1}
+        return {f.seq_id: f.tokens for f in fin}, _build.LAUNCHES["flash_decode"] - before, eng.state.step
+
+    with TelemetrySink(str(tmp_path / "s.jsonl")) as sink:
+        on, k5_on, steps_on = traffic(sink)
+    off, k5_off, steps_off = traffic(None)
+    assert set(on) == set(off) == set(range(7)) and all(np.array_equal(on[i], off[i]) for i in on)
+    assert k5_on == k5_off == cfg.num_layers * steps_on and steps_on == steps_off > 0
+    kinds = [e["event"] for e in load_events(str(tmp_path / "s.jsonl"))]
+    assert kinds.count("serve_submit") == kinds.count("serve_admit") == kinds.count("serve_finish") == 7

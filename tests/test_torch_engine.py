@@ -8,6 +8,8 @@ and environment draws replayed.  The JAX side's Pallas kernels run in
 interpret mode, the port's K1 + K2 through their plain versions."""
 
 import dataclasses
+import functools
+import tempfile
 
 import numpy as np
 import pytest
@@ -22,11 +24,13 @@ from repro.fl import engine as jengine  # noqa: E402
 from repro.fl import scenarios as jscen  # noqa: E402
 from repro.fl import trainer as jtrainer  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
+from repro import obs as jobs  # noqa: E402
 
 from repro_torch.core import selection as tsel  # noqa: E402
 from repro_torch.fl import engine as tengine  # noqa: E402
 from repro_torch.fl import trainer as ttrainer  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
+from repro_torch import obs as tobs  # noqa: E402
 
 K, N_C = 3, 10
 GRID = ("fedavg", "fl-dp3s", "fedsae", "power-of-choice", "cluster")
@@ -346,7 +350,7 @@ def test_stack_states_and_unstack_outputs():
 
 @pytest.mark.parametrize(
     "field,value,item",
-    [("cohort_cap", 2, 15), ("staleness_bound", 1, 15), ("telemetry", True, 13)],
+    [("cohort_cap", 2, 15), ("staleness_bound", 1, 15)],
 )
 def test_flconfig_refusals_name_their_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=f"{field} .ROADMAP Queue 1 item {item}."):
@@ -356,17 +360,15 @@ def test_flconfig_refusals_name_their_roadmap_item(field, value, item):
 # ------------------------------------------------------- the whole slice
 
 
-def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
-    """FL-DP³S, C = 16, Q = 8 (``candidate_frac=0.5``), scenario flaky,
-    three rounds re-profiled after the second, through each package's
-    ``FLTrainer.run``; JAX's through its ``run_scanned`` segments.  The
-    port gets JAX's cohorts and environment draws (the rounds' and the
-    funnel's predictions, replayed from JAX's keys) and must reach JAX's
-    candidates at init and at the boundary, kernels within 1e-4 (the
-    boundary's on profiles after two rounds of SGD), every cohort among its
-    candidates and available, JAX's ``avail`` and ``sim_time`` exactly, and
-    loss, GEMD, accuracy and parameters to the tolerances of the
-    unfunnelled slice test."""
+@functools.lru_cache(maxsize=None)
+def _jax_funnel_flaky_slice():
+    """JAX's side of the whole slice below, run once per process with
+    ``telemetry=True`` (JAX's other outputs are those of a run without it,
+    bit for bit: its ``tests/test_obs.py``): FL-DP³S, C = 16, Q = 8, flaky,
+    three rounds re-profiled after the second, through ``FLTrainer.run``.
+    Returns its config, segments, funnels, outputs (``telemetry`` apart),
+    the events its sink took, history, final params and losses, and the
+    environment draws replayed from its keys."""
     c, rounds = 16, 3
     cxs, cys, jparams = _federation(c)
     kw = dict(num_clients=c, clients_per_round=K, local_epochs=1, lr=0.05, rounds=rounds, eval_every=1,
@@ -385,11 +387,14 @@ def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
         funnels.append((key, kw_.get("round_index", 0), _np(out[0]), _np(out[1])))
         return out
 
-    monkeypatch.setattr(jengine, "run_scanned", j_run_spy)
-    monkeypatch.setattr(jengine, "funnel_fields", j_funnel_spy)
-    jt = jtrainer.FLTrainer(jtrainer.FLConfig(**kw), jparams, jcnn.cnn_loss, jcnn.apply_with_features,
-                            cxs, cys, jsel.DPPSelection(), accuracy_fn=jcnn.accuracy)
-    jhist = jt.run()
+    with pytest.MonkeyPatch.context() as mp, tempfile.TemporaryDirectory() as tmp:
+        mp.setattr(jengine, "run_scanned", j_run_spy)
+        mp.setattr(jengine, "funnel_fields", j_funnel_spy)
+        jt = jtrainer.FLTrainer(jtrainer.FLConfig(telemetry=True, **kw), jparams, jcnn.cnn_loss,
+                                jcnn.apply_with_features, cxs, cys, jsel.DPPSelection(), accuracy_fn=jcnn.accuracy)
+        with jobs.TelemetrySink(f"{tmp}/jax.jsonl") as jsink:
+            jhist = jt.run(sink=jsink)
+        jevents = jobs.load_events(f"{tmp}/jax.jsonl")
     assert [s[0].round for s in segments] == [0, 2] and [f[1] for f in funnels] == [0, 2]
     assert not np.array_equal(funnels[0][2], funnels[1][2])  # the boundary re-funnelled
 
@@ -407,11 +412,21 @@ def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
             round_env.append(env_of(key, jengine._ENV_SALT, int(state.round) + i + 1))
             key = jax.random.split(key, 3)[0]
     funnel_env = [env_of(key, jengine._FUNNEL_SALT, r) for key, r, _, _ in funnels]
-    jouts = {name: np.concatenate([o[name] for _, o in segments]) for name in segments[0][1]}
+    jouts = {name: np.concatenate([o[name] for _, o in segments]) for name in segments[0][1] if name != "telemetry"}
     for (lat, avail), want in zip(round_env, jouts["avail"]):
         np.testing.assert_array_equal(avail.numpy(), want)
+    return dict(kw=kw, c=c, cxs=cxs, cys=cys, jparams=jparams, segments=segments, funnels=funnels, jouts=jouts,
+                jevents=jevents, jhist=jhist, final_params=jt.params, final_losses=np.asarray(jt.losses),
+                round_env=round_env, funnel_env=funnel_env)
 
-    cohorts = [np.array(s) for s in jouts["selected"]]
+
+def _port_funnel_flaky_slice(monkeypatch, j, telemetry=False, sink=None):
+    """The port's side of the whole slice on JAX's cohorts and environment
+    draws -> (the trainer, its history, its segments' outputs joined, the
+    funnels it built)."""
+    c = j["c"]
+    cohorts = [np.array(s) for s in j["jouts"]["selected"]]
+    round_env, funnel_env = list(j["round_env"]), list(j["funnel_env"])
 
     class Replay(tsel.DPPSelection):
         def draw_fn(self, generator, state, k, avail=None):
@@ -423,9 +438,9 @@ def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
                 assert bool(avail[torch.from_numpy(local)].all())
             return torch.from_numpy(local.astype(np.int32))
 
-    tt = ttrainer.FLTrainer(ttrainer.FLConfig(**kw), tcnn.params_from_jax(_np(jparams)), tcnn.cnn_loss,
-                            tcnn.apply_with_features, cxs, cys, Replay(), accuracy_fn=tcnn.accuracy,
-                            device="cpu")
+    tt = ttrainer.FLTrainer(ttrainer.FLConfig(telemetry=telemetry, **j["kw"]), tcnn.params_from_jax(_np(j["jparams"])),
+                            tcnn.cnn_loss, tcnn.apply_with_features, j["cxs"], j["cys"], Replay(),
+                            accuracy_fn=tcnn.accuracy, device="cpu")
 
     def replay_env(scen_, generator, t, n):
         assert scen_.name == "flaky" and n == c
@@ -437,8 +452,8 @@ def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
     t_segments, t_funnels = [], []
     t_run, t_funnel = tengine.run_scanned, tengine.funnel_fields
 
-    def t_run_spy(fn, state, n):
-        final, outs = t_run(fn, state, n)
+    def t_run_spy(fn, state, n, **kw_):
+        final, outs = t_run(fn, state, n, **kw_)
         t_segments.append(outs)
         return final, outs
 
@@ -450,13 +465,31 @@ def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
     monkeypatch.setattr(tengine, "draw_environment", replay_env)
     monkeypatch.setattr(tengine, "run_scanned", t_run_spy)
     monkeypatch.setattr(tengine, "funnel_fields", t_funnel_spy)
-    thist = tt.run()
+    thist = tt.run(sink=sink)
     assert not cohorts and not round_env and not funnel_env and len(t_funnels) == 2
+    return tt, thist, tengine.concat_outputs(t_segments), t_funnels
 
-    for (cand, kern, _), (_, _, jcand, jkern) in zip(t_funnels, funnels):
+
+def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
+    """FL-DP³S, C = 16, Q = 8 (``candidate_frac=0.5``), scenario flaky,
+    three rounds re-profiled after the second, through each package's
+    ``FLTrainer.run``; JAX's through its ``run_scanned`` segments.  The
+    port gets JAX's cohorts and environment draws (the rounds' and the
+    funnel's predictions, replayed from JAX's keys) and must reach JAX's
+    candidates at init and at the boundary, kernels within 1e-4 (the
+    boundary's on profiles after two rounds of SGD), every cohort among its
+    candidates and available, JAX's ``avail`` and ``sim_time`` exactly, and
+    loss, GEMD, accuracy and parameters to the tolerances of the
+    unfunnelled slice test."""
+    j = _jax_funnel_flaky_slice()
+    tt, thist, touts, t_funnels = _port_funnel_flaky_slice(monkeypatch, j)
+    jouts, jhist = j["jouts"], j["jhist"]
+    assert "telemetry" not in touts
+
+    for (cand, kern, _), (_, _, jcand, jkern) in zip(t_funnels, j["funnels"]):
         np.testing.assert_array_equal(cand.numpy(), jcand)
         np.testing.assert_allclose(kern.numpy(), jkern, rtol=1e-4, atol=1e-4)
-    touts = {name: torch.cat([o[name] for o in t_segments]).numpy() for name in t_segments[0]}
+    touts = {name: v.numpy() for name, v in touts.items()}
     np.testing.assert_array_equal(touts["selected"], jouts["selected"])
     np.testing.assert_array_equal(touts["avail"], jouts["avail"])
     np.testing.assert_array_equal(touts["sim_time"], jouts["sim_time"])
@@ -466,5 +499,24 @@ def test_whole_slice_funnel_flaky_matches_jax(monkeypatch):
     assert thist["round"] == jhist["round"] == [1, 2, 3]
     np.testing.assert_allclose(thist["acc"], jhist["acc"], rtol=0, atol=1e-6)
     np.testing.assert_allclose(thist["loss"], jhist["loss"], atol=1e-5)
-    _assert_params_close(tt.params, jt.params)
-    np.testing.assert_allclose(tt.losses.numpy(), np.asarray(jt.losses), atol=1e-5)
+    _assert_params_close(tt.params, j["final_params"])
+    np.testing.assert_allclose(tt.losses.numpy(), j["final_losses"], atol=1e-5)
+
+
+def test_whole_slice_funnel_flaky_telemetry_matches_jax(monkeypatch, tmp_path):
+    """The slice above with ``telemetry=True`` and a sink on each side:
+    the port's Telemetry fields are JAX's (``cache_age`` [0, 1, 0],
+    ``funnel_q`` 8, the availability JAX drew), and its sink's ``fl_round``
+    and ``fl_reprofile`` events are JAX's sink's, in order and key for key
+    (``test_torch_obs.assert_events_match_jax``)."""
+    from test_torch_obs import assert_events_match_jax, assert_telemetry_matches_jax
+
+    j = _jax_funnel_flaky_slice()
+    with tobs.TelemetrySink(str(tmp_path / "port.jsonl")) as sink:
+        _, _, touts, _ = _port_funnel_flaky_slice(monkeypatch, j, telemetry=True, sink=sink)
+    tel = touts["telemetry"]
+    assert_telemetry_matches_jax(tel, [o["telemetry"] for _, o in j["segments"]])
+    assert tel.cache_age.tolist() == [0, 1, 0] and tel.funnel_q.tolist() == [8, 8, 8]
+    events = tobs.load_events(str(tmp_path / "port.jsonl"))
+    assert [e["event"] for e in events] == ["fl_round"] * 2 + ["fl_reprofile"] + ["fl_round"]
+    assert_events_match_jax(events, j["jevents"])

@@ -13,7 +13,9 @@ across a reprofile boundary, the port given JAX's cohorts, fault draws and
 lemon mask."""
 
 import dataclasses
+import functools
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from repro.fl import faults as jfaults  # noqa: E402
 from repro.fl import rounds as jrounds  # noqa: E402
 from repro.fl import trainer as jtrainer  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
+from repro import obs as jobs  # noqa: E402
 
 from repro_torch.core import selection as tsel  # noqa: E402
 from repro_torch.fl import engine as tengine  # noqa: E402
@@ -36,6 +39,7 @@ from repro_torch.fl import faults as tfaults  # noqa: E402
 from repro_torch.fl import rounds as trounds  # noqa: E402
 from repro_torch.fl import trainer as ttrainer  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
+from repro_torch import obs as tobs  # noqa: E402
 
 FEAT, N_C, NCLS = 8, 6, 4
 
@@ -568,17 +572,16 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
-    """FL-DP³S, C = 12, k = 4, ``chaos`` faults, ``trimmed_mean``, FedDyn,
-    six rounds re-profiled every 3, through each package's
-    ``FLTrainer.run`` (JAX's through its ``run_scanned`` segments).  The
-    port gets JAX's cohorts, its lemon mask, and each round's fault masks
-    made by the port's ``faults_from_uniforms`` from JAX's uniforms; every
-    cohort is drawn under a mask, among the clients out of quarantine.
-    ``selected``, ``survivors``, ``flagged``, ``quarantined`` and
-    ``identity_round`` equal JAX's, and so do the quarantine counters at
-    each segment's end; loss, GEMD and accuracy, the last-known losses,
-    the params and FedDyn's state agree within the engine tests' bounds."""
+@functools.lru_cache(maxsize=None)
+def _jax_chaos_slice():
+    """JAX's side of the whole slice below, run once per process with
+    ``telemetry=True`` and a sink (JAX's other outputs are those of a run
+    without it, bit for bit: its ``tests/test_obs.py``): FL-DP³S, C = 12,
+    k = 4, ``chaos``, ``trimmed_mean``, FedDyn, six rounds re-profiled
+    every 3.  Returns its config, segments (start state, outputs, final
+    state), outputs (``telemetry`` apart), the events its sink took, its
+    history, final params and losses, the lemon mask and each round's
+    uniforms and fault draws."""
     c, k, rounds = 12, 4, 6
     cxs, cys, jparams = _cnn_federation(c)
     kw = dict(num_clients=c, clients_per_round=k, local_epochs=1, lr=0.05, rounds=rounds, eval_every=1, seed=1,
@@ -593,12 +596,15 @@ def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
         segments.append((state, _np(outs), final))
         return final, outs
 
-    monkeypatch.setattr(jengine, "run_scanned", j_run_spy)
-    jt = jtrainer.FLTrainer(jtrainer.FLConfig(**kw), jparams, jcnn.cnn_loss, jcnn.apply_with_features, cxs, cys,
-                            jsel.DPPSelection(), accuracy_fn=jcnn.accuracy)
-    jhist = jt.run()
+    with pytest.MonkeyPatch.context() as mp, tempfile.TemporaryDirectory() as tmp:
+        mp.setattr(jengine, "run_scanned", j_run_spy)
+        jt = jtrainer.FLTrainer(jtrainer.FLConfig(telemetry=True, **kw), jparams, jcnn.cnn_loss,
+                                jcnn.apply_with_features, cxs, cys, jsel.DPPSelection(), accuracy_fn=jcnn.accuracy)
+        with jobs.TelemetrySink(f"{tmp}/jax.jsonl") as jsink:
+            jhist = jt.run(sink=jsink)
+        jevents = jobs.load_events(f"{tmp}/jax.jsonl")
     assert [int(s[0].round) for s in segments] == [0, 3]
-    jouts = {name: np.concatenate([o[name] for _, o, _ in segments]) for name in segments[0][1]}
+    jouts = {name: np.concatenate([o[name] for _, o, _ in segments]) for name in segments[0][1] if name != "telemetry"}
     # the run exercised the guard: a flagged client, a dropped one, quarantine
     assert jouts["flagged"].sum() > 0 and (jouts["survivors"] < k).any() and jouts["quarantined"].max() > 0
 
@@ -612,8 +618,17 @@ def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
             fault_u.append(([torch.from_numpy(x) for x in _jax_uniforms(fk, c, 1)],
                             jfaults.draw_round_faults(fk, jm, c, 1, jnp.asarray(jlem))))
             key = jax.random.split(key, 3)[0]
+    return dict(kw=kw, c=c, cxs=cxs, cys=cys, jparams=jparams, segments=segments, jouts=jouts, jevents=jevents,
+                jhist=jhist, final_params=jt.params, final_losses=np.asarray(jt.losses), jlem=jlem, fault_u=fault_u)
 
-    cohorts = [np.array(s) for s in jouts["selected"]]
+
+def _port_chaos_slice(monkeypatch, j, telemetry=False, sink=None):
+    """The port's side of the whole slice on JAX's cohorts, lemons and
+    fault uniforms -> (the trainer, its history, its segments' (outputs,
+    final state))."""
+    c, jlem = j["c"], j["jlem"]
+    cohorts = [np.array(s) for s in j["jouts"]["selected"]]
+    fault_u = list(j["fault_u"])
 
     class Replay(tsel.DPPSelection):
         def draw_fn(self, generator, state, k_, avail=None):
@@ -623,8 +638,9 @@ def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
                 assert bool(avail[torch.from_numpy(sel).long()].all())
             return torch.from_numpy(sel)
 
-    tt = ttrainer.FLTrainer(ttrainer.FLConfig(**kw), tcnn.params_from_jax(_np(jparams)), tcnn.cnn_loss,
-                            tcnn.apply_with_features, cxs, cys, Replay(), accuracy_fn=tcnn.accuracy, device="cpu")
+    tt = ttrainer.FLTrainer(ttrainer.FLConfig(telemetry=telemetry, **j["kw"]), tcnn.params_from_jax(_np(j["jparams"])),
+                            tcnn.cnn_loss, tcnn.apply_with_features, j["cxs"], j["cys"], Replay(),
+                            accuracy_fn=tcnn.accuracy, device="cpu")
 
     def replay_faults(generator, model, n, shards, lemons):
         assert generator is tt.fault_generator and model.name == "chaos" and (n, shards) == (c, 1)
@@ -638,18 +654,36 @@ def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
     t_segments = []
     t_run = tengine.run_scanned
 
-    def t_run_spy(fn, state, n):
-        final, outs = t_run(fn, state, n)
+    def t_run_spy(fn, state, n, **kw_):
+        final, outs = t_run(fn, state, n, **kw_)
         t_segments.append((outs, final))
         return final, outs
 
-    monkeypatch.setattr(tfaults, "lemon_mask", lambda model, n: torch.from_numpy(jlem))
+    monkeypatch.setattr(tfaults, "lemon_mask", lambda model, n: torch.from_numpy(jlem.copy()))
     monkeypatch.setattr(tfaults, "draw_round_faults", replay_faults)
     monkeypatch.setattr(tengine, "run_scanned", t_run_spy)
-    thist = tt.run()
+    thist = tt.run(sink=sink)
     assert not cohorts and not fault_u and len(t_segments) == 2
+    return tt, thist, t_segments
 
-    touts = {name: torch.cat([o[name] for o, _ in t_segments]).numpy() for name in t_segments[0][0]}
+
+def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
+    """FL-DP³S, C = 12, k = 4, ``chaos`` faults, ``trimmed_mean``, FedDyn,
+    six rounds re-profiled every 3, through each package's
+    ``FLTrainer.run`` (JAX's through its ``run_scanned`` segments).  The
+    port gets JAX's cohorts, its lemon mask, and each round's fault masks
+    made by the port's ``faults_from_uniforms`` from JAX's uniforms; every
+    cohort is drawn under a mask, among the clients out of quarantine.
+    ``selected``, ``survivors``, ``flagged``, ``quarantined`` and
+    ``identity_round`` equal JAX's, and so do the quarantine counters at
+    each segment's end; loss, GEMD and accuracy, the last-known losses,
+    the params and FedDyn's state agree within the engine tests' bounds."""
+    j = _jax_chaos_slice()
+    c, jouts, jhist, segments = j["c"], j["jouts"], j["jhist"], j["segments"]
+    tt, thist, t_segments = _port_chaos_slice(monkeypatch, j)
+
+    touts = {name: v.numpy() for name, v in tengine.concat_outputs([o for o, _ in t_segments]).items()}
+    assert "telemetry" not in touts
     for name in ("selected", "survivors", "flagged", "quarantined", "identity_round"):
         np.testing.assert_array_equal(touts[name], jouts[name], err_msg=name)
     for (_, tfin), (_, _, jfin) in zip(t_segments, segments):
@@ -659,10 +693,10 @@ def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
     np.testing.assert_allclose(touts["acc"], jouts["acc"], rtol=0, atol=1e-6)
     assert thist["round"] == jhist["round"]
     np.testing.assert_allclose(thist["loss"], jhist["loss"], atol=1e-5)
-    want = tcnn.params_from_jax(_np(jt.params))
+    want = tcnn.params_from_jax(_np(j["final_params"]))
     for name, w in want.items():
         np.testing.assert_allclose(tt.params[name].numpy(), w.numpy(), atol=1e-4, err_msg=name)
-    np.testing.assert_allclose(tt.losses.numpy(), np.asarray(jt.losses), atol=1e-5)
+    np.testing.assert_allclose(tt.losses.numpy(), j["final_losses"], atol=1e-5)
     # FedDyn's h, in the port's layout: nonzero only for clients kept at
     # least once, JAX's within the params' bound
     th = t_segments[-1][1].algo_state
@@ -670,3 +704,22 @@ def test_whole_slice_chaos_trimmed_feddyn_matches_jax(monkeypatch):
     jh = [tcnn.params_from_jax(jax.tree_util.tree_map(lambda x: x[i], jstate)) for i in range(c)]
     for name, h in th.items():
         np.testing.assert_allclose(h.numpy(), np.stack([x[name].numpy() for x in jh]), atol=1e-4, err_msg=name)
+
+
+def test_whole_slice_chaos_trimmed_feddyn_telemetry_matches_jax(monkeypatch, tmp_path):
+    """The slice above with ``telemetry=True`` and a sink on each side:
+    the port's Telemetry fields are JAX's (the guard's counts exactly,
+    ``cache_age`` [0, 1, 2, 0, 1, 2], ``spectrum_*`` within the kernels'
+    1e-4), and its sink's events are JAX's sink's, in order and key for
+    key on JAX's keys (``test_torch_obs.assert_events_match_jax``)."""
+    from test_torch_obs import assert_events_match_jax, assert_telemetry_matches_jax
+
+    j = _jax_chaos_slice()
+    with tobs.TelemetrySink(str(tmp_path / "port.jsonl")) as sink:
+        _, _, t_segments = _port_chaos_slice(monkeypatch, j, telemetry=True, sink=sink)
+    tel = tengine.concat_outputs([o for o, _ in t_segments])["telemetry"]
+    assert_telemetry_matches_jax(tel, [o["telemetry"] for _, o, _ in j["segments"]])
+    assert tel.cache_age.tolist() == [0, 1, 2, 0, 1, 2] and int(tel.flagged.sum()) > 0
+    events = tobs.load_events(str(tmp_path / "port.jsonl"))
+    assert [e["event"] for e in events] == ["fl_round"] * 3 + ["fl_reprofile"] + ["fl_round"] * 3
+    assert_events_match_jax(events, j["jevents"])

@@ -16,7 +16,10 @@ from repro_torch.core import selection as tsel  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (
+    sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py"))
+)
 
 
 def _imported_roots(path: Path):
@@ -88,7 +91,7 @@ def test_quickstart_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("cohort_cap", 2), ("staleness_bound", 1), ("telemetry", True),
+        ("cohort_cap", 2), ("staleness_bound", 1),
     ],
 )
 def test_flconfig_refuses_features_not_yet_ported(field, value):

@@ -12,6 +12,7 @@ token is compared only where JAX's top-2 margin exceeds twice that bound,
 4e-5 * max|logits|, since below it either choice is within rounding."""
 
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -235,8 +236,16 @@ def test_engine_validates_sizes():
         eng.submit(np.zeros(5, np.int32), 2)
     with pytest.raises(ValueError, match="gen_target"):
         eng.submit(np.zeros(4, np.int32), 5)
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        ServeEngine(tcfg, ServeConfig(batch=2, cache_len=8, max_new=4), tp, prompt_len=4, telemetry=object())
+    # a sink is taken: each submission is an event at once
+    events = []
+
+    class Sink:
+        def emit(self, event, **payload):
+            events.append((event, payload))
+
+    eng = ServeEngine(tcfg, ServeConfig(batch=2, cache_len=8, max_new=4), tp, prompt_len=4, telemetry=Sink())
+    assert eng.submit(np.zeros(4, np.int32), 2) == 0
+    assert events == [("serve_submit", {"seq_id": 0, "gen_target": 2, "queue_depth": 1})]
 
 
 def test_slot_refill_keeps_one_shape_signature():
@@ -410,6 +419,40 @@ def test_cli_scan_check_and_continuous_on_the_cpu(capsys):
     assert "{'decode_chunk': 1, 'admit': 1}" in capsys.readouterr().out
 
 
+def test_cli_telemetry_and_profile_dir_on_the_cpu(tmp_path, capsys):
+    """``--telemetry`` and ``--profile-dir``: in ``--continuous`` the
+    manifest and the engine's events (one submission, admission and finish
+    per request, the decode chunks' tokens adding up) and a Chrome trace
+    with the engine's spans, the tokens those of the run without the
+    flags; in ``--scan`` the manifest and one ``serve_summary``."""
+    from repro_torch import obs as tobs
+    from repro_torch.analysis import report as treport
+
+    argv = ["--batch", "2", "--prompt-len", "4", "--gen", "6", "--continuous", "--requests", "4", "--mixed",
+            "--flash", "--device", "cpu"]
+    path, prof = tmp_path / "s.jsonl", tmp_path / "prof"
+    fin = tserve.main(argv + ["--telemetry", str(path), "--profile-dir", str(prof)])
+    assert f"telemetry -> {path} (render with `python -m repro_torch.analysis.report {path}`)" in capsys.readouterr().out
+    ref = {f.seq_id: f.tokens for f in tserve.main(argv)}
+    assert {f.seq_id for f in fin} == set(ref)
+    for f in fin:
+        np.testing.assert_array_equal(f.tokens, ref[f.seq_id])
+    events = tobs.load_events(str(path))
+    kinds = [e["event"] for e in events]
+    assert kinds[0] == "manifest" and events[0]["mode"] == "serve" and events[0]["config"]["use_flash"] is True
+    assert kinds.count("serve_submit") == kinds.count("serve_admit") == kinds.count("serve_finish") == 4
+    assert sum(e["tokens"] for e in events if e["event"] == "serve_chunk") + 4 == sum(len(t) for t in ref.values())
+    assert "serving: 4 finished seqs, 4 admissions" in treport.summarize(events)
+    (trace,) = prof.glob("*.pt.trace.json")
+    spans = {e["name"] for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"serve.admit", "serve.decode_chunk"} <= spans
+    tserve.main(["--batch", "2", "--prompt-len", "4", "--gen", "3", "--scan", "--device", "cpu",
+                 "--telemetry", str(tmp_path / "scan.jsonl")])
+    man, summary = tobs.load_events(str(tmp_path / "scan.jsonl"))
+    assert man["event"] == "manifest" and summary["event"] == "serve_summary"
+    assert (summary["mode"], summary["tokens"]) == ("scan", 6) and summary["decode_tok_s"] > 0
+
+
 def test_cli_rwkv_scan_check_and_continuous_on_the_cpu(capsys):
     toks = tserve.main(["--arch", "rwkv6-7b", "--batch", "2", "--prompt-len", "5", "--gen", "6", "--scan",
                         "--check", "--device", "cpu"])
@@ -423,14 +466,17 @@ def test_cli_rwkv_scan_check_and_continuous_on_the_cpu(capsys):
     assert "{'decode_chunk': 1, 'admit': 1}" in capsys.readouterr().out
 
 
-def test_serving_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+def test_serving_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.build_model("smollm-360m", 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--batch", "1", "--prompt-len", "2", "--gen", "2"])
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        tserve.main(["--telemetry", "x.jsonl", "--device", "cpu"])
+    # --telemetry and --profile-dir run, on the CPU when asked
+    fin = tserve.main(["--batch", "1", "--prompt-len", "2", "--gen", "2", "--continuous", "--requests", "1",
+                       "--telemetry", str(tmp_path / "x.jsonl"), "--profile-dir", str(tmp_path / "p"),
+                       "--device", "cpu"])
+    assert len(fin) == 1 and (tmp_path / "x.jsonl").exists() and list((tmp_path / "p").glob("*.pt.trace.json"))
     # an arch of the last model slice builds on the CPU when asked
     cfg, params = tserve.build_model("mixtral-8x7b", 0, device="cpu")
     assert cfg.block_pattern == ("swa+moe",) and params["blocks"][0]["ffn"]["wi"].shape[0] == cfg.num_experts

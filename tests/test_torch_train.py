@@ -7,6 +7,7 @@ and batch index plans handed to the port.  Then the port's launcher in both
 modes, and the flags that must raise."""
 
 import argparse
+import json
 
 import numpy as np
 import pytest
@@ -340,8 +341,51 @@ def test_launcher_runs_the_funnel_under_the_flaky_scenario(capsys, selection):
     assert outs["sim_time"].shape == (2,) and bool((outs["sim_time"] > 0).all())
 
 
+def test_launcher_writes_telemetry_and_a_trace_on_the_cpu(tmp_path, capsys):
+    """``--telemetry`` and ``--profile-dir`` in ``--mode fl`` through
+    ``run_checkpointed`` (a snapshot every round): the manifest (the FL
+    config's hash, mode, arch and selection), one ``fl_round`` a round
+    equal to the run's outputs, an ``fl_checkpoint`` after each save, the
+    closing line, the report's rendering and a Chrome trace with each
+    segment's span; every other output and the final state as the same
+    run without the flags, bit for bit."""
+    from repro_torch import obs as tobs
+    from repro_torch.analysis import report as treport
+
+    path = tmp_path / "t.jsonl"
+    argv = _SMALL_FL + ["--faults", "chaos", "--aggregator", "trimmed_mean", "--ckpt-every", "1"]
+    state, outs = ttrain.main(argv + ["--ckpt", str(tmp_path / "a"), "--telemetry", str(path),
+                                      "--profile-dir", str(tmp_path / "prof")])
+    out = capsys.readouterr().out
+    assert f"telemetry -> {path} (5 events; render with `python -m repro_torch.analysis.report {path}`)" in out
+    ref_state, ref = ttrain.main(argv + ["--ckpt", str(tmp_path / "b")])
+    assert set(outs) == set(ref) | {"telemetry"}
+    for name, v in ref.items():
+        if not name.startswith("t_"):
+            assert torch.equal(torch.nan_to_num(v, 7.0), torch.nan_to_num(outs[name], 7.0)), name
+    for a, b in zip(tree_leaves(state.params), tree_leaves(ref_state.params)):
+        assert torch.equal(a, b)
+    assert torch.equal(state.losses, ref_state.losses) and torch.equal(state.quarantine, ref_state.quarantine)
+    events = tobs.load_events(str(path))
+    assert [e["event"] for e in events] == ["manifest"] + ["fl_round", "fl_checkpoint"] * 2
+    man = events[0]
+    assert (man["mode"], man["arch"], man["selection"], man["backend"]) == ("fl", "smollm-360m", "fl-dp3s", "cpu")
+    assert man["config"]["telemetry"] is True and man["config_hash"] == tobs.config_hash(man["config"])
+    rounds = [e for e in events if e["event"] == "fl_round"]
+    for i, e in enumerate(rounds):
+        assert e["round"] == i + 1 and e["selected"] == outs["selected"][i].tolist()
+        assert e["loss"] == float(outs["loss"][i]) and e["gemd"] == float(outs["gemd"][i])
+        assert e["cache_age"] == i and e["survivors"] == int(outs["survivors"][i])
+    assert [e["round"] for e in events if e["event"] == "fl_checkpoint"] == [1, 2]
+    assert "training: 2 rounds" in treport.summarize(events)
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    spans = [e["name"] for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "user_annotation"]
+    assert spans.count("fl.scan_chunk[1]") == 2
+
+
 def test_launcher_scenario_and_funnel_flags_are_fl_only():
-    for flag, value in (("--scenario", "flaky"), ("--candidate-frac", "0.5")):
+    for flag, value in (("--scenario", "flaky"), ("--candidate-frac", "0.5"), ("--telemetry", "t.jsonl"),
+                        ("--profile-dir", "prof")):
         with pytest.raises(ValueError, match=f"{flag} select federation features"):
             ttrain.main(["--mode", "pretrain", flag, value, "--device", "cpu"])
     with pytest.raises(SystemExit):  # argparse: not one of SCENARIO_NAMES
@@ -360,7 +404,7 @@ def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     [
         ("--shard-clients", "2"), ("--cohort-cap", "2"),
         ("--staleness-bound", "1"), ("--staleness-decay", "exponential"),
-        ("--staleness-alpha", "0.3"), ("--telemetry", "t.jsonl"), ("--profile-dir", "prof"),
+        ("--staleness-alpha", "0.3"),
     ],
 )
 @pytest.mark.parametrize("mode", ["fl", "pretrain"])
