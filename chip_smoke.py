@@ -137,7 +137,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    all 128 experts and the shared expert) through K5.  The same checks,
    with K5 once per layer at every decode step or no kernel at all.  The
    two depth-cut MoE archs run scan mode only (``SERVE_SCAN_ONLY``): their
-   continuous runs are left out to keep the run's time down.  A plain run
+   continuous runs are left out to keep the run's time down;
+   recurrentgemma-9b's continuous run takes 8 requests through 4 slots
+   (``SERVE_SHORT``).  A plain run
    held to a kernel run takes its expert choices (top-k routing flips on
    bf16 rounding where router logits nearly tie), and the choices that
    differ are counted; the share of (token, expert) pairs each kind of
@@ -163,7 +165,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    launch counters (or that it recorded none).  Phase 5's FL run also
    writes ``--telemetry``: one ``fl_round`` a round equal to its outputs,
    rendered by the report.
-7. Prints, for each shape a path gives K1 or K3, each shape the RWKV
+7. The dry run against the card (``dryrun_phase``): the dry run's records
+   (``repro_torch.launch.dryrun``, fake tensors) of smollm-360m's train_4k
+   (Mode A) and decode_32k and llama4-maverick's train_4k (Mode B,
+   Adafactor, 8 micro-batches: more than one card), computed in worker
+   processes on the host's cores from the end of phase 2 (beside phases
+   3-3e); then, in one of those workers during phase 3e (``card_steps``),
+   cuBLAS's workspaces and ``_softmax_backward_data``'s own buffers held
+   to the dry run's, and smollm-360m's decode step (the batch halved until
+   the dry run's peak fits, through K5) and its Mode-A round (``TRAIN_CUT``:
+   two clients of one sequence, two local steps) at full width and depth:
+   the real FLOPs (``FlopCounterMode``, the plain path) equal to the fake
+   count and ``max_memory_allocated`` within ``DRY_MEM_BAND`` of the dry
+   run's peak; here, each step's uninstrumented time beside the roofline's
+   terms; then one Mode-B step and one FedOpt round of the fp32 model on
+   the card held to the same on the CPU (run by a worker from the same
+   seeds).
+8. Prints, for each shape a path gives K1 or K3, each shape the RWKV
    path gave K7, each new arch's decode shape of K5 and each refresh shape
    of K6 in phase 5b, its launches there beside that shape's cold device
    time and bound (K1 and K3 also their plan and library time); then one
@@ -180,20 +198,27 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
-PEAK_BYTES_PER_S = 3.35e12
-# fp32 on the CUDA cores; TF32 and bf16 on the tensor cores
-PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.analysis.roofline import HW  # noqa: E402
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W), the
+# port's one definition: fp32 on the CUDA cores, TF32 and bf16 on the
+# tensor cores
+PEAK_BYTES_PER_S = HW.HBM_BW
+PEAK_FLOPS = HW.PEAK_FLOPS
 # device_ms's cold mode writes this many bytes before each profiled call:
 # five times the 50 MB L2, so a call finds its inputs in device memory
 FLUSH_BYTES = 256 << 20
@@ -255,6 +280,10 @@ NEW_SERVE_ARCHS = ("qwen2-vl-2b", "musicgen-medium", "recurrentgemma-9b", "mixtr
 # (the second half of (a), (b), (c) and (f)): the depth-cut MoE archs, whose
 # continuous runs would add ~70 s to a run that passes 600 s without them
 SERVE_SCAN_ONLY = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
+# archs whose continuous run is shorter than SERVE_REQUESTS requests through
+# SERVE_BATCH slots: (requests, slots).  recurrentgemma-9b's admission loops
+# on the host over its 128 prompt tokens; 8 of them make room for phase 7
+SERVE_SHORT = {"recurrentgemma-9b": (8, 4)}
 # the one arch whose fp32 copy (check (e)) cannot fit beside its bf16
 # model on an 80 GB card: llama4-maverick's 2 layers hold ~36.6 GB in bf16
 FP32_SKIPPED = ("llama4-maverick-400b-a17b",)
@@ -363,6 +392,21 @@ TRAIN_ROUNDS, TRAIN_SEQ, TRAIN_PRETRAIN_STEPS = 1, 128, 2
 # tokens and slots, and a CNN run of OBS_TRACE_C clients of the phase-3
 # data for 2 rounds
 OBS_ROUNDS, OBS_EVERY = 4, 2
+# phase 7: the dry run's full-width records and the CPU halves of its
+# parity checks, run in DRY_WORKERS processes on the host's cores from the
+# end of phase 2, beside phases 3-3e; smollm-360m's steps on the card in one
+# of those processes during phase 3e (``card_steps``): the decode step at
+# the largest batch, halved from 128, whose dry-run peak fits DRY_FIT of the
+# card, and the Mode-A round (``TRAIN_CUT``) cut for the phase's time, not
+# for memory (the full round's peak fits the card), to DRY_CLIENTS clients
+# of one sequence and DRY_LOCAL_STEPS local steps, so that the dry run
+# replays a gradient across steps and across clients; max_memory_allocated
+# held within DRY_MEM_BAND of the dry run's peak; the Mode-B and FedOpt
+# parity at DRY_PARITY_SEQ tokens
+DRY_CASES = (("smollm-360m", "train_4k"), ("smollm-360m", "decode_32k"), ("llama4-maverick-400b-a17b", "train_4k"))
+DRY_WORKERS, DRY_CLIENTS, DRY_LOCAL_STEPS, DRY_FIT, DRY_MEM_BAND, DRY_PARITY_SEQ = 4, 2, 2, 0.85, 0.10, 16
+TRAIN_CUT = dict(arch="smollm-360m", shape="train_4k", batch=DRY_CLIENTS, clients=DRY_CLIENTS,
+                 local_steps=DRY_LOCAL_STEPS)
 # the order of the runs with telemetry (True) and without, in (a) and (c)
 OBS_TURNS = (False, True, True, False)
 OBS_REQUESTS, OBS_BUDGETS, OBS_CHUNK = 16, (8, 32), 8
@@ -529,7 +573,8 @@ def serve_phase(torch, dev, arch: str):
     without one), for K7 its calls there by input shape (B, T), whose sum
     is held to the launch count, and the phase's seconds.  For an arch of
     ``SERVE_SCAN_ONLY`` the continuous run and the checks on it (the second
-    half of (a), (b), (c) and (f)) are left out."""
+    half of (a), (b), (c) and (f)) are left out; for one of ``SERVE_SHORT``
+    they run with fewer requests and slots."""
     import collections
     import dataclasses
 
@@ -560,7 +605,8 @@ def serve_phase(torch, dev, arch: str):
     others = [n for n in _build.LAUNCHES if n != kernel]
     moe = "moe" in "".join(cfg.block_pattern)
     continuous = arch not in SERVE_SCAN_ONLY
-    check(not (continuous and moe), f"{arch}: check (f)'s batch-{SERVE_REQUESTS} reference is another function")
+    n_req, slots = SERVE_SHORT.get(arch, (SERVE_REQUESTS, SERVE_BATCH))
+    check(not (continuous and moe), f"{arch}: check (f)'s batch-{n_req} reference is another function")
     print(
         f"serving: {arch} at full width, {layers} of {published} layers, "
         f"{T.param_count(params) / 1e6:.1f} M parameters in {cfg.param_dtype}, activations and caches "
@@ -697,10 +743,10 @@ def serve_phase(torch, dev, arch: str):
 
             self._admit.fn = timed_admit
 
-    budgets = rng.integers(SERVE_BUDGETS[0], SERVE_BUDGETS[1] + 1, size=SERVE_REQUESTS)
-    requests = rng.integers(0, cfg.vocab_size, size=(SERVE_REQUESTS, p), dtype=np.int32)
+    budgets = rng.integers(SERVE_BUDGETS[0], SERVE_BUDGETS[1] + 1, size=n_req)
+    requests = rng.integers(0, cfg.vocab_size, size=(n_req, p), dtype=np.int32)
     gmax = int(budgets.max())
-    scfg = ServeConfig(batch=b, cache_len=p + gmax, max_new=gmax, decode_chunk=SERVE_CHUNK, use_flash=True)
+    scfg = ServeConfig(batch=slots, cache_len=p + gmax, max_new=gmax, decode_chunk=SERVE_CHUNK, use_flash=True)
     if not continuous:
         print(f"continuous: not run for {arch} (SERVE_SCAN_ONLY)")
         cont_launches = {n: 0 for n in _build.LAUNCHES}
@@ -709,7 +755,7 @@ def serve_phase(torch, dev, arch: str):
         _build.reset_launches()
         torch.cuda.synchronize()
         eng.t_submit = t0 = time.perf_counter()
-        for i in range(SERVE_REQUESTS):
+        for i in range(n_req):
             eng.submit(requests[i], int(budgets[i]))
         finished = eng.run()
         torch.cuda.synchronize()
@@ -723,7 +769,7 @@ def serve_phase(torch, dev, arch: str):
         tokens = sum(len(f.tokens) for f in finished)
         ttft = np.asarray(sorted(eng.ttft.values())) * 1e3
         print(
-            f"continuous: {SERVE_REQUESTS} requests through {b} slots, budgets in "
+            f"continuous: {n_req} requests through {slots} slots, budgets in "
             f"[{budgets.min()}, {budgets.max()}], cache_len {scfg.cache_len}: {tokens} tokens in "
             f"{wall:.3f} s = {tokens / wall:.1f} tok/s aggregate over {steps} decode steps; "
             f"TTFT ms p50 {np.percentile(ttft, 50):.2f} p95 {np.percentile(ttft, 95):.2f} "
@@ -732,15 +778,15 @@ def serve_phase(torch, dev, arch: str):
         )
         # (a) again, counted apart: one launch per layer for every decode step
         # and, for K7, every admission's prefill; K5 none at admission
-        want = per_step * steps + per_prefill * SERVE_REQUESTS
+        want = per_step * steps + per_prefill * n_req
         if kernel is not None:
-            check(cont_launches[kernel] == want, f"{label} {cont_launches} vs {steps} steps, {SERVE_REQUESTS} admissions")
+            check(cont_launches[kernel] == want, f"{label} {cont_launches} vs {steps} steps, {n_req} admissions")
         check(all(cont_launches[n] == 0 for n in others), f"another kernel ran: {cont_launches}")
         # (b) every request finishes once, with exactly its budget
         ids = sorted(f.seq_id for f in finished)
-        check(ids == list(range(SERVE_REQUESTS)), f"finished ids {ids}")
+        check(ids == list(range(n_req)), f"finished ids {ids}")
         check(all(len(f.tokens) == budgets[f.seq_id] for f in finished), "a request missed its budget")
-        check(len(ttft) == SERVE_REQUESTS, "not one TTFT per request")
+        check(len(ttft) == n_req, "not one TTFT per request")
         # (c) one shape signature per entry point
         check(eng.compile_counts() == {"decode_chunk": 1, "admit": 1}, f"{eng.compile_counts()}")
 
@@ -754,11 +800,11 @@ def serve_phase(torch, dev, arch: str):
     # in the ``strict`` dtype only: for rwkv6-7b the same requests go
     # through a second engine over the fp32 copy of the model (K7 on fp32
     # inputs); its bf16 engine is held by (a)-(c) and, through K7's logits,
-    # by (e).  Not run for an MoE arch (``SERVE_SCAN_ONLY``), for which a
-    # batch-48 reference would be another function: its capacity drops
-    # depend on a call's other tokens.
+    # by (e).  Not run for an arch of ``SERVE_SCAN_ONLY``: for an MoE arch a
+    # batch-48 reference would be another function (its capacity drops
+    # depend on a call's other tokens).
     def engine_vs_reference(c, prm, finished, what):
-        out = np.zeros((SERVE_REQUESTS, gmax), np.int32)
+        out = np.zeros((n_req, gmax), np.int32)
         for f in finished:
             out[f.seq_id, : len(f.tokens)] = f.tokens
         out_d = torch.as_tensor(out, device=dev)
@@ -768,7 +814,7 @@ def serve_phase(torch, dev, arch: str):
             """max(ref logits) - ref logit of the engine's token, (n, gmax),
             greedy agreement, and max|ref logits|; ``ahead`` advances every
             slot's position that many steps after the prefill."""
-            caches = T.init_caches(c, SERVE_REQUESTS, scfg.cache_len, per_slot=True, device=dev)
+            caches = T.init_caches(c, n_req, scfg.cache_len, per_slot=True, device=dev)
             logits, caches = serve_launch.prefill(c, prm, torch.as_tensor(prompts_np, device=dev), caches)
             if ahead:
                 caches = {part: tuple({**leaf, "pos": leaf["pos"] + ahead} for leaf in caches[part])
@@ -789,10 +835,10 @@ def serve_phase(torch, dev, arch: str):
         cgaps, _, ctop = reference_gaps(np.roll(requests, 1, axis=0))
         flagged = int(((cgaps > 0.1 * ctop) & valid).any(1).sum())
         print(
-            f"continuous tokens ({what}) vs a batch-{SERVE_REQUESTS} reference without the engine or "
+            f"continuous tokens ({what}) vs a batch-{n_req} reference without the engine or "
             f"{label} over {int(valid.sum())} tokens: worst gap {worst:.4g} (bound 0.1 * max|logits| = "
             f"{0.1 * top:.4g}), greedy agreement {agree_c:.4f}; control with shifted prompts breaks "
-            f"the bound in {flagged} of {SERVE_REQUESTS} requests"
+            f"the bound in {flagged} of {n_req} requests"
         )
         if c.pos_style == "sinusoidal":
             # sinusoidal positions of amplitude 1 added to token embeddings of
@@ -806,10 +852,10 @@ def serve_phase(torch, dev, arch: str):
             flagged = int(((pgaps > 0.1 * ptop) & valid).any(1).sum())
             print(
                 f"  control held for {c.pos_style} positions: every slot {ahead} positions too deep breaks the "
-                f"bound in {flagged} of {SERVE_REQUESTS} requests (shifted prompts: {prompt_flagged}, not held)"
+                f"bound in {flagged} of {n_req} requests (shifted prompts: {prompt_flagged}, not held)"
             )
         check(worst <= 0.1 * top, f"continuous tokens off the reference: gap {worst} > 0.1 * {top}")
-        check(flagged >= SERVE_REQUESTS // 2, f"the control flagged only {flagged} requests")
+        check(flagged >= n_req // 2, f"the control flagged only {flagged} requests")
 
     if continuous and strict == cfg.dtype:
         engine_vs_reference(cfg, params, finished, f"{cfg.dtype} engine")
@@ -827,11 +873,11 @@ def serve_phase(torch, dev, arch: str):
     params32 = _to_float(torch, params) if fp32_leg else None
     if continuous and strict == "float32":
         eng32 = ServeEngine(cfg32, scfg, params32, prompt_len=p, seed=0)
-        for i in range(SERVE_REQUESTS):
+        for i in range(n_req):
             eng32.submit(requests[i], int(budgets[i]))
         finished32 = eng32.run()
         check(sorted((f.seq_id, len(f.tokens)) for f in finished32)
-              == [(i, int(budgets[i])) for i in range(SERVE_REQUESTS)], "fp32 engine: a request missed its budget")
+              == [(i, int(budgets[i])) for i in range(n_req)], "fp32 engine: a request missed its budget")
         engine_vs_reference(cfg32, params32, finished32, f"fp32 engine through {label}")
         del eng32, finished32
 
@@ -2650,6 +2696,342 @@ def obs_phase(torch, dev, exp, client_xs, client_ys) -> None:
     print(f"phase 6c: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------- 7. the dry run against the card
+
+
+def dry_record(**case) -> dict:
+    """A worker's dry-run record of ``DryRunCase(**case)`` (fake tensors,
+    one host core)."""
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_case(dryrun.DryRunCase(**case))
+
+
+def dry_decode_cut(budget: float) -> list:
+    """smollm-360m's decode_32k records, the batch halved from the shape's
+    until the step's peak fits ``budget`` bytes; the last one is the cut."""
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    b, recs = INPUT_SHAPES["decode_32k"].global_batch, []
+    while True:
+        recs.append(dryrun.run_case(dryrun.DryRunCase("smollm-360m", "decode_32k", batch=b)))
+        if not recs[-1]["ok"] or recs[-1]["peak_bytes"] <= budget or b == 1:
+            return recs
+        b //= 2
+
+
+PARITY = ("Mode-B step (SGD, 2 micro-batches)", "FedOpt round (server SGD 1.0 with momentum 0.9, 2 clients)")
+
+
+def parity_model():
+    """Phase 7 (c)'s model: smollm-360m in fp32 at full width, without
+    remat -> (config, params on the CPU from seed 0)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(get_arch("smollm-360m").model, param_dtype="float32", dtype="float32", remat=False)
+    return cfg32, T.init_params(torch.Generator().manual_seed(0), cfg32, "cpu")
+
+
+def parity_step(which: int, device, model):
+    """Phase 7 (c)'s step ``which`` (0: Mode B, 1: FedOpt) of ``model``
+    (``parity_model()``) on ``device``, from the same seeds wherever it
+    runs -> (params, loss)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import get_arch
+    from repro_torch.fl import rounds
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg32, params = model
+    lr = get_arch("smollm-360m").fl.lr
+    params = tree_map(lambda x: x.to(device), params)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, DRY_PARITY_SEQ)).astype(np.int32), device=device)
+    client_toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, 1, 1, DRY_PARITY_SEQ)).astype(np.int32),
+                                  device=device)
+
+    def loss_fn(p, b):
+        return T.lm_loss(cfg32, p, b[0])
+
+    if which == 0:
+        params, _, loss = rounds.build_fedsgd_step(loss_fn, optim.sgd(lr), micro_batches=2)(params, (), (toks,))
+    else:
+        sopt = optim.sgd(1.0, momentum=0.9)
+        fedopt = rounds.build_server_opt_round(loss_fn, lr, 1, sopt)
+        params, _, loss = fedopt(params, sopt.init(params), (client_toks,), torch.tensor([3.0, 1.0], device=device))
+    return params, float(loss)
+
+
+def parity_cpu(which: int, path: str) -> tuple:
+    """A worker's CPU half of ``parity_step``: the params saved to ``path``
+    -> (loss, seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    params, loss = parity_step(which, "cpu", parity_model())
+    torch.save(params, path)
+    return loss, time.perf_counter() - t0
+
+
+def card_steps(dec_batch: int) -> dict:
+    """Phase 7 (b) on the card, run by a worker with a CUDA context of its
+    own, as the dry run reckons a process that runs a step alone:
+    cuBLAS's workspaces (after a first matmul, and after its gradient on
+    autograd's thread), the buffers ``_softmax_backward_data`` allocates
+    for itself at the plain attention's score shape, smollm-360m's decode
+    step at ``dec_batch`` through K5 and again on the plain path under
+    FlopCounterMode, and the Mode-A round ``TRAIN_CUT`` under
+    FlopCounterMode -> their readings; each step's peak is above what was
+    allocated before its arguments were made."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.ops import card_temporaries
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    def alloc():
+        return torch.cuda.memory_allocated(dev)
+
+    def peak_of(fn, m0=None):
+        """fn() -> (its result, the most allocated while it ran above
+        ``m0``, by default what was allocated when it began)"""
+        torch.cuda.synchronize()
+        m0 = alloc() if m0 is None else m0
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(dev) - m0
+
+    a = torch.randn(64, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    m0 = alloc()
+    y = a @ a
+    m1 = alloc()
+    (g,) = torch.autograd.grad(y.float().sum(), a)
+    torch.cuda.synchronize()
+    got = {"card": torch.cuda.get_device_name(0),
+           "workspaces": (m1 - m0 - y.untyped_storage().nbytes(), alloc() - m1 - g.untyped_storage().nbytes())}
+    del a, y, g
+
+    op, shape = torch.ops.aten._softmax_backward_data.default, (1, 5, 3, 512, 4096)
+    probs = torch.softmax(torch.randn(shape, device=dev), -1)
+    got["softmax"] = []
+    for grad in (torch.randn(shape, device=dev), torch.randn(1, 3, 5, 512, 4096, device=dev).transpose(1, 2)):
+        res, peak = peak_of(lambda: op(grad, probs, -1, torch.float32))
+        got["softmax"].append((grad.is_contiguous(), peak - res.untyped_storage().nbytes(),
+                               card_temporaries(op, (grad, probs, -1, torch.float32))))
+        del res
+    del probs, grad
+
+    case = dryrun.DryRunCase("smollm-360m", "decode_32k", batch=dec_batch)
+    cfg = dryrun.case_config(case)[1]
+    m0 = alloc()
+    step, args, info = dryrun.build_step(case, dev)
+    for c in list(args[2]["unit"]) + list(args[2]["rem"]):
+        c["pos"].fill_(info["seq"] - 1)  # every slot decodes against the whole cache, as the dry run counts it
+    _build.reset_launches()
+    out, peak = peak_of(lambda: step(*args), m0)
+    launches = _build.LAUNCHES["flash_decode"]
+    del out
+    fc = FlopCounterMode(display=False)
+    with fc:
+        out = T.decode_step(cfg, args[0], args[1], args[2], use_flash=False)  # the plain path
+    got["decode"] = dict(peak=peak, launches=launches, flops=fc.get_total_flops(),
+                         finite=bool(torch.isfinite(out[0].float()).all()))
+    del step, args, out
+    torch.cuda.empty_cache()
+
+    m0 = alloc()
+    step, args, _ = dryrun.build_step(dryrun.DryRunCase(**TRAIN_CUT), dev)
+    fc = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with fc:
+        out, peak = peak_of(lambda: step(*args), m0)
+    got["round"] = dict(flops=fc.get_total_flops(), peak=peak, seconds=time.perf_counter() - t0, loss=float(out[1]))
+    del step, args, out
+    torch.cuda.empty_cache()
+    return got
+
+
+def start_dry_runs(pool, parity_dir) -> dict:
+    """Phase 7's jobs on the host's cores, in ``pool``: the dry-run records
+    (the decode cut first, which phase 3e's ``card_steps`` reads) and the
+    CPU halves of the parity checks, their params saved in ``parity_dir``.
+    -> {name: AsyncResult}."""
+    jobs = {"decode cut": pool.apply_async(dry_decode_cut, (DRY_FIT * HW.HBM_BYTES,)),
+            "train cut": pool.apply_async(dry_record, kwds=TRAIN_CUT)}
+    for which in range(len(PARITY)):
+        jobs[f"parity {which}"] = pool.apply_async(parity_cpu, (which, str(Path(parity_dir) / f"{which}.pt")))
+    for a, s in DRY_CASES:
+        jobs[f"{a} {s}"] = pool.apply_async(dry_record, kwds=dict(arch=a, shape=s))
+    return jobs
+
+
+def _print_record(rec: dict) -> None:
+    from repro_torch.analysis.ops import op_histogram
+
+    fit = "fits one card" if rec["fits_one_card"] else f"needs {rec['cards_needed']} cards"
+    print(f"dry run {rec['arch']} {rec['shape']} batch {rec['batch']} ({rec['fl_mode']}"
+          + (f", {rec['optimizer']}" if "optimizer" in rec else "")
+          + (f", {rec['micro_batches']} micro-batches" if "micro_batches" in rec else "")
+          + f"): params {rec['params']:,}, arguments {_gib(rec['argument_bytes'])}, outputs "
+          f"{_gib(rec['output_bytes'])}, peak {_gib(rec['peak_bytes'])} (cuBLAS workspaces "
+          f"{_gib(rec['workspace_bytes'])} of it) on the {rec['card']}: {fit}; "
+          f"{rec['flops']:.4e} FLOPs ({rec['flops_counted']:.4e} counted, kernels {rec['kernel_flops']}), "
+          f"{rec['bytes_moved']:.4e} bytes moved, {rec['n_ops']:,} aten ops "
+          f"(top {op_histogram(rec, 6)}), {rec['total_s']:.1f} s on a host core")
+    print(json.dumps({k: v for k, v in rec.items() if k not in ("ops", "traceback")}))
+
+
+def _roofline_line(torch, what: str, rec: dict, seconds: float) -> None:
+    from repro_torch.analysis.roofline import peak_flops
+
+    t_c, t_m = rec["flops"] / peak_flops(rec["dtype"]), rec["bytes_moved"] / HW.HBM_BW
+    print(f"{what}: {seconds:.4f} s on the card; roofline compute {t_c:.4e} s, memory {t_m:.4e} s: "
+          f"the larger is {max(t_c, t_m) / seconds:.4f} of the step (a reading, not a bound)")
+
+
+def _band(what: str, real: int, rec: dict) -> None:
+    """Hold a real peak to the dry run's within DRY_MEM_BAND."""
+    ratio = real / rec["peak_bytes"]
+    print(f"(b) {what} peak: real {_gib(real)} ({real} bytes), dry run {_gib(rec['peak_bytes'])} "
+          f"({rec['peak_bytes']} bytes): {ratio:.4f} (band {1 - DRY_MEM_BAND:.2f}-{1 + DRY_MEM_BAND:.2f})")
+    check(abs(ratio - 1) <= DRY_MEM_BAND, f"{what} peak {real} vs the dry run's {rec['peak_bytes']}")
+
+
+def dryrun_phase(torch, dev, jobs: dict, card: dict, card_wait: float, parity_dir) -> None:
+    """(a) the dry run's records at full width; (b) smollm-360m's decode
+    and train steps materialised at full width and depth (``card_steps``,
+    during phase 3e): FLOPs held equal to the fake count and peak memory
+    within DRY_MEM_BAND of it, and each step timed here, uninstrumented,
+    beside the roofline's terms; (c) one Mode-B step and one FedOpt round
+    on the card held to the CPU."""
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    recs = {k: j.get() for k, j in jobs.items()}  # done: the pool was joined after phase 3e
+
+    # (a) the records at full width
+    for key in [f"{a} {s}" for a, s in DRY_CASES] + ["train cut"]:
+        rec = recs[key]
+        check(rec["ok"], f"dry run {key}: {rec.get('error')}")
+        _print_record(rec)
+    llama = recs["llama4-maverick-400b-a17b train_4k"]
+    check(not llama["fits_one_card"] and llama["cards_needed"] > 1 and llama["fl_mode"] == "fedsgd_fsdp",
+          f"llama4-maverick's Mode-B step should need more than one card: {llama['cards_needed']}")
+    decode_recs = recs["decode cut"]
+    for rec in decode_recs:
+        check(rec["ok"], f"dry run decode cut: {rec.get('error')}")
+    dec = decode_recs[-1]
+    check(dec["peak_bytes"] <= DRY_FIT * HW.HBM_BYTES, f"no decode batch fits: {dec['peak_bytes']}")
+    print("cut: smollm-360m decode_32k batch " + " -> ".join(
+        f"{r['batch']} ({_gib(r['peak_bytes'])})" for r in decode_recs)
+        + f", the first whose peak fits {DRY_FIT} of the card")
+    full, trc = recs["smollm-360m train_4k"], recs["train cut"]
+    print(f"cut: smollm-360m train_4k round of {full['clients']} clients x {full['local_batch']} sequences x "
+          f"{full['local_steps']} local steps -> {trc['clients']} x {trc['local_batch']} x {trc['local_steps']}, "
+          f"for the phase's time, not for memory (the full round's peak {_gib(full['peak_bytes'])} fits the card; "
+          f"it dispatches {full['n_ops']:,} aten ops)")
+
+    # (b) on the card, in a worker of its own during phase 3e
+    ws, cfg = card["workspaces"], dryrun.case_config(dryrun.DryRunCase("smollm-360m", "decode_32k"))[1]
+    print(f"(b) on the {card['card']}, in a fresh process during phase 3e: cuBLAS's workspaces {ws[0]} bytes "
+          f"(the first matmul) and {ws[1]} (its gradient, on autograd's thread); the dry run's "
+          f"{HW.CUBLAS_WORKSPACE} each")
+    check(list(ws) == [HW.CUBLAS_WORKSPACE] * 2, f"cuBLAS workspaces {ws}")
+    for contiguous, held, want in card["softmax"]:
+        print(f"(b) _softmax_backward_data at (1, 5, 3, 512, 4096) fp32, grad {'' if contiguous else 'not '}"
+              f"contiguous: {held} bytes of its own while it runs; the dry run's {want}")
+        check(held == want, f"_softmax_backward_data held {held} bytes, the dry run counts {want}")
+    d = card["decode"]
+    print(f"(b) decode_32k batch {dec['batch']}: FLOPs real plain {d['flops']:.6e}, fake {dec['flops']:.6e}; "
+          f"K5 {d['launches']} launches in the step")
+    check(d["finite"], "decode logits not finite")
+    check(d["launches"] == cfg.num_layers, f"K5 launches {d['launches']}")
+    check(d["flops"] == dec["flops"], f"decode FLOPs {d['flops']} != fake {dec['flops']}")
+    _band(f"decode_32k batch {dec['batch']} (+ the first workspace)", d["peak"] + ws[0], dec)
+    r = card["round"]
+    print(f"(b) train_4k round (Mode A, {trc['clients']} clients x {trc['local_batch']} sequence x "
+          f"{trc['local_steps']} local steps, {trc['micro_batches']} micro-batch; the dry run counted "
+          f"{trc['grads_counted']} gradient and replayed {trc['grads_replayed']}): loss {r['loss']:.5f}; FLOPs real "
+          f"{r['flops']:.6e}, fake {trc['flops']:.6e}; {r['seconds']:.2f} s under FlopCounterMode")
+    check(math.isfinite(r["loss"]), f"round loss {r['loss']}")
+    check(r["flops"] == trc["flops"], f"train FLOPs {r['flops']} != fake {trc['flops']}")
+    _band("train_4k round (+ both workspaces)", r["peak"] + ws[0] + ws[1], trc)
+
+    # (b) the steps timed here, uninstrumented
+    case = dryrun.DryRunCase("smollm-360m", "decode_32k", batch=dec["batch"])
+    _, args, info = dryrun.build_step(case, dev)
+    for c in list(args[2]["unit"]) + list(args[2]["rem"]):
+        c["pos"].fill_(info["seq"] - 1)
+    times = []
+    for _ in range(6):  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.decode_step(cfg, args[0], args[1], args[2], use_flash=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del args
+    _roofline_line(torch, f"(b) decode_32k step, batch {dec['batch']} (median of 5)", dec,
+                   statistics.median(times[1:]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    step, args, _ = dryrun.build_step(dryrun.DryRunCase(**TRAIN_CUT), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    check(math.isfinite(float(out[1])), f"round loss {float(out[1])}")
+    del step, args, out
+    _roofline_line(torch, f"(b) train_4k round, {trc['clients']} x {trc['local_batch']} x {trc['local_steps']} "
+                   "(once, uninstrumented)", trc, t_round)
+
+    # (c) one Mode-B step and one FedOpt round in fp32, the card against the
+    # CPU's (run by a worker from the same seeds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = parity_model()
+    for which, what in enumerate(PARITY):
+        t0 = time.perf_counter()
+        p_card, l_card = parity_step(which, dev, model)
+        p_card = tree_map(lambda x: x.cpu(), p_card)
+        t_card = time.perf_counter() - t0
+        l_host, t_host = recs[f"parity {which}"]
+        p_host = torch.load(Path(parity_dir) / f"{which}.pt", mmap=True)
+        check(math.isfinite(l_card), f"{what}: loss {l_card}")
+        check(abs(l_card - l_host) <= 1e-5 + 1e-5 * abs(l_host), f"{what}: loss {l_card} on the card, {l_host} on the CPU")
+        worst = max(float(((a - b).abs() - 1e-5 * b.abs()).max()) for a, b in zip(tree_leaves(p_card), tree_leaves(p_host)))
+        check(worst <= 1e-6, f"{what}: params part from the CPU's by {worst} past rtol 1e-5")
+        print(f"(c) {what}: loss card {l_card:.7f}, CPU {l_host:.7f}; params within rtol 1e-5 + atol 1e-6 "
+              f"(worst excess {worst:.3e}); card {t_card:.2f} s, CPU {t_host:.2f} s in a worker")
+        del p_card, p_host
+    own = time.perf_counter() - t_phase
+    print(f"phase 7: {own + card_wait:.1f} s ({own:.1f} s here, {card_wait:.1f} s waiting for its steps on the "
+          f"card after phase 3e)")
+
+
 def _tf32(torch, x):
     """fp32 -> TF32 by clearing the 13 low mantissa bits (toward zero), as
     K7 forms the high part of an operand and as the tensor cores read one."""
@@ -2725,13 +3107,17 @@ def _to_float(torch, tree):
 
 
 def main() -> int:
+    with contextlib.ExitStack() as stack:  # phase 7's workers and files, ended also when a phase fails
+        return _run(stack)
+
+
+def _run(stack: contextlib.ExitStack) -> int:
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import paper_cnn
     from repro_torch.core import selection, similarity
     from repro_torch.data import make_image_dataset, skewness_partition
@@ -3093,6 +3479,13 @@ def main() -> int:
     print(f"K7 state hand-off (1, 16 + 16, 2, 16) fp32: two halves vs one shot {e_hand:.3e} (bound 1e-4)")
     check(e_hand <= 1e-4, f"K7 state hand-off off by {e_hand}")
 
+    # phase 7's dry runs take the host's cores from here, beside phases 3-3e
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    parity_dir = stack.enter_context(tempfile.TemporaryDirectory(dir=build))
+    pool = stack.enter_context(multiprocessing.get_context("spawn").Pool(DRY_WORKERS))
+    dry_jobs = start_dry_runs(pool, parity_dir)
+
     # --------------------------------------------------------- 3. main path
     exp = paper_cnn.paper_scale()
     c, cp = exp.num_clients, exp.clients_per_round
@@ -3224,9 +3617,19 @@ def main() -> int:
     funnel_rows, unfunnelled = engine_phase(torch, exp, client_xs, client_ys, ds)
 
     # --------------------------------- 3e. robustness and checkpoints
+    # a worker runs phase 7's steps on the card meanwhile (3e holds little of
+    # the card's memory); the pool is joined, and the worker's CUDA context
+    # ended, before phase 4 needs the card's memory
+    card_job = pool.apply_async(card_steps, (dry_jobs["decode cut"].get()[-1]["batch"],))
     t0 = time.perf_counter()
     robust_phase(torch, exp, client_xs, client_ys)
     print(f"phase 3e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    card = card_job.get()
+    pool.close()
+    pool.join()
+    card_wait = time.perf_counter() - t0
+    print(f"phase 7's steps on the card ended {card_wait:.1f} s after phase 3e")
 
     # ------------------------------------------- 4. the serving main path
     serve_launches, _, _ = serve_phase(torch, dev, "smollm-360m")
@@ -3265,7 +3668,12 @@ def main() -> int:
     # ------------------------------------------------- 6c. observability
     obs_phase(torch, dev, exp, client_xs, client_ys)
 
-    # ---------------------------------------------------------- 7. results
+    # ----------------------------------------- 7. the dry run against the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, dev, dry_jobs, card, card_wait, parity_dir)
+
+    # ---------------------------------------------------------- 8. results
     main_shape = SHAPES[0]
     sources = {
         "pairwise_dists_stats": (

@@ -1,9 +1,10 @@
 """Model and FL-run configuration of the port's decoder LMs.
 
 The port's own copies of ``ModelConfig`` (the JAX package's field names and
-defaults, ``q_dim``, ``kv_dim``, ``layer_types`` and ``reduced``) and of
-``FLRunConfig`` (its ``lr``).  The sharding rules are left out: the port
-runs on one card, and multi-device execution is ROADMAP Slice 5.
+defaults, ``q_dim``, ``kv_dim``, ``layer_types`` and ``reduced``), of
+``FLRunConfig`` and of the dry run's four ``INPUT_SHAPES``.  The sharding
+rules are left out: the port runs on one card, and multi-device execution
+is ROADMAP Slice 5.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["FLRunConfig", "ModelConfig"]
+__all__ = ["FLRunConfig", "INPUT_SHAPES", "InputShape", "ModelConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,9 +109,31 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FLRunConfig:
-    """How FL rounds execute for an architecture.  Of the JAX package's
-    fields only ``lr``, the one the LM client path reads; ``mode``,
-    ``local_steps``, ``optimizer`` and ``micro_batches`` come with the
-    dry run's Mode B that reads them (ROADMAP Queue 1 item 14)."""
+    """How FL rounds execute for an architecture, the JAX package's fields
+    and defaults.  The launchers read ``lr``; the dry run
+    (``launch/dryrun.py``) reads all five: ``mode`` picks Mode A
+    (``build_client_parallel_round`` with ``local_steps`` and
+    ``micro_batches``) or Mode B (``build_fedsgd_step`` with the arch's
+    ``optimizer`` and ``micro_batches``)."""
 
+    mode: str = "client_parallel"  # client_parallel (Mode A) | fedsgd_fsdp (Mode B)
+    local_steps: int = 4  # E (Mode A); Mode B is inherently E = 1
     lr: float = 1e-2
+    optimizer: str = "sgd"  # Mode-B server optimizer: sgd | adam | adafactor
+    micro_batches: int = 4  # grad accumulation within each local step (exact)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

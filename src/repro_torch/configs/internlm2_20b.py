@@ -26,6 +26,7 @@ def spec() -> ArchSpec:
     )
     return ArchSpec(
         model=model,
-        fl=FLRunConfig(lr=2e-3),
+        fl=FLRunConfig(mode="client_parallel", local_steps=2, lr=2e-3),
         optimizer="adam",
+        long_context="swa_variant",
     )

@@ -38,6 +38,7 @@ def spec() -> ArchSpec:
     )
     return ArchSpec(
         model=model,
-        fl=FLRunConfig(lr=1e-3),
+        fl=FLRunConfig(mode="fedsgd_fsdp", local_steps=1, lr=1e-3, micro_batches=8),
         optimizer="adafactor",
+        long_context="swa_variant",
     )

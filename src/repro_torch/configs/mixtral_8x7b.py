@@ -35,6 +35,7 @@ def spec() -> ArchSpec:
     )
     return ArchSpec(
         model=model,
-        fl=FLRunConfig(lr=2e-3),
+        fl=FLRunConfig(mode="client_parallel", local_steps=2, lr=2e-3),
         optimizer="adafactor",
+        long_context="native",
     )

@@ -33,6 +33,7 @@ def spec() -> ArchSpec:
     )
     return ArchSpec(
         model=model,
-        fl=FLRunConfig(lr=3e-3),
+        fl=FLRunConfig(mode="client_parallel", local_steps=4, lr=3e-3),
         optimizer="adam",
+        long_context="swa_variant",
     )

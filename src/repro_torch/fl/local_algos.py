@@ -55,17 +55,38 @@ __all__ = [
 Params = Any  # a tree of tensors
 
 
-def make_grad_fn(loss_fn: Callable) -> Callable[[Params, tuple], Tuple[torch.Tensor, Params]]:
-    """``grad_fn(params, batch) -> (loss, grad)`` on the full batch.  A leaf
-    the loss does not read (RWKV's ``mu_x``) gets a zero gradient of its
-    shape and dtype, as ``jax.grad`` gives it."""
+def make_grad_fn(loss_fn: Callable, micro_batches: int = 1) -> Callable[[Params, tuple], Tuple[torch.Tensor, Params]]:
+    """``grad_fn(params, batch) -> (loss, grad)``, optionally accumulated
+    over ``micro_batches`` slices of every batch leaf's leading axis: the
+    slices' losses and fp32 gradients averaged (the full-batch gradient of
+    a mean loss over equal slices, with 1/micro_batches the live
+    activations).  The one gradient definition of every local-update
+    algorithm and the Mode-B step, as in the JAX package.  A leaf the loss
+    does not read (RWKV's ``mu_x``) gets a zero gradient of its shape and
+    dtype, as ``jax.grad`` gives it."""
 
-    def grad_fn(params: Params, batch: tuple):
+    def full_grad(params: Params, batch):
         live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
         loss = loss_fn(tree_unflatten(params, live), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(live, grads)]
         return loss.detach(), tree_unflatten(params, grads)
+
+    if micro_batches == 1:
+        return full_grad
+
+    def grad_fn(params: Params, batch):
+        micro = tree_map(
+            lambda x: x.reshape((micro_batches, x.shape[0] // micro_batches) + x.shape[1:]), batch
+        )
+        tot_l = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+        tot_g = tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32, device=w.device), params)
+        for i in range(micro_batches):
+            l, g = full_grad(params, tree_map(lambda x: x[i], micro))
+            tot_l = tot_l + l
+            tot_g = tree_map(torch.add, tot_g, g)
+        inv = 1.0 / micro_batches
+        return tot_l * inv, tree_map(lambda x: x * inv, tot_g)
 
     return grad_fn
 
@@ -93,21 +114,26 @@ class LocalAlgo:
         """The per-client state after the round's local steps."""
         return client_state
 
-    def bind(self, loss_fn: Callable, lr: float, grad_clip: Optional[float] = None) -> "BoundLocalAlgo":
-        """The recipe bound to (loss_fn, lr, grad_clip): the object with the
-        per-step ``step(params, client_state, global_params, batch)``."""
-        return BoundLocalAlgo(self, loss_fn, lr, grad_clip)
+    def bind(
+        self, loss_fn: Callable, lr: float, grad_clip: Optional[float] = None, micro_batches: int = 1
+    ) -> "BoundLocalAlgo":
+        """The recipe bound to (loss_fn, lr, grad_clip, micro_batches): the
+        object with the per-step ``step(params, client_state,
+        global_params, batch)``."""
+        return BoundLocalAlgo(self, loss_fn, lr, grad_clip, micro_batches)
 
 
 class BoundLocalAlgo:
-    """A :class:`LocalAlgo` bound to ``loss_fn(params, batch)``, ``lr`` and
-    ``grad_clip``."""
+    """A :class:`LocalAlgo` bound to ``loss_fn(params, batch)``, ``lr``,
+    ``grad_clip`` and ``micro_batches``."""
 
-    def __init__(self, algo: LocalAlgo, loss_fn: Callable, lr: float, grad_clip: Optional[float]):
+    def __init__(
+        self, algo: LocalAlgo, loss_fn: Callable, lr: float, grad_clip: Optional[float], micro_batches: int = 1
+    ):
         self.algo = algo
         self.lr = lr
         self.grad_clip = grad_clip
-        self._grad_fn = make_grad_fn(loss_fn)
+        self._grad_fn = make_grad_fn(loss_fn, micro_batches)
 
     @property
     def name(self) -> str:

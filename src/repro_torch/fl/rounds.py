@@ -6,8 +6,10 @@ Mode-B optimizer step.
 ``sequential_clients=True`` form: each cohort client runs its E local steps
 in turn from the round's global params, then one weighted average forms the
 new global params (after the update guard, when one is given).
-``build_fedsgd_step`` is Mode B: one optimizer step on the (micro-batch
-accumulated) gradient; the pretrain loop runs it.
+``build_server_opt_round`` is FedOpt: the Mode-A round's aggregate taken as
+a pseudo-gradient for a server optimizer.  ``build_fedsgd_step`` is Mode B:
+one optimizer step on the (micro-batch accumulated) gradient; the pretrain
+loop and the dry run run it.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ __all__ = [
     "build_local_algo_update",
     "build_local_update",
     "build_client_parallel_round",
+    "build_server_opt_round",
     "build_fedsgd_step",
 ]
 
@@ -48,11 +51,12 @@ def weighted_average(stacked: Params, weights: torch.Tensor) -> Params:
 
 
 def build_local_algo_update(
-    algo, loss_fn: LossFn, lr: float, grad_clip: Optional[float] = None
+    algo, loss_fn: LossFn, lr: float, grad_clip: Optional[float] = None, micro_batches: int = 1
 ) -> Callable:
     """One client's local steps under a registered algorithm
     (``fl/local_algos.py``; ``None`` is FedAvg): one SGD step ``w − lr·g``
-    per leading entry of the batch leaves, ``g`` the gradient with the
+    per leading entry of the batch leaves, ``g`` the gradient (accumulated
+    over ``micro_batches`` slices of the step's batch) with the
     algorithm's per-step term folded in (and optionally clipped by global
     norm).  The entry params are the anchor every drift term measures
     against.  Two signatures, by ``algo.stateful``:
@@ -63,7 +67,7 @@ def build_local_algo_update(
       steps and evolved once by ``algo.finalize`` after the last."""
     if algo is None:
         algo = FedAvg()
-    bound = algo.bind(loss_fn, lr, grad_clip)
+    bound = algo.bind(loss_fn, lr, grad_clip, micro_batches)
 
     def run_steps(params: Params, client_state, anchor: Params, steps_batch: tuple):
         losses = []
@@ -111,6 +115,7 @@ def build_client_parallel_round(
     grad_clip: Optional[float] = None,
     update_transform: Optional[Callable] = None,
     algo=None,
+    micro_batches: int = 1,
 ) -> Callable[..., tuple]:
     """Mode A round step, clients one after another.
 
@@ -130,8 +135,11 @@ def build_client_parallel_round(
     one takes the keyword ``client_states`` (leaves leading ``(C_p, ...)``)
     and appends the clients' new states to the return; the caller writes
     back the ones whose update it keeps.
+
+    ``micro_batches`` accumulates each local step's gradient over that many
+    slices of the client's batch (exact, ``local_algos.make_grad_fn``).
     """
-    local_update = build_local_algo_update(algo, loss_fn, lr, grad_clip=grad_clip)
+    local_update = build_local_algo_update(algo, loss_fn, lr, grad_clip=grad_clip, micro_batches=micro_batches)
     stateful = algo is not None and algo.stateful
 
     def round_step(
@@ -173,6 +181,30 @@ def build_client_parallel_round(
     return round_step
 
 
+def build_server_opt_round(
+    loss_fn: LossFn,
+    client_lr: float,
+    local_steps: int,
+    server_optimizer: Optimizer,
+    grad_clip: Optional[float] = None,
+) -> Callable[[Params, Any, tuple, torch.Tensor], Tuple[Params, Any, torch.Tensor]]:
+    """FedOpt (Reddi et al.) on top of the Mode-A round: the eq.-(6)
+    aggregate becomes the pseudo-gradient ``Δ = w_global − avg(w_clients)``
+    in fp32, and the server optimizer (``optim.sgd/adam/adafactor``) steps
+    the global params with it.  ``round_step(params, server_state,
+    client_batches, client_weights) -> (params, server_state, loss)``.
+    Server SGD with lr 1 is plain FedAvg."""
+    inner = build_client_parallel_round(loss_fn, client_lr, local_steps, grad_clip)
+
+    def round_step(params: Params, server_state, client_batches: tuple, client_weights: torch.Tensor):
+        agg, loss = inner(params, client_batches, client_weights)
+        pseudo_grad = tree_map(lambda w, a: w.float() - a.float(), params, agg)
+        updates, server_state = server_optimizer.update(pseudo_grad, server_state, params)
+        return apply_updates(params, updates), server_state, loss
+
+    return round_step
+
+
 def build_fedsgd_step(
     loss_fn: LossFn,
     optimizer: Optimizer,
@@ -184,22 +216,7 @@ def build_fedsgd_step(
     batch)``.  ``micro_batches`` splits every leaf of the batch along its
     leading axis and averages the slices' losses and fp32 gradients
     (exact for a mean loss over equal slices)."""
-    grad_fn = make_grad_fn(loss_fn)
-
-    def grad_of(params: Params, batch):
-        if micro_batches == 1:
-            return grad_fn(params, batch)
-        micro = tree_map(
-            lambda x: x.reshape((micro_batches, x.shape[0] // micro_batches) + x.shape[1:]), batch
-        )
-        tot_l = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-        tot_g = tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32, device=w.device), params)
-        for i in range(micro_batches):
-            l, g = grad_fn(params, tree_map(lambda x: x[i], micro))
-            tot_l = tot_l + l
-            tot_g = tree_map(torch.add, tot_g, g)
-        inv = 1.0 / micro_batches
-        return tot_l * inv, tree_map(lambda x: x * inv, tot_g)
+    grad_of = make_grad_fn(loss_fn, micro_batches)
 
     def step(params: Params, opt_state, batch):
         loss, g = grad_of(params, batch)

@@ -21,6 +21,13 @@ launches its kernel and nowhere else.  ``on_device`` and ``stream`` are the
 wrappers' launch context: the device guard switches the current CUDA device
 only when the tensors lie on another one, and ``stream`` is the handle of
 PyTorch's current stream on a device, read without building a Stream object.
+
+``FAKE_CALLS`` and ``FAKE_FLOPS`` count the model kernels' calls on fake
+tensors (``torch._subclasses.fake_tensor``, the dry run's shapes without
+storage): such a call launches nothing, returns outputs of the kernel's
+shapes and dtypes, and records its analytic FLOPs and the bytes of its
+inputs and outputs (``FAKE_BYTES``) here (``fake_call``), never in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from types import ModuleType
 from typing import Dict, List, Optional, Sequence
 
 __all__ = [
-    "BINDINGS", "LAUNCHES", "SOURCES", "binding", "build_all", "check", "library", "on_device",
+    "BINDINGS", "FAKE_BYTES", "FAKE_CALLS", "FAKE_FLOPS", "LAUNCHES", "SOURCES", "binding", "build_all", "check",
+    "fake_call", "is_fake", "library", "on_device", "reset_fake_calls",
     "reset_launches", "stream",
 ]
 
@@ -93,6 +101,9 @@ LAUNCHES: Dict[str, int] = {
     "pairwise_dists_stats": 0, "normalized_gram": 0, "pairwise_sq_dists": 0, "gram": 0,
     "flash_decode": 0, "flash_attention": 0, "wkv6": 0,
 }
+FAKE_CALLS: Dict[str, int] = {"flash_decode": 0, "wkv6": 0}
+FAKE_FLOPS: Dict[str, float] = dict.fromkeys(FAKE_CALLS, 0.0)
+FAKE_BYTES: Dict[str, float] = dict.fromkeys(FAKE_CALLS, 0.0)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _MODULES: Dict[str, ModuleType] = {}
 _CURRENT = contextlib.nullcontext()
@@ -101,6 +112,28 @@ _CURRENT = contextlib.nullcontext()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def is_fake(x) -> bool:
+    """Whether ``x`` is a fake tensor (shape and dtype, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(x, FakeTensor)
+
+
+def fake_call(name: str, flops: float, tensors) -> None:
+    """Record one call of kernel ``name`` on fake tensors: its FLOPs and the
+    bytes of ``tensors`` (its inputs and outputs, each read or written
+    once)."""
+    FAKE_CALLS[name] += 1
+    FAKE_FLOPS[name] += flops
+    FAKE_BYTES[name] += sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reset_fake_calls() -> None:
+    for name in FAKE_CALLS:
+        FAKE_CALLS[name] = 0
+        FAKE_FLOPS[name] = FAKE_BYTES[name] = 0.0
 
 
 def on_device(device):

@@ -13,11 +13,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_attention_ref
 
-__all__ = ["decode_plan", "flash_attention", "flash_decode"]
+__all__ = ["decode_flops", "decode_plan", "flash_attention", "flash_decode"]
 
 MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65535  # K6's grid holds the query heads in y and the batch in z
 _PLANS = {}  # K5's (splits, positions per split) by (B, S, H, Hk, hd, bf16)
+
+
+def decode_flops(b: int, s: int, h: int, hd: int) -> float:
+    """FLOPs of one decode step's attention, every slot against all ``s``
+    cache entries: two matmuls (QKᵀ, PV) at 2 per MAC, ``4·b·h·s·hd``."""
+    return 4.0 * b * h * s * hd
 
 
 def flash_attention(
@@ -109,7 +115,11 @@ def flash_decode(
     a slot of length 0 gives zeros.  On a card the KV axis is split across
     blocks (:func:`decode_plan`); with more than one split the partial
     results go through an fp32 workspace allocated here, and a second
-    kernel merges them within the same launch call."""
+    kernel merges them within the same launch call.  Fake tensors (the dry
+    run) launch nothing: the call returns an output of the kernel's shape
+    and dtype and records the FLOPs of every slot against all S entries,
+    as the plain version computes them (the lengths have no values
+    there); the split's workspace, a few hundred kB, is not allocated."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q/k/v must be (B, 1|S, H|Hk, head_dim)")
     if q.shape[1] != 1:
@@ -131,6 +141,10 @@ def flash_decode(
     if k.device != device or v.device != device or lengths.device != device:
         devices = {t.device for t in (q, k, v, lengths)}
         raise ValueError(f"q, k, v and lengths must share one device, got {devices}")
+    if _build.is_fake(q):
+        out = torch.empty_like(q)
+        _build.fake_call("flash_decode", decode_flops(b, k.shape[1], h, hd), (q, k, v, lengths, out))
+        return out
     if device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
     if device.type != "cuda":

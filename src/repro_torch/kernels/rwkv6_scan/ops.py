@@ -10,7 +10,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
 
-__all__ = ["design", "wkv6"]
+__all__ = ["design", "wkv6", "wkv6_flops"]
 
 HEAD_DIMS = (8, 16, 32, 64)  # the kernel's templates
 CHUNK = 16  # tokens per chunk of the chunked design (kL in wkv6.cu)
@@ -21,6 +21,13 @@ def design(b: int, t: int, h: int, hd: int) -> int:
     recurrent kernel, else the number of value slices of the chunked one.
     Needs a card: the slices follow its SM count."""
     return int(_build.library("wkv6").wkv6_plan(b, t, h, hd))
+
+
+def wkv6_flops(b: int, t: int, h: int, hd: int) -> float:
+    """FLOPs of the recurrence, the JAX package's count
+    (``analysis.roofline._wkv_flops_correction``): 8·hd² per head and
+    token, the state update and the readout."""
+    return 8.0 * hd * hd * h * b * t
 
 
 def wkv6(
@@ -47,6 +54,11 @@ def wkv6(
     With more than one slice a first kernel forms each chunk's intra-chunk
     matrix A once, in a workspace allocated here.
 
+    Fake tensors (the dry run) launch nothing: the call returns outputs of
+    the kernel's shapes and dtypes and records :func:`wkv6_flops`; the
+    chunked design's workspace (its size follows the card) is not
+    allocated.
+
     Forward only, like the TPU kernel it replaces (no VJP there, no
     backward here): it raises when grad is enabled and an input requires
     grad."""
@@ -72,6 +84,10 @@ def wkv6(
     devices = {x.device for x in inputs}
     if len(devices) != 1:
         raise ValueError(f"r, k, v, w, u and s0 must share one device, got {devices}")
+    if _build.is_fake(r):
+        y, s_out = torch.empty_like(r), torch.empty_like(s0)
+        _build.fake_call("wkv6", wkv6_flops(b, t, h, hd), inputs + (y, s_out))
+        return y, s_out
     if r.device.type == "cpu":
         y, s_out = wkv6_scan_ref(r, k, v, w, u, s0)
         return y.to(r.dtype), s_out

@@ -1063,3 +1063,122 @@ def test_serve_engine_with_a_sink_equals_the_engine_without_on_the_card(card, tm
     assert k5_on == k5_off == cfg.num_layers * steps_on and steps_on == steps_off > 0
     kinds = [e["event"] for e in load_events(str(tmp_path / "s.jsonl"))]
     assert kinds.count("serve_submit") == kinds.count("serve_admit") == kinds.count("serve_finish") == 7
+
+
+# ----------------------------------------------- the dry run against the card
+
+
+def _hold_workspaces(card):
+    """Make sure this process holds cuBLAS's workspaces for this thread and
+    for autograd's thread (a matmul and its gradient), so that a step's peak
+    read from here on is the dry run's ``peak_bytes - workspace_bytes``."""
+    a = torch.randn(64, 64, device=card, dtype=torch.bfloat16, requires_grad=True)
+    torch.autograd.grad((a @ a).float().sum(), a)
+    torch.cuda.synchronize()
+
+
+def _on_card(card, case):
+    """The case's step built and run on the card: its output, its FLOPs by
+    FlopCounterMode and its peak above what was allocated before the
+    arguments were made, cuBLAS's workspaces already held."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hold_workspaces(card)
+    m0 = torch.cuda.memory_allocated(card)
+    step, args, _ = dryrun.build_step(case, card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    fc = FlopCounterMode(display=False)
+    with fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    return out, fc.get_total_flops(), torch.cuda.max_memory_allocated(card) - m0
+
+
+def test_cublas_workspace_per_thread_is_the_dry_runs(card):
+    """A fresh process's first matmul, and its gradient on autograd's
+    thread, each allocate HW.CUBLAS_WORKSPACE beside their results: the
+    workspaces the dry run adds to a step's peak."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "a = torch.randn(64, 64, device='cuda', dtype=torch.bfloat16, requires_grad=True)\n"
+        "m0 = torch.cuda.memory_allocated()\n"
+        "y = a @ a\n"
+        "m1 = torch.cuda.memory_allocated()\n"
+        "(g,) = torch.autograd.grad(y.float().sum(), a)\n"
+        "torch.cuda.synchronize()\n"
+        "print(m1 - m0 - y.untyped_storage().nbytes(), torch.cuda.memory_allocated() - m1 - g.untyped_storage().nbytes())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True).stdout
+    from repro_torch.analysis.roofline import HW
+
+    assert [int(x) for x in out.split()] == [HW.CUBLAS_WORKSPACE] * 2, out
+
+
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_softmax_backward_buffers_are_the_dry_runs(card, contiguous):
+    """The buffers ``_softmax_backward_data`` allocates for itself on the
+    card, at the plain attention's score shape (B, Hk, G, chunk, S) of
+    smollm-360m, equal ``analysis/ops.card_temporaries``."""
+    from repro_torch.analysis.ops import card_temporaries
+
+    op = torch.ops.aten._softmax_backward_data.default
+    shape = (1, 5, 3, 512, 4096)
+    grad = torch.randn(shape, device=card) if contiguous else torch.randn(1, 3, 5, 512, 4096, device=card).transpose(1, 2)
+    out = torch.softmax(torch.randn(shape, device=card), -1)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    res = op(grad, out, -1, torch.float32)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated(card) - m0 - res.untyped_storage().nbytes()
+    assert held == card_temporaries(op, (grad, out, -1, torch.float32)) > 0
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_dryrun_decode_step_matches_the_card(card, use_flash):
+    """smollm-360m's decode_32k step at full width and depth, batch 4: the
+    FLOPs the card's run counts equal the dry run's (through K5, whose
+    launches FlopCounterMode does not see, the dry run's counted part, its
+    K5 count being the plain version's), and max_memory_allocated is within
+    10% of the dry run's peak without the workspaces this process holds."""
+    from repro_torch.launch import dryrun
+
+    case = dryrun.DryRunCase("smollm-360m", "decode_32k", batch=4, use_flash=use_flash)
+    rec = dryrun.run_case(case)
+    assert rec["ok"], rec.get("error")
+    _build.reset_launches()
+    (logits, _), flops, peak = _on_card(card, case)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert _build.LAUNCHES["flash_decode"] == (32 if use_flash else 0)
+    assert flops == (rec["flops_counted"] if use_flash else rec["flops"])
+    want = rec["peak_bytes"] - rec["workspace_bytes"]
+    assert abs(peak / want - 1) <= 0.10, (peak, want)
+
+
+def test_dryrun_mode_a_round_matches_the_card(card):
+    """smollm-360m's Mode-A round at full width and depth with two clients
+    of one 4,096-token sequence and two local steps, so that the dry run
+    replays a gradient across steps and across clients: FLOPs equal to the
+    dry run's, max_memory_allocated within 10% of its peak without the
+    workspaces this process holds, a finite loss."""
+    import math
+
+    from repro_torch.launch import dryrun
+
+    case = dryrun.DryRunCase("smollm-360m", "train_4k", batch=2, clients=2, local_steps=2)
+    rec = dryrun.run_case(case)
+    assert rec["ok"], rec.get("error")
+    assert rec["grads_counted"] == 1 and rec["grads_replayed"] == 3
+    (params, loss), flops, peak = _on_card(card, case)
+    assert math.isfinite(float(loss))
+    assert flops == rec["flops"]
+    want = rec["peak_bytes"] - rec["workspace_bytes"]
+    assert abs(peak / want - 1) <= 0.10, (peak, want)

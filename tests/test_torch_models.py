@@ -77,11 +77,17 @@ def test_dense_configs_are_the_jax_configs(arch):
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_get_arch_gives_every_arch_the_jax_config(arch):
     """All ten archs: the port's ``ModelConfig`` equals JAX's field by
-    field, at full width and reduced, with the same layer types."""
-    jm, tm = jget_arch(arch).model, get_arch(arch).model
+    field, at full width and reduced, with the same layer types; so do the
+    ``FLRunConfig``, the optimizer, ``long_context`` and the long-context
+    model."""
+    js, ts = jget_arch(arch), get_arch(arch)
+    jm, tm = js.model, ts.model
     for full_j, full_t in ((jm, tm), (jm.reduced(), tm.reduced())):
         assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j), arch
         assert full_t.layer_types() == full_j.layer_types()
+    assert dataclasses.asdict(ts.fl) == dataclasses.asdict(js.fl), arch
+    assert (ts.optimizer, ts.long_context) == (js.optimizer, js.long_context), arch
+    assert dataclasses.asdict(ts.long_context_model()) == dataclasses.asdict(js.long_context_model()), arch
 
 
 # --------------------------------------------------------------- layers
