@@ -181,14 +181,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    terms; then one Mode-B step and one FedOpt round of the fp32 model on
    the card held to the same on the CPU (run by a worker from the same
    seeds).
-8. Prints, for each shape a path gives K1 or K3, each shape the RWKV
+8. The client mesh (``mesh_phase``) on one NCCL rank
+   (``launch/mesh.make_client_mesh(1)``): the paper's CNN at C = 100
+   through ``FLTrainer(mesh=)``, resident rounds (a) and slot rounds (b,
+   ``cohort_cap`` = k), each against the unsharded trainer from the same
+   seed (cohorts bit for bit, params within 1e-5, one all-reduce a round by
+   the mesh's counter; (b) traced: one ``nccl:all_reduce`` record a
+   round, and the NCCL device kernels seen, if any); bounded staleness
+   (c, bound 2, heavy_tail, exponential α 0.3: counters <= 2, ``sim_time``
+   at most the synchronous barrier on the same latencies, cohorts (a)'s);
+   the funnel at C = 4,096, Q = 512 under the mesh (d: each all-reduced
+   candidate block equal to ``index_select``'s bit for bit, K1 and K2 at
+   init and at the boundary); and the launcher at full width (e:
+   smollm-360m ``--shard-clients 1 --cohort-cap 4 --flash``, K6 once a
+   layer and refresh; against the same argv unsharded: cohorts bit for
+   bit, bf16 params within 2 steps of bf16, losses close).
+9. Prints, for each shape a path gives K1 or K3, each shape the RWKV
    path gave K7, each new arch's decode shape of K5 and each refresh shape
-   of K6 in phase 5b, its launches there beside that shape's cold device
-   time and bound (K1 and K3 also their plan and library time); then one
-   JSON line describing every kernel (K1 and K2 also at the funnel's shape
-   and at the unfunnelled init's C = 4,096, K5 at the three new decode
-   shapes, and K1, K6 and K7 at phase 5b's shapes), then the
-   device line
+   of K6 in phase 5b and phase 8, its launches there beside that shape's
+   cold device time and bound (K1 and K3 also their plan and library
+   time); then one JSON line describing every kernel (K1 and K2 also at
+   the funnel's shape, on phase 8's mesh and at the unfunnelled init's
+   C = 4,096, K5 at the three new decode shapes, K1, K6 and K7 at phase
+   5b's shapes and K6 at phase 8's), then the device line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs no network and imports nothing of JAX.
@@ -316,6 +331,10 @@ TRAIN_ATTN_SHAPES = [
     (16, 128, 4, 2, 64, "fp32", None),
 ]
 ATTN_SHAPES += TRAIN_ATTN_SHAPES
+# K6 at the refresh of phase 8 (e): smollm-360m's 16 docs of the
+# launcher's default 128 tokens
+MESH_ATTN_SHAPES = [(16, 128, 15, 5, 64, "bf16", None)]
+ATTN_SHAPES += MESH_ATTN_SHAPES
 # K7: (B, T, H, hd, dtype name, decays); rwkv6-7b's decode step first,
 # then its prefill of one admitted request and of the scan batch.  Decays:
 # None = the JAX test's (fp32) or the model's law (bf16); "edge" = the
@@ -392,6 +411,15 @@ TRAIN_ROUNDS, TRAIN_SEQ, TRAIN_PRETRAIN_STEPS = 1, 128, 2
 # tokens and slots, and a CNN run of OBS_TRACE_C clients of the phase-3
 # data for 2 rounds
 OBS_ROUNDS, OBS_EVERY = 4, 2
+# phase 8, the client mesh on one NCCL rank: rounds of the CNN runs (a)
+# and (b) and of the stale run (c), and the launcher's run (e) (rounds,
+# clients a round and the cohort cap)
+MESH_ROUNDS, MESH_STALE_ROUNDS, MESH_LM_ROUNDS, MESH_LM_PER_ROUND = 5, 5, 2, 4
+MESH_TRACE_ROUNDS = 2  # (b)'s traced run, apart from its timed one
+# (e) against the unsharded launcher: each bf16 param within MESH_LM_ULPS
+# steps of bf16 at its magnitude (plus MESH_LM_ATOL near zero); round 1's
+# loss within fp32 rounding (1e-5), every loss within MESH_LM_LOSS_RTOL
+MESH_LM_ULPS, MESH_LM_ATOL, MESH_LM_LOSS_RTOL = 2, 1e-6, 1e-2
 # phase 7: the dry run's full-width records and the CPU halves of its
 # parity checks, run in DRY_WORKERS processes on the host's cores from the
 # end of phase 2, beside phases 3-3e; smollm-360m's steps on the card in one
@@ -3032,6 +3060,258 @@ def dryrun_phase(torch, dev, jobs: dict, card: dict, card_wait: float, parity_di
           f"card after phase 3e)")
 
 
+def mesh_phase(torch, dev, exp, client_xs, client_ys, ds) -> dict:
+    """Client-sharded cohort execution on one NCCL rank, phase 8.
+
+    (a) The paper's CNN at C = 100 through ``FLTrainer(mesh=)`` (resident
+    rounds: every resident trains, weight 0 outside the cohort),
+    ``MESH_ROUNDS`` rounds against the unsharded trainer from the same seed:
+    cohorts bit for bit, params within 1e-5, the mesh counter one
+    all-reduce a round.  (b) The same with ``cohort_cap`` = k (slot
+    rounds), then ``MESH_TRACE_ROUNDS`` more traced with torch.profiler:
+    one ``nccl:all_reduce`` record a round (and the NCCL device kernels it
+    shows, if any).  (c) Staleness
+    bound 2 (heavy_tail, exponential, α 0.3), ``MESH_STALE_ROUNDS`` rounds:
+    finite losses, counters <= 2, each round's ``sim_time`` at most the
+    synchronous barrier on the same latency draws, the cohorts (a)'s.
+    (d) The funnel at C = ``FUNNEL_C``, Q = ``FUNNEL_C · FUNNEL_FRAC``
+    under the mesh (slots, flaky, re-funnelled at round 2): each all-reduced
+    candidate block equal to ``index_select``'s bit for bit, K1 and K2 once
+    at init and once at the boundary.  (e) The launcher at full width:
+    smollm-360m, ``--shard-clients 1 --cohort-cap`` k ``--flash``,
+    ``MESH_LM_ROUNDS`` rounds of the default 10 clients: K6 once a layer
+    and refresh, one all-reduce a round; then the same argv without the
+    mesh flags from the same seed: its cohorts bit for bit, its bf16 params
+    within ``MESH_LM_ULPS`` steps of bf16, round 1's loss within 1e-5 and
+    every loss within ``MESH_LM_LOSS_RTOL``.  cuDNN is deterministic for the
+    phase.  Returns the launches of (d)'s K1 and K2 and (e)'s K6."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import model_config, paper_cnn
+    from repro_torch.core import selection
+    from repro_torch.data import skewness_partition
+    from repro_torch.fl import engine
+    from repro_torch.fl.trainer import FLTrainer
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import cnn
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cp = exp.clients_per_round
+    on_card = dev.type == "cuda"
+    mesh = mesh_lib.make_client_mesh(1, dev)
+    check(mesh.backend == ("nccl" if on_card else "gloo") and mesh.device.type == dev.type,
+          f"mesh {mesh.backend} {mesh.device}")
+    print(f"mesh: 1 rank over {mesh.backend} on {mesh.device}"
+          + (f" ({torch.cuda.get_device_name(0)})" if on_card else ""))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fresh_params():
+        return cnn.init_cnn(torch.Generator(device=dev).manual_seed(0),
+                            channels=exp.cnn_channels, fc1_dim=exp.fc1_dim)
+
+    def run(cfg, rounds, on_mesh, trace=False):
+        """``rounds`` rounds through a fresh trainer -> (trainer, outputs,
+        all-reduces in the rounds, profiler or None, final state)."""
+        trainer = FLTrainer(cfg, fresh_params(), cnn.cnn_loss, cnn.apply_with_features, client_xs, client_ys,
+                            selection.DPPSelection(), device=dev, mesh=mesh if on_mesh else None)
+        sync()
+        mesh.reset_counts()
+        prof = None
+        with _Spy(engine, "run_scanned") as seg, contextlib.ExitStack() as stack:
+            if trace:
+                prof = stack.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]))
+            trainer.run(rounds=rounds)
+            sync()
+        check(len(seg.calls) == 1, "not one segment")
+        final, outs = seg.calls[0][2]
+        return trainer, outs, mesh.all_reduce_calls, prof, final
+
+    def per_round(outs):
+        return [round(float(outs["t_select"][i] + outs["t_local"][i] + outs["t_refresh"][i]), 4)
+                for i in range(len(outs["round"]))]
+
+    base = paper_cnn.fl_config(exp, seed=0)
+    ref_cohorts = None
+    for label, cap in (("(a)", None), ("(b)", cp)):
+        cfg = dataclasses.replace(base, cohort_cap=cap)
+        ref, ref_outs, _, _, _ = run(cfg, MESH_ROUNDS, on_mesh=False)
+        tr, outs, calls, _, _ = run(cfg, MESH_ROUNDS, on_mesh=True)
+        check(torch.equal(outs["selected"], ref_outs["selected"]), f"mesh {label}: cohorts off the unsharded run")
+        perr = max(float((tr.params[n] - ref.params[n]).abs().max()) for n in ref.params)
+        check(perr <= 1e-5, f"mesh {label}: params {perr} from the unsharded run")
+        check(calls == MESH_ROUNDS, f"mesh {label}: {calls} all-reduces in {MESH_ROUNDS} rounds")
+        check(bool(torch.isfinite(outs["loss"]).all()), f"mesh {label}: losses {outs['loss']}")
+        lerr = float((tr.losses - ref.losses).abs().max())
+        print(f"mesh {label} {'slots (cohort_cap ' + str(cap) + ')' if cap else 'resident'}: cohorts equal to the "
+              f"unsharded run's over {MESH_ROUNDS} rounds, max |params - unsharded| {perr:.3e}, losses {lerr:.3e}; "
+              f"all-reduces {calls}; seconds a round sharded {per_round(outs)} vs unsharded {per_round(ref_outs)}")
+        if cap is None:
+            ref_cohorts = outs["selected"]
+        else:
+            # a traced run of its own: the timed rounds above ran without the
+            # profiler's cost
+            _, _, _, prof, _ = run(cfg, MESH_TRACE_ROUNDS, on_mesh=True, trace=True)
+            record = f"{mesh.backend}:all_reduce"
+            events = prof.key_averages()
+            host = sum(e.count for e in events if e.key == record)
+            dev_k = {e.key: e.count for e in events if "allreduce" in e.key.lower() and e.key != record}
+            print(f"mesh (b) trace: {host} {record} records in {MESH_TRACE_ROUNDS} traced rounds; device kernels of "
+                  f"the collective {dev_k if dev_k else 'none (an in-place all-reduce at world size 1 launches none)'}")
+            check(host == MESH_TRACE_ROUNDS, f"mesh (b): {host} {record} records for {MESH_TRACE_ROUNDS} rounds")
+
+    # (c) bounded staleness on the same seed, latencies recorded
+    scfg = dataclasses.replace(base, scenario="heavy_tail", staleness_bound=2, staleness_decay="exponential",
+                               staleness_alpha=0.3)
+    with _Spy(engine, "draw_environment") as env:
+        tr, outs, calls, _, final = run(scfg, MESH_STALE_ROUNDS, on_mesh=True)
+    barrier = [float(torch.amax(lat[sel.long().to(lat.device)])) for (_, _, (lat, _)), sel in
+               zip(env.calls, outs["selected"])]
+    sim = outs["sim_time"].tolist()
+    check(calls == MESH_STALE_ROUNDS, f"mesh (c): {calls} all-reduces")
+    check(bool(torch.isfinite(outs["loss"]).all()), f"mesh (c): losses {outs['loss']}")
+    check(int(final.shard_staleness.max()) <= 2 and float(outs["staleness"].max()) <= 2, "mesh (c): a counter above 2")
+    check(all(s <= b + 1e-6 for s, b in zip(sim, barrier)), f"mesh (c): sim_time {sim} above the barrier {barrier}")
+    check(torch.equal(outs["selected"], ref_cohorts[:MESH_STALE_ROUNDS]), "mesh (c): staleness moved a cohort")
+    print(f"mesh (c) staleness bound 2, heavy_tail, exponential 0.3: {MESH_STALE_ROUNDS} rounds, staleness "
+          f"{outs['staleness'].tolist()}, sim_time {[round(s, 3) for s in sim]} vs the synchronous barrier "
+          f"{[round(s, 3) for s in barrier]}, cohorts (a)'s; seconds a round {per_round(outs)}")
+
+    # (d) the funnel at C = FUNNEL_C under the mesh
+    shards = skewness_partition(ds.ys, FUNNEL_C, 0.8, ds.num_classes, samples_per_client=FUNNEL_N_C, seed=0)
+    fxs = np.stack([ds.xs[sh] for sh in shards])
+    fys = np.stack([ds.ys[sh] for sh in shards])
+    fcfg = dataclasses.replace(base, num_clients=FUNNEL_C, eval_every=3, reprofile_every=2,
+                               candidate_frac=FUNNEL_FRAC, scenario="flaky", cohort_cap=cp)
+    q = fcfg.candidate_count()
+    t0 = time.perf_counter()
+    trainer = FLTrainer(fcfg, fresh_params(), cnn.cnn_loss, cnn.apply_with_features, fxs, fys,
+                        selection.DPPSelection(), device=dev, mesh=mesh)
+    sync()
+    t_init = time.perf_counter() - t0
+    _build.reset_launches()
+    mesh.reset_counts()
+    with _Spy(engine, "candidate_profile_block") as blocks:
+        t0 = time.perf_counter()
+        hist = trainer.run(rounds=3)
+        sync()
+        wall = time.perf_counter() - t0
+    d_launches = {n: _build.LAUNCHES[n] for n in FL_KERNELS}
+    check(d_launches == {n: 2 for n in FL_KERNELS}, f"mesh (d): K1/K2 not at init and the boundary: {d_launches}")
+    check(len(blocks.calls) == 2, f"mesh (d): {len(blocks.calls)} candidate blocks")
+    for (args, _, block) in blocks.calls:
+        prof_rows, cand = args[0], args[1]
+        check(tuple(block.shape) == (q, prof_rows.shape[1]), f"mesh (d): block {tuple(block.shape)}")
+        check(torch.equal(block, torch.index_select(prof_rows, 0, cand.long())),
+              "mesh (d): the all-reduced block is not index_select's bit for bit")
+    check(mesh.all_reduce_calls == 3 + 2 * 2, f"mesh (d): {mesh.all_reduce_calls} all-reduces")
+    check(hist["round"] == [3], f"mesh (d) history {hist}")
+    print(f"mesh (d) funnel C={FUNNEL_C} -> Q={q}, slots {cp}, flaky: init {t_init:.3f} s, 3 rounds in {wall:.3f} s; "
+          f"2 candidate blocks ({q}, {blocks.calls[0][2].shape[1]}) equal to index_select bit for bit; launches "
+          f"{d_launches}; all-reduces {mesh.all_reduce_calls} (3 rounds, and the losses and the block at init "
+          f"and at the boundary)")
+    mesh.close()
+    del trainer, fxs, fys
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (e) the launcher at full width on one NCCL rank
+    argv = ["--mode", "fl", "--arch", "smollm-360m", "--shard-clients", "1", "--cohort-cap",
+            str(MESH_LM_PER_ROUND), "--per-round", str(MESH_LM_PER_ROUND), "--flash", "--rounds",
+            str(MESH_LM_ROUNDS), "--log-every", "1"] + (["--full-width"] if on_card else ["--device", "cpu"])
+    print(f"mesh (e): python -m repro_torch.launch.train {' '.join(argv)}")
+    _build.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    with _Spy(mesh_lib, "make_client_mesh") as meshes:
+        state, outs = train_launch.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    e_launches = dict(_build.LAUNCHES)
+    layers = model_config("smollm-360m", on_card, None).num_layers
+    lm_mesh = meshes.calls[0][2]
+    check(len(meshes.calls) == 1 and lm_mesh.backend == mesh.backend, f"mesh (e): meshes {meshes.calls}")
+    check(lm_mesh.all_reduce_calls == MESH_LM_ROUNDS, f"mesh (e): {lm_mesh.all_reduce_calls} all-reduces")
+    check(e_launches["flash_attention"] == layers * MESH_LM_PER_ROUND * MESH_LM_ROUNDS,
+          f"mesh (e): K6 launches {e_launches['flash_attention']}")
+    check(e_launches["pairwise_dists_stats"] == 1 and e_launches["normalized_gram"] == 1,
+          f"mesh (e): K1/K2 not once: {e_launches}")
+    check(bool(torch.isfinite(outs["loss"]).all()) and all(bool(torch.isfinite(x).all())
+                                                           for x in tree_leaves(state.params)),
+          "mesh (e): non-finite losses or params")
+    print(f"mesh (e): {MESH_LM_ROUNDS} rounds in {wall:.3f} s with set-up; launches {e_launches}; all-reduces "
+          f"{lm_mesh.all_reduce_calls}; seconds a round {per_round(outs)}")
+    # the same argv unsharded, from the same seed: with k = cap the engine
+    # trains the same clients on the same batches, and the bf16 params part
+    # only where the eq.-(6) sums round otherwise (slots in ascending id
+    # order, the engine in cohort order; fp32 sums cast once to bf16)
+    mesh_flags = ("--shard-clients", "--cohort-cap")
+    ref_argv = [a for i, a in enumerate(argv) if a not in mesh_flags and (i == 0 or argv[i - 1] not in mesh_flags)]
+    print(f"mesh (e) reference: python -m repro_torch.launch.train {' '.join(ref_argv)}")
+    t0 = time.perf_counter()
+    ref_state, ref_outs = train_launch.main(ref_argv)
+    sync()
+    ref_wall = time.perf_counter() - t0
+    check(torch.equal(outs["selected"], ref_outs["selected"]), "mesh (e): cohorts off the unsharded launcher's")
+    n_el = n_diff = max_ulps = 0
+    max_abs, worst = 0.0, 0.0
+    for a, b in zip(tree_leaves(state.params), tree_leaves(ref_state.params)):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"mesh (e): leaf {tuple(a.shape)} {a.dtype} vs {b.dtype}")
+        af, bf = a.float(), b.float()
+        d = (af - bf).abs()
+        # MESH_LM_ULPS steps of bf16 at the larger magnitude, and a floor
+        # for entries near zero
+        lim = MESH_LM_ULPS * 2.0 ** -7 * torch.maximum(af.abs(), bf.abs()) + MESH_LM_ATOL
+        n_el += a.numel()
+        n_diff += int((a != b).sum())
+        max_abs = max(max_abs, float(d.max()))
+        worst = max(worst, float((d / lim).max()))
+        max_ulps = max(max_ulps, int(_ulps(torch, a, b).max()))
+    loss_rel = [float(abs(x - y) / abs(y)) for x, y in zip(outs["loss"].tolist(), ref_outs["loss"].tolist())]
+    refresh_rel = float(((state.losses - ref_state.losses).abs() / ref_state.losses.abs()).max())
+    print(f"mesh (e) against the unsharded launcher ({MESH_LM_ROUNDS} rounds in {ref_wall:.3f} s with set-up, "
+          f"seconds a round {per_round(ref_outs)}): cohorts equal; params: {n_diff} of {n_el} entries differ, at most "
+          f"{max_ulps} {a.dtype} steps, max |d| {max_abs:.3e}, {worst:.4f} of the bound (|d| <= {MESH_LM_ULPS} * 2^-7 "
+          f"* max(|a|, |b|) + {MESH_LM_ATOL:g}); round losses relative {loss_rel}; refreshed losses relative "
+          f"{refresh_rel:.3e}")
+    check(worst <= 1.0, f"mesh (e): params {worst} of the bf16 bound off the unsharded launcher's")
+    check(loss_rel[0] <= 1e-5, f"mesh (e): round 1's loss {loss_rel[0]} off the unsharded launcher's")
+    check(max(loss_rel) <= MESH_LM_LOSS_RTOL and refresh_rel <= MESH_LM_LOSS_RTOL,
+          f"mesh (e): losses {loss_rel} {refresh_rel} off the unsharded launcher's")
+    del ref_state, ref_outs
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return {"pairwise_dists_stats": d_launches["pairwise_dists_stats"],
+            "normalized_gram": d_launches["normalized_gram"], "flash_attention": e_launches["flash_attention"]}
+
+
+def _ulps(torch, a, b):
+    """Entrywise distance between ``a`` and ``b`` (one floating dtype) in
+    representable steps of that dtype: each value's bits as a signed
+    integer, negatives mirrored so that the integers run in the floats'
+    order."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    top = (1 << (8 * a.element_size() - 1)) - 1
+
+    def key(x):
+        i = x.contiguous().view(ints).to(torch.int64)
+        mag = i & top
+        return torch.where(i < 0, -mag, mag)
+
+    return (key(a) - key(b)).abs()
+
+
 def _tf32(torch, x):
     """fp32 -> TF32 by clearing the 13 low mantissa bits (toward zero), as
     K7 forms the high part of an operand and as the tensor cores read one."""
@@ -3357,7 +3637,7 @@ def _run(stack: contextlib.ExitStack) -> int:
         k6_dev = device_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), "flash_attention",
                            calls=reps.get("launches", 20))
         k6_cold = None
-        if (b, s, h, hk, hd, kind, window) in TRAIN_ATTN_SHAPES:
+        if (b, s, h, hk, hd, kind, window) in TRAIN_ATTN_SHAPES + MESH_ATTN_SHAPES:
             k6_cold = device_ms(torch, lambda: fd_ops.flash_attention(q, k, v, window=window), "flash_attention",
                                 cold=True)
         k6_plain = time_ms(torch, lambda: fd_ref.attention_ref(q, k, v, window=window), **reps)
@@ -3673,7 +3953,12 @@ def _run(stack: contextlib.ExitStack) -> int:
     torch.cuda.empty_cache()
     dryrun_phase(torch, dev, dry_jobs, card, card_wait, parity_dir)
 
-    # ---------------------------------------------------------- 8. results
+    # ------------------------------------------------------- 8. the client mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(torch, dev, exp, client_xs, client_ys, ds)
+
+    # ---------------------------------------------------------- 9. results
     main_shape = SHAPES[0]
     sources = {
         "pairwise_dists_stats": (
@@ -3862,6 +4147,29 @@ def _run(stack: contextlib.ExitStack) -> int:
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"], device_ms=r["device_ms_cold"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    # phase 8's mesh paths: K1 and K2 on (d)'s all-reduced candidate block
+    # (the funnel's shape, its rows from phase 3d), K6 at (e)'s refresh
+    for name in FL_KERNELS:
+        r = funnel_rows[name]
+        table.append(dict(
+            name=f"{name} mesh funnel {'x'.join(map(str, r['shape']))}", route="cuda", source=sources[name][0],
+            replaces=sources[name][1], launches=mesh_launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        ))
+    shape = MESH_ATTN_SHAPES[0]
+    r = attn_rows[shape]
+    print(f"K6 path shape B={shape[0]} S={shape[1]} H={shape[2]} Hk={shape[3]} hd={shape[4]} {shape[5]} "
+          f"(smollm-360m refresh on the mesh, phase 8 (e)): launches {mesh_launches['flash_attention']}, "
+          f"ms {r['ms']:.5f}, device_ms cold {fmt_ms(r['device_ms_cold'])} hot {fmt_ms(r['device_ms'])}, "
+          f"bound {r['bound_ms']:.6f} ({r['bound_by']}), plain {r['plain_ms']:.5f}, sdpa {r['library_ms']:.5f}")
+    table.append(dict(
+        name=f"flash_attention mesh smollm-360m {shape[0]}x{shape[1]}x{shape[2]}/{shape[3]}x{shape[4]} {shape[5]}",
+        route="cuda", source=sources["flash_attention"][0], replaces=sources["flash_attention"][1],
+        launches=mesh_launches["flash_attention"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        device_ms=r["device_ms_cold"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"],
+    ))
     r = wkv_rows[(LM_DOCS, TRAIN_SEQ, "bf16", None)]
     table.append(dict(
         name=f"wkv6 rwkv6-7b refresh {LM_DOCS}x{TRAIN_SEQ}", route="cuda", source=sources["wkv6"][0],

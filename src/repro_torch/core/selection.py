@@ -203,6 +203,10 @@ class SelectionStrategy:
     # True when draw_fn draws from SelectionState.eig_state: code that makes
     # the state then pays the O(C³) eigh; everyone else gets the identity cache.
     uses_spectral_cache = False
+    # True when draw_fn reads SelectionState.losses or client_sizes: on a
+    # client mesh a round then assembles them from the ranks (one more
+    # all-reduce); a strategy that reads neither draws without it
+    reads_client_stats = True
 
     def draw_fn(
         self, generator: torch.Generator, state: SelectionState, k: int,
@@ -270,6 +274,7 @@ class UniformSelection(_NoiseDrawSelection):
     mask, Gumbel top-k over the available clients' equal logits."""
 
     name = "fedavg"
+    reads_client_stats = False  # the losses' shape and device only
 
     def noise(self, generator, state, k, avail=None):
         """A permutation of the clients, or with a mask Gumbel noise (C,)."""
@@ -294,6 +299,7 @@ class DPPSelection(SelectionStrategy):
     """
 
     name = "fl-dp3s"
+    reads_client_stats = False  # the kernel and its cache only
 
     def __init__(self, mode: str = "sample", use_cache: bool = True):
         if mode not in ("sample", "map"):

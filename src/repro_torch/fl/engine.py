@@ -5,8 +5,7 @@ transition run as a host loop.
 reads the same in both packages.  One default differs: ``use_pallas_kernel``
 is True here, so a config left as it is builds the eq.-(14) kernel through
 the port's K1 + K2 on the card.  ``__post_init__`` validates the fields as
-JAX does and refuses those whose features this package does not run yet
-(mesh slots, staleness), each with its ROADMAP item.
+JAX does.
 
 The engine is the JAX package's single-device engine:
 :func:`init_server_state` (Algorithm-1 init into a :class:`ServerState`,
@@ -29,11 +28,31 @@ the fault draws and the funnel's predictions off that key with a salt;
 here each has a generator of its own, seeded from ``cfg.seed`` and the
 salt, so none of them shifts a cohort.  ``FLTrainer`` (``fl/trainer.py``)
 runs its rounds through this engine.
+
+With a client mesh (``launch/mesh.py``: D ``torch.distributed`` ranks) every
+rank runs the engine on its own state: the replicated fields (params, the
+kernel and its cache, the generators, the quarantine, the staleness ring)
+the same on every rank, and the client-sharded ones
+(:data:`CLIENT_SHARDED_FIELDS`) holding only the rank's C/D resident
+clients (:func:`shard_server_state`).  Selection is replicated, so every
+rank draws the same cohort, and so are the cohort's batch plans, drawn as
+the single-device engine draws them; each rank trains its cohort residents
+and one ``mesh.all_reduce`` a round combines the eq.-(6) partial sums with
+every other partial the round needs.  Three modes, as JAX's shard-map
+bodies: resident (every resident trains, weight 0 outside the cohort),
+capacity slots (``cohort_cap``: only the rank's cohort residents train)
+and bounded staleness (``staleness_bound``: a rank that misses the
+scenario's deadline trains from ring params of round ``t − s_d``, weighed
+by λ(s_d); ``fl/staleness.py``).  The (C,) sizes are replicated; a round
+reads the whole (C,) losses only for a strategy that draws on them
+(``SelectionStrategy.reads_client_stats``), which costs one more
+all-reduce; JAX's jit reads its sharded losses the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -51,6 +70,7 @@ from repro_torch.fl import faults as faults_lib
 from repro_torch.fl import local_algos as local_algos_lib
 from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl import scenarios as scenarios_lib
+from repro_torch.fl import staleness as staleness_lib
 from repro_torch.obs import sink as obs_sink_lib
 from repro_torch.obs import telemetry as obs_telemetry_lib
 from repro_torch.obs import tracing as obs_tracing_lib
@@ -62,6 +82,8 @@ __all__ = [
     "batch_indices_from_keys",
     "batches_from_indices",
     "make_client_batches",
+    "CLIENT_SHARDED_FIELDS",
+    "shard_server_state",
     "candidate_profile_block",
     "funnel_fields",
     "init_server_state",
@@ -69,6 +91,7 @@ __all__ = [
     "run_scanned",
     "run_many",
     "run_checkpointed",
+    "rank_dir",
     "save_server_state",
     "restore_server_state",
     "stack_states",
@@ -109,9 +132,15 @@ class FLConfig:
     grad_clip: Optional[float] = None  # stabilises late-round full-batch SGD
     local_steps: Optional[int] = None  # explicit steps/round (token workloads)
     sample_with_replacement: bool = False  # iid batch draws instead of perms
+    # capacity slots (client mesh only): at most this many cohort clients
+    # train on a rank a round; >= min(clients_per_round, C / D)
     cohort_cap: Optional[int] = None
+    # bounded staleness (client mesh and a scenario): a rank that misses the
+    # scenario's deadline contributes partial sums from the params of round
+    # t − s_d, s_d <= staleness_bound, weighed by the decay family's λ(s_d);
+    # 0 is the synchronous round bit for bit
     staleness_bound: Optional[int] = None
-    staleness_decay: str = "polynomial"
+    staleness_decay: str = "polynomial"  # constant | polynomial | exponential
     staleness_alpha: float = 0.5
     scenario: Optional[str] = None
     candidate_frac: Optional[float] = None
@@ -146,17 +175,26 @@ class FLConfig:
         return max(self.clients_per_round, min(q, self.num_clients))
 
     def __post_init__(self):
-        # field -> (in use, ROADMAP Queue-1 item that ports it)
-        not_ported = {
-            "cohort_cap": (self.cohort_cap is not None, 15),
-            # JAX runs staleness on a mesh only, which item 15 brings
-            "staleness_bound": (self.staleness_bound is not None, 15),
-        }
-        fields = [f"{name} (ROADMAP Queue 1 item {item})" for name, (used, item) in not_ported.items() if used]
-        if fields:
-            raise NotImplementedError(
-                f"FLConfig fields {fields} select features that are not yet ported"
-            )
+        if self.staleness_bound is not None:
+            if self.staleness_bound < 0:
+                raise ValueError(f"staleness_bound={self.staleness_bound} must be >= 0")
+            if self.cohort_cap is not None:
+                raise ValueError(
+                    f"cohort_cap={self.cohort_cap} is incompatible with staleness_bound="
+                    f"{self.staleness_bound}: capacity slots assume a synchronous cohort (every "
+                    "slot trains on round-t params); drop one of the two"
+                )
+            if self.scenario is None:
+                raise ValueError(
+                    f"staleness_bound={self.staleness_bound} requires a latency scenario (set "
+                    "FLConfig.scenario / --scenario): without a latency model no shard goes stale"
+                )
+            if self.staleness_decay not in staleness_lib.DECAY_FAMILIES:
+                raise ValueError(
+                    f"unknown staleness_decay {self.staleness_decay!r}; known: {staleness_lib.DECAY_FAMILIES}"
+                )
+            if self.staleness_alpha < 0:
+                raise ValueError(f"staleness_alpha={self.staleness_alpha} must be >= 0")
         if self.local_batch_size is not None and self.local_batch_size < 1:
             raise ValueError(f"local_batch_size={self.local_batch_size} must be >= 1")
         if self.scenario is not None:
@@ -290,8 +328,7 @@ def make_client_batches(cfg: FLConfig, generator: torch.Generator, client_xs, cl
 class ServerState:
     """Everything the server evolves across rounds.
 
-    The JAX package's fields for the features this package runs; those of
-    the refused ones (the staleness ring) are left out.  ``generator`` takes
+    The JAX package's fields.  ``generator`` takes
     the place of JAX's carried key: a round draws from it in place, so a
     state and the state a round returns share it (:meth:`fork` gives a
     state its own copies).  ``env_generator`` is the scenario's stream
@@ -300,7 +337,14 @@ class ServerState:
     spectral cache and the cluster labels live on the Q × Q candidate
     block.  ``quarantine`` exists only on a guarded config
     (``FLConfig.guarded``), ``algo_state`` only for a stateful local
-    algorithm (FedDyn's ``h``), so a plain config's state is as before."""
+    algorithm (FedDyn's ``h``), so a plain config's state is as before.
+
+    ``param_hist`` and ``shard_staleness`` (the staleness ring and the (D,)
+    lag counters, ``fl/staleness.py``) exist only with
+    ``cfg.staleness_bound``.  A rank's state on a client mesh
+    (:func:`shard_server_state`) has ``shard_count`` D and its
+    ``shard_rank``, and its :data:`CLIENT_SHARDED_FIELDS` hold the rank's
+    C/D residents only; a whole state has 0 and 1."""
 
     params: Any  # global model (a tree of tensors)
     generator: torch.Generator  # server randomness: cohorts, then batch plans
@@ -311,7 +355,7 @@ class ServerState:
     eig_state: dpp_lib.KDPPSamplerState  # spectral cache of ``kernel``
     client_xs: torch.Tensor  # (C, n_c, ...) simulated client shards
     client_ys: torch.Tensor  # (C, n_c)
-    client_sizes: torch.Tensor  # (C,) n_c
+    client_sizes: torch.Tensor  # (C,) n_c (replicated on a mesh)
     client_label_dists: torch.Tensor  # (C, num_classes)
     global_label_dist: torch.Tensor  # (num_classes,)
     cluster_labels: torch.Tensor  # (C,) or (Q,) int32, host-fitted (0 if unused)
@@ -323,23 +367,31 @@ class ServerState:
     # per-client local-algorithm state: a tree of (C, ...) fp32 tensors
     algo_state: Any = None
     fault_generator: Optional[torch.Generator] = None  # the fault model's draws
+    param_hist: Any = None  # the ring of the last staleness_bound + 1 params
+    shard_staleness: Optional[torch.Tensor] = None  # (D,) int32 per-shard lag
+    shard_rank: int = 0  # this state's rank on a client mesh
+    shard_count: int = 1  # the mesh's ranks (1: a whole state)
 
     @property
     def num_clients(self) -> int:
-        return self.losses.shape[0]
+        """C, the federation's clients (on every rank of a mesh)."""
+        return self.losses.shape[0] * self.shard_count
 
-    def selection_state(self) -> selection_lib.SelectionState:
+    def selection_state(self, losses: Optional[torch.Tensor] = None) -> selection_lib.SelectionState:
         """The per-round draw's input: candidate-space under the funnel
         (the O(Q) gathers of losses and sizes are the funnel's only cost a
-        round)."""
+        round).  ``losses`` (C,) stand in for the state's own (a rank's
+        residents on a mesh)."""
+        losses = self.losses if losses is None else losses
+        sizes = self.client_sizes
         if self.candidates is None:
             return selection_lib.SelectionState(
-                kernel=self.kernel, losses=self.losses, client_sizes=self.client_sizes,
+                kernel=self.kernel, losses=losses, client_sizes=sizes,
                 cluster_labels=self.cluster_labels, eig_state=self.eig_state,
             )
         ids = self.candidates.long()
         return selection_lib.SelectionState(
-            kernel=self.kernel, losses=self.losses[ids], client_sizes=self.client_sizes[ids],
+            kernel=self.kernel, losses=losses[ids], client_sizes=sizes[ids],
             cluster_labels=self.cluster_labels, eig_state=self.eig_state,
             candidates=selection_lib.CandidateSet(ids=self.candidates),
         )
@@ -379,14 +431,63 @@ def draw_environment(
     return lat, avail
 
 
+# ------------------------------------------------------------- client mesh
+
+# the ServerState fields with one row per client that a rank keeps to its
+# residents on a client mesh; every other field is replicated (the kernel
+# too: selection needs all of it, and stays the same on every rank; and the
+# (C,) sizes, which never change and which selection may read)
+CLIENT_SHARDED_FIELDS = (
+    "losses",
+    "profiles",
+    "client_xs",
+    "client_ys",
+    "client_label_dists",
+    "algo_state",
+)
+
+
+def shard_server_state(state: ServerState, mesh) -> ServerState:
+    """``state`` as rank ``mesh.rank`` of ``mesh`` holds it: the rows of
+    :data:`CLIENT_SHARDED_FIELDS` cut to the rank's residents ``[r·C/D,
+    (r+1)·C/D)`` (every other field as it is), and ``shard_rank`` and
+    ``shard_count`` set.  A state already laid out for a rank and C not
+    divisible by D raise.  The layout is the same with or without
+    ``cfg.cohort_cap``: slots live inside a round."""
+    if state.shard_count != 1:
+        raise ValueError(
+            f"the state is rank {state.shard_rank} of {state.shard_count}; shard a whole state"
+        )
+    c = state.num_clients
+    if c % mesh.size:
+        raise ValueError(f"num_clients={c} not divisible by the client mesh's {mesh.size} ranks")
+    lo, hi = mesh.residents(c)
+    updates = {
+        f: tree_map(lambda x: x[lo:hi], getattr(state, f)) if getattr(state, f) is not None else None
+        for f in CLIENT_SHARDED_FIELDS
+    }
+    return dataclasses.replace(state, shard_rank=mesh.rank, shard_count=mesh.size, **updates)
+
+
 # ------------------------------------------------------------------ funnel
 
 
-def candidate_profile_block(profiles: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
-    """The Q candidates' profile rows (Q, F): one ``index_select`` on one
-    device.  (JAX's mesh form, a shard-local gather and one psum, waits for
-    the mesh engine.)"""
-    return torch.index_select(profiles, 0, candidates.long())
+def candidate_profile_block(profiles: torch.Tensor, candidates: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The Q candidates' profile rows (Q, F).  Without a mesh one
+    ``index_select``.  On a mesh ``profiles`` are the rank's residents'
+    rows: each rank places the candidate rows it owns, zeros elsewhere,
+    and ONE all-reduce assembles the block on every rank.  Only Q·F floats
+    cross between ranks, and adding the other ranks' exact zeros leaves
+    each row as the unsharded gather's, bit for bit."""
+    ids = candidates.long()
+    if mesh is None:
+        return torch.index_select(profiles, 0, ids)
+    c_loc = profiles.shape[0]
+    pos = ids - mesh.rank * c_loc
+    owned = (pos >= 0) & (pos < c_loc)
+    rows = torch.index_select(profiles, 0, torch.clamp(pos, 0, c_loc - 1))
+    rows = torch.where(owned[:, None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return mesh.all_reduce(rows.float().reshape(-1)).reshape(rows.shape).to(profiles.dtype)
 
 
 def funnel_fields(
@@ -396,9 +497,13 @@ def funnel_fields(
     losses: torch.Tensor,
     strategy: Optional[selection_lib.SelectionStrategy] = None,
     round_index: int = 0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, dpp_lib.KDPPSamplerState]:
     """Stage 1 of the two-stage funnel: ``(candidates, kernel, eig_state)``
-    at a segment boundary.
+    at a segment boundary.  On a client mesh ``profiles`` are the rank's
+    residents' rows and ``losses`` the whole (C,) vector; the block comes
+    from :func:`candidate_profile_block`'s one all-reduce, and every rank
+    then builds the same kernel and cache.
 
     * prefilter: :func:`~repro_torch.core.selection.funnel_scores` (running
       loss, and the scenario's latency and availability at ``round_index``
@@ -420,7 +525,7 @@ def funnel_fields(
         )
     scores = selection_lib.funnel_scores(losses, avail=avail, latency=lat)
     candidates = selection_lib.funnel_candidates(scores, q)
-    fq = candidate_profile_block(profiles, candidates)
+    fq = candidate_profile_block(profiles, candidates, mesh)
     if cfg.use_pallas_kernel:
         from repro_torch.kernels.gram import ops as gram_ops
 
@@ -470,9 +575,14 @@ def init_server_state(
     strategy_index: int = 0,
     kernel: Optional[torch.Tensor] = None,
     eig_state: Optional[dpp_lib.KDPPSamplerState] = None,
+    mesh=None,
 ) -> ServerState:
     """Algorithm-1 initialisation as a :class:`ServerState` on ``device``
-    (default ``cuda``; raises without a card).
+    (default ``cuda``; raises without a card), or, with a client ``mesh``,
+    as that mesh's rank holds it (on the rank's device,
+    :func:`shard_server_state`): the inputs are the whole federation's, as
+    on one device, and a staleness config gets its ring at ``params`` and
+    its counters at 0.
 
     Takes the clients' profiles (Alg. 1 lines 2-5) and initial last-known
     losses from the caller, builds the eq.-(14) kernel (through K1 + K2
@@ -490,8 +600,10 @@ def init_server_state(
     :func:`funnel_fields` on the Q candidates (their prediction drawn from
     a generator seeded from ``cfg.seed`` and the funnel's salt, as
     ``FLTrainer``'s first): this path builds no C × C tensor, and a kernel
-    or cache passed in is a ``ValueError``."""
-    device = resolve_device(device)
+    or cache passed in is a ``ValueError``.  On a mesh the funnel's block
+    comes from the rank's residents' profiles and one all-reduce
+    (:func:`candidate_profile_block`), as JAX's mesh init."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     client_xs = torch.as_tensor(client_xs, device=device)
     client_ys = torch.as_tensor(client_ys, device=device)
     c, n_c = client_xs.shape[0], client_xs.shape[1]
@@ -507,8 +619,9 @@ def init_server_state(
                 "candidate_frac is set: the kernel and spectral cache are funnel-owned "
                 "(Q x Q, rebuilt with the candidates); pass no precomputed kernel or eig_state"
             )
+        own = profiles if mesh is None else profiles[slice(*mesh.residents(c))]
         candidates, kernel, eig_state = funnel_fields(
-            cfg, salted_generator(cfg.seed, _FUNNEL_SALT, device), profiles, losses, strategy
+            cfg, salted_generator(cfg.seed, _FUNNEL_SALT, device), own, losses, strategy, mesh=mesh
         )
     if kernel is None:
         kernel = similarity_lib.kernel_from_profiles(profiles, use_kernel=cfg.use_pallas_kernel)
@@ -530,7 +643,12 @@ def init_server_state(
         cluster_labels = strategy.fit(gp, k)
     else:
         cluster_labels = torch.zeros((kernel.shape[0],), dtype=torch.int32, device=device)
-    return ServerState(
+    stale = {}
+    if cfg.staleness_bound is not None:
+        stale["param_hist"], stale["shard_staleness"] = staleness_lib.init_staleness_fields(
+            params, cfg.staleness_bound, mesh
+        )
+    state = ServerState(
         params=params,
         generator=torch.Generator(device=device).manual_seed(cfg.seed),
         round=0,
@@ -552,7 +670,9 @@ def init_server_state(
             None if cfg.scenario is None else salted_generator(cfg.seed, _ENV_SALT, device)
         ),
         **robustness_fields(cfg, params, c, device, fault_stream(cfg, device)),
+        **stale,
     )
+    return state if mesh is None else shard_server_state(state, mesh)
 
 
 # ---------------------------------------------------------------- round_fn
@@ -564,6 +684,7 @@ def make_round_fn(
     strategies: Sequence[selection_lib.SelectionStrategy],
     accuracy_fn: Optional[Callable] = None,
     eval_data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ) -> Callable[[ServerState, Any], Tuple[ServerState, Dict[str, Any]]]:
     """The per-round transition ``round_fn(state, _) -> (state, outputs)``.
 
@@ -590,13 +711,31 @@ def make_round_fn(
     quarantine counters: a flagged client's restarts at
     ``cfg.quarantine_rounds``, every other ticks down.
 
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.ClientMesh`) the round
+    is that rank's share of a sharded round, on a state laid out by
+    :func:`shard_server_state`: the same cohort on every rank, local
+    updates for the rank's cohort residents (all residents, weight 0 outside
+    the cohort; with ``cfg.cohort_cap`` only ``min(C/D, cohort_cap)``
+    slots), and ONE ``mesh.all_reduce`` for the eq.-(6) partial sums, the
+    loss total, the GEMD numerator and denominator and, guarded, the
+    survivor count and the flags (the guard runs before it).  The loss
+    refresh stays on each client's rank.  ``cfg.staleness_bound`` makes it
+    the bounded-staleness round: the shards' deadline misses from the
+    round's latency draw, their counters, decay weights and ring reads, and
+    the simulated wall clock, all replicated; a stale rank trains from the
+    ring.  The fault draws' shard blackout is drawn per rank.  On a mesh,
+    the accuracy on the union training set takes one more all-reduce on an
+    eval round (held-out ``eval_data`` none).
+
     Outputs: ``round``, ``acc`` (NaN off the eval grid or without
     ``accuracy_fn``), ``gemd``, ``loss`` (the mean local loss; guarded, the
     mean over the finite losses of the clients left in the sum), ``selected``;
     with a scenario ``sim_time`` (the slowest selected client's latency,
-    the synchronous barrier) and, with an availability model, ``avail``;
-    guarded, ``survivors``, ``identity_round``, ``flagged`` and
-    ``quarantined`` (int32); with ``cfg.telemetry``, ``telemetry`` (an
+    the synchronous barrier; under staleness :func:`staleness.round_sim_time`)
+    and, with an availability model, ``avail``; with staleness
+    ``staleness``, the mean lag of the shards' contributions; guarded,
+    ``survivors``, ``identity_round``, ``flagged`` and ``quarantined``
+    (int32); with ``cfg.telemetry``, ``telemetry`` (an
     :class:`~repro_torch.obs.Telemetry` computed from values the round
     holds, on its device); and ``t_select``, ``t_local``, ``t_refresh``:
     host seconds of the three parts, each closed by a device synchronise
@@ -606,6 +745,18 @@ def make_round_fn(
     if not strategies:
         raise ValueError("make_round_fn needs at least one strategy")
     k = cfg.clients_per_round
+    if mesh is not None and cfg.cohort_cap is not None:
+        c_loc_cfg = cfg.num_clients // mesh.size
+        if cfg.cohort_cap < min(k, c_loc_cfg):
+            raise ValueError(
+                f"cohort_cap={cfg.cohort_cap} < min(clients_per_round={k}, C_loc={c_loc_cfg}): a rank "
+                "could hold more cohort members than slots (clients would be dropped)"
+            )
+    if cfg.staleness_bound is not None and mesh is None:
+        raise ValueError(
+            f"staleness_bound={cfg.staleness_bound} requires the client mesh (pass mesh=...; launchers: "
+            "--staleness-bound needs --shard-clients): staleness is a property of a shard"
+        )
     scen = None if cfg.scenario is None else scenarios_lib.get_scenario(cfg.scenario)
     batched_loss = lambda p, batch: loss_fn(p, batch[0], batch[1])
     fault_model = None if cfg.faults is None else faults_lib.get_fault_model(cfg.faults)
@@ -620,6 +771,7 @@ def make_round_fn(
             inject=fault_model is not None,
         )
     algo = cfg.local_algo_obj()
+    n_shards = 1 if mesh is None else mesh.size
 
     def clock(device: torch.device) -> float:
         if device.type == "cuda":
@@ -636,6 +788,180 @@ def make_round_fn(
 
         return tree_map(leaf, full, cand)
 
+    def writeback_rows(full, cand, refresh):
+        """Resident layout: rows of ``cand`` where ``refresh``, else ``full``'s."""
+        return tree_map(
+            lambda f, n: torch.where(refresh.reshape((-1,) + (1,) * (n.ndim - 1)), n, f), full, cand
+        )
+
+    def single_device_body(state, sel, draws, plans):
+        """The cohort gathered on one device: JAX's ``_single_device_body``."""
+        dev = state.losses.device
+        batches = batches_from_indices(cfg, plans, state.client_xs[sel], state.client_ys[sel])
+        round_step = rounds_lib.build_client_parallel_round(
+            batched_loss, cfg.lr, _steps_per_round(cfg, state.client_xs.shape[1]),
+            grad_clip=cfg.grad_clip, update_transform=guard, algo=algo,
+        )
+        state_kw = {}
+        if algo.stateful:
+            state_kw["client_states"] = tree_map(lambda s: s[sel], state.algo_state)
+        guard_args = () if draws is None else tuple(m[sel] for m in draws)
+        res = round_step(state.params, batches, state.client_sizes[sel], *guard_args, **state_kw)
+        out = dict(params=res[0], mean_loss=res[1])
+        refresh = None
+        if guarded:
+            flagged, survivors = res[2], res[3]
+            delivered = draws.delivered[sel] if draws is not None else torch.ones_like(flagged)
+            # only trusted participants of a round whose aggregate is kept
+            refresh = delivered & ~flagged & (survivors >= cfg.min_survivors)
+            out["flagged_c"] = torch.zeros((state.num_clients,), dtype=torch.bool, device=dev).index_put(
+                (sel,), flagged
+            )
+            out["survivors"] = survivors
+        out["t2"] = clock(dev)
+        # refresh last-known losses for the selected clients
+        sel_losses = _losses_of(loss_fn, out["params"], state.client_xs[sel], state.client_ys[sel])
+        if refresh is not None:
+            sel_losses = torch.where(refresh, sel_losses, state.losses[sel])
+        out["losses"] = state.losses.index_put((sel,), sel_losses)
+        if algo.stateful:
+            every = torch.ones(sel.shape, dtype=torch.bool, device=dev)
+            out["algo_state"] = writeback(state.algo_state, sel, res[-1], every if refresh is None else refresh)
+        out["gemd"] = metrics_lib.gemd(
+            state.client_label_dists, state.client_sizes, sel, state.global_label_dist
+        )
+        return out
+
+    def mesh_body(state, sel, draws, plans, lat):
+        """This rank's share of the sharded round: JAX's ``_sharded_body``,
+        ``_slot_sharded_body`` and ``_stale_sharded_body``."""
+        dev = state.losses.device
+        c = cfg.num_clients
+        c_loc = state.client_xs.shape[0]
+        lo = mesh.rank * c_loc
+        in_cohort = torch.zeros((c,), dtype=torch.bool, device=dev)
+        in_cohort[sel] = True
+        mask = in_cohort[lo:lo + c_loc]
+        gids = torch.arange(lo, lo + c_loc, device=dev)
+        weights = state.client_sizes[lo:lo + c_loc] * mask
+        # GEMD (eq. 15) numerator and denominator over this rank's cohort
+        # residents ride the round's all-reduce; λ-free under staleness
+        w = weights.float()
+        gemd_parts = ((w[:, None] * state.client_label_dists).sum(0), torch.sum(w))
+        kw = dict(extras=gemd_parts, local_states=state.algo_state if algo.stateful else None)
+        if guarded:
+            kw["flag_span"] = (lo, c)
+
+        def cohort_pos(ids):
+            # each id's position in the cohort (0 outside it, as JAX's argmax)
+            return torch.argmax((sel[None, :] == ids[:, None]).to(torch.int8), dim=1)
+
+        out = {}
+        slot = None
+        if cfg.cohort_cap is not None:
+            cap = min(c_loc, cfg.cohort_cap)
+            # the rank's slots: cohort residents first (ascending), then
+            # weight-0 padding residents
+            slot = torch.argsort((~mask).to(torch.int8), stable=True)[:cap]
+            rows_x, rows_y = state.client_xs[slot], state.client_ys[slot]
+            batches = batches_from_indices(
+                cfg, None if plans is None else plans[cohort_pos(gids[slot])], rows_x, rows_y
+            )
+            if draws is not None:
+                kw["guard_args"] = tuple(m[gids[slot]] for m in draws)
+            step = rounds_lib.build_shard_cohort_round(
+                batched_loss, cfg.lr, mesh, grad_clip=cfg.grad_clip, cap=cap, update_transform=guard, algo=algo,
+            )
+            res = step(state.params, batches, weights, slot, **kw)
+        else:
+            # every resident adopts its cohort slot's plan, so a cohort
+            # member trains on the batches the single-device engine gives it
+            batches = batches_from_indices(
+                cfg, None if plans is None else plans[cohort_pos(gids)], state.client_xs, state.client_ys
+            )
+            if draws is not None:
+                kw["guard_args"] = tuple(m[lo:lo + c_loc] for m in draws)
+            if cfg.staleness_bound is None:
+                step = rounds_lib.build_shard_cohort_round(
+                    batched_loss, cfg.lr, mesh, grad_clip=cfg.grad_clip, update_transform=guard, algo=algo,
+                )
+                res = step(state.params, batches, weights, **kw)
+            else:
+                bound = cfg.staleness_bound
+                # a shard's latency is its slowest cohort resident (a shard
+                # with none is instant and re-syncs for free)
+                shard_lat = torch.where(in_cohort, lat, torch.zeros((), dtype=lat.dtype, device=dev))
+                shard_lat = torch.amax(shard_lat.reshape(n_shards, c_loc), dim=1)
+                slow = shard_lat > scen.deadline
+                # the post-update counters price the contribution: a shard
+                # that misses delivers work from before the miss
+                new_s, forced = staleness_lib.staleness_step(state.shard_staleness, slow, bound)
+                lam = staleness_lib.decay_weights(new_s, cfg.staleness_decay, cfg.staleness_alpha)
+                read = staleness_lib.read_slots(state.round, new_s, bound)
+                out.update(new_s=new_s, sim_time=staleness_lib.round_sim_time(shard_lat, slow, forced, scen.deadline))
+                step = rounds_lib.build_stale_shard_cohort_round(
+                    batched_loss, cfg.lr, mesh, grad_clip=cfg.grad_clip, update_transform=guard, algo=algo,
+                )
+                res = step(state.param_hist, read[mesh.rank], lam[mesh.rank], batches, weights, **kw)
+        params, mean_loss, (num, den) = res[0], res[2], res[3]
+        out.update(params=params, mean_loss=mean_loss)
+        out["gemd"] = torch.sum(torch.abs(metrics_lib.safe_div(num, den) - state.global_label_dist))
+        rows = mask if slot is None else mask[slot]
+        if guarded:
+            flagged_c, survivors = res[4], res[5]
+            out.update(flagged_c=flagged_c, survivors=survivors)
+            own = gids if slot is None else gids[slot]
+            delivered = draws.delivered[own] if draws is not None else torch.ones_like(rows)
+            rows = rows & delivered & ~flagged_c[own] & (survivors >= cfg.min_survivors)
+        out["t2"] = clock(dev)
+        # the refresh measures the new aggregate on each client's own rank
+        local = torch.arange(c_loc, device=dev) if slot is None else slot
+        fresh_at = local[rows]
+        losses = state.losses.clone()
+        if fresh_at.numel():
+            losses[fresh_at] = _losses_of(
+                loss_fn, params, state.client_xs[fresh_at], state.client_ys[fresh_at]
+            ).to(losses.dtype)
+        out["losses"] = losses
+        if algo.stateful:
+            refresh = torch.zeros((c_loc,), dtype=torch.bool, device=dev)
+            refresh[local] = rows
+            out["algo_state"] = writeback_rows(state.algo_state, res[-1], refresh)
+        if cfg.staleness_bound is not None:
+            if guarded:
+                # the survivors floor before the ring write: the ring holds
+                # the params the round kept
+                kept = out["survivors"] >= cfg.min_survivors
+                params = tree_map(lambda a, o: torch.where(kept, a, o).to(o.dtype), params, state.params)
+                out["params"] = params
+            out["param_hist"] = staleness_lib.update_param_hist(
+                state.param_hist, params, state.round + 1, cfg.staleness_bound
+            )
+        return out
+
+    def selection_view(state, strategy):
+        """The draw's input on a mesh: the whole (C,) losses, through one
+        all-reduce, only for a strategy that reads them; NaN stand-ins
+        (never read) otherwise."""
+        c = cfg.num_clients
+        if strategy.reads_client_stats:
+            return state.selection_state(mesh.assemble(state.losses, c))
+        return state.selection_state(torch.full((c,), float("nan"), dtype=state.losses.dtype,
+                                                device=state.losses.device))
+
+    def accuracy(params, state):
+        if eval_data is not None:
+            return torch.as_tensor(accuracy_fn(params, *eval_data)).float()
+        exs = state.client_xs.reshape((-1,) + state.client_xs.shape[2:])
+        eys = state.client_ys.reshape(-1)
+        acc = torch.as_tensor(accuracy_fn(params, exs, eys)).float()
+        if mesh is None:
+            return acc
+        # the union training set: each rank's share weighed by its samples
+        n = torch.full((), float(eys.numel()), device=acc.device)
+        tot, cnt = mesh.all_reduce(torch.stack([acc * n, n]))
+        return tot / cnt
+
     def round_fn(state: ServerState, _=None):
         dev = state.losses.device
         c = state.num_clients
@@ -648,76 +974,60 @@ def make_round_fn(
         if fault_model is not None:
             if dev not in lemons_on:
                 lemons_on[dev] = lemons.to(dev)
-            draws = faults_lib.draw_round_faults(state.fault_generator, fault_model, c, 1, lemons_on[dev])
+            draws = faults_lib.draw_round_faults(state.fault_generator, fault_model, c, n_shards, lemons_on[dev])
         mask = avail
         if guarded:
             # a quarantined client is unavailable to selection
             q_ok = state.quarantine <= 0
             mask = q_ok if mask is None else mask & q_ok
         strategy = strategies[state.strategy_index]
-        sel = strategy.select_global_fn(state.generator, state.selection_state(), k, mask).long()
+        sel_state = state.selection_state() if mesh is None else selection_view(state, strategy)
+        sel = strategy.select_global_fn(state.generator, sel_state, k, mask).long()
         t1 = clock(dev)
-        batches = make_client_batches(cfg, state.generator, state.client_xs, state.client_ys, sel)
-        round_step = rounds_lib.build_client_parallel_round(
-            batched_loss, cfg.lr, _steps_per_round(cfg, state.client_xs.shape[1]),
-            grad_clip=cfg.grad_clip, update_transform=guard, algo=algo,
-        )
-        state_kw = {}
+        # the cohort's batch plans, in cohort order, as every path draws them
+        plans = batch_indices_from_keys(cfg, state.generator, sel.shape[0], state.client_xs.shape[1])
+        if mesh is None:
+            body = single_device_body(state, sel, draws, plans)
+        else:
+            body = mesh_body(state, sel, draws, plans, lat)
+        params, t2 = body["params"], body["t2"]
+        updates = dict(losses=body["losses"])
         if algo.stateful:
-            state_kw["client_states"] = tree_map(lambda s: s[sel], state.algo_state)
-        guard_args = () if draws is None else tuple(m[sel] for m in draws)
-        res = round_step(state.params, batches, state.client_sizes[sel], *guard_args, **state_kw)
-        params, mean_loss = res[0], res[1]
-        refresh = None
+            updates["algo_state"] = body["algo_state"]
+        if "param_hist" in body:
+            updates.update(param_hist=body["param_hist"], shard_staleness=body["new_s"])
         if guarded:
-            flagged, survivors = res[2], res[3]
-            delivered = draws.delivered[sel] if draws is not None else torch.ones_like(flagged)
+            flagged_c, survivors = body["flagged_c"], body["survivors"]
             kept = survivors >= cfg.min_survivors
-            # only trusted participants of a round whose aggregate is kept
-            refresh = delivered & ~flagged & kept
-        t2 = clock(dev)
-        # refresh last-known losses for the selected clients
-        sel_losses = _losses_of(loss_fn, params, state.client_xs[sel], state.client_ys[sel])
-        if refresh is not None:
-            sel_losses = torch.where(refresh, sel_losses, state.losses[sel])
-        losses = state.losses.index_put((sel,), sel_losses)
-        updates = {}
-        if algo.stateful:
-            every = torch.ones(sel.shape, dtype=torch.bool, device=dev)
-            updates["algo_state"] = writeback(state.algo_state, sel, res[-1], every if refresh is None else refresh)
-        if guarded:
-            # an identity round below the survivors floor keeps the old params
+            # an identity round below the survivors floor keeps the old
+            # params (the stale body floored before its ring write already)
             params = tree_map(lambda a, o: torch.where(kept, a, o).to(o.dtype), params, state.params)
-            flagged_c = torch.zeros((c,), dtype=torch.bool, device=dev).index_put((sel,), flagged)
             q = torch.clamp_min(state.quarantine - 1, 0)
             q = torch.where(flagged_c, cfg.quarantine_rounds, q).to(torch.int32)
             updates["quarantine"] = q
-        g = metrics_lib.gemd(
-            state.client_label_dists, state.client_sizes, sel, state.global_label_dist
-        )
         acc = torch.tensor(float("nan"))
         if accuracy_fn is not None and t % cfg.eval_every == 0:
-            if eval_data is not None:
-                exs, eys = eval_data
-            else:
-                exs = state.client_xs.reshape((-1,) + state.client_xs.shape[2:])
-                eys = state.client_ys.reshape(-1)
-            acc = torch.as_tensor(accuracy_fn(params, exs, eys)).float()
+            acc = accuracy(params, state)
         t3 = clock(dev)
-        new_state = dataclasses.replace(state, params=params, round=t, losses=losses, **updates)
+        new_state = dataclasses.replace(state, params=params, round=t, **updates)
         out = {
             "round": t,
             "acc": acc,
-            "gemd": g.float(),
-            "loss": mean_loss.float(),
+            "gemd": body["gemd"].float(),
+            "loss": body["mean_loss"].float(),
             "selected": sel.to(torch.int32),
         }
         if scen is not None:
-            # the synchronous barrier: the round closes at the slowest
-            # selected client (latencies are positive; 0 as JAX's floor)
-            out["sim_time"] = torch.clamp_min(torch.amax(lat[sel]), 0.0)
+            if "sim_time" in body:
+                out["sim_time"] = body["sim_time"].float()
+            else:
+                # the synchronous barrier: the round closes at the slowest
+                # selected client (latencies are positive; 0 as JAX's floor)
+                out["sim_time"] = torch.clamp_min(torch.amax(lat[sel]), 0.0)
         if avail is not None:
             out["avail"] = avail
+        if cfg.staleness_bound is not None:
+            out["staleness"] = torch.mean(body["new_s"].float())
         if guarded:
             out["survivors"] = survivors.to(torch.int32)
             out["identity_round"] = (~kept).to(torch.int32)
@@ -727,6 +1037,7 @@ def make_round_fn(
             # it adds outputs only: no draw, no state field, no synchronise
             out["telemetry"] = obs_telemetry_lib.round_telemetry(
                 cfg, state, t=t, avail=avail,
+                new_s=body.get("new_s"),
                 flagged=flagged_c if guarded else None,
                 survivors=survivors if guarded else None,
                 quarantine=q if guarded else None,
@@ -770,7 +1081,8 @@ def run_scanned(
     """Run ``num_rounds`` rounds -> (final state, per-round outputs stacked
     on a leading ``(num_rounds,)`` axis, on the CPU).  JAX compiles the
     rounds into one ``lax.scan``; here they run eagerly in a host loop
-    (capturing them as a CUDA graph is later work).
+    (capturing them as a CUDA graph is later work).  On a client mesh,
+    ``state`` is the rank's (``init_server_state(mesh=)``).
 
     ``sink`` takes one ``fl_round`` event per round, drained from the
     stacked outputs after the loop, never inside a round, so a sink
@@ -806,15 +1118,27 @@ def _state_tree(state: ServerState) -> Dict[str, Any]:
     return {f.name: leafy(getattr(state, f.name)) for f in dataclasses.fields(state)}
 
 
+def rank_dir(ckpt_dir: str, state: ServerState) -> str:
+    """Where ``state`` is snapshotted: ``ckpt_dir`` itself for a whole
+    state, else its rank's own ``<ckpt_dir>/rank_<r>_of_<D>`` (each rank
+    saves its residents' rows beside the replicated fields)."""
+    if state.shard_count == 1:
+        return ckpt_dir
+    return os.path.join(ckpt_dir, f"rank_{state.shard_rank}_of_{state.shard_count}")
+
+
 def save_server_state(ckpt_dir: str, state: ServerState) -> str:
     """Snapshot every field of ``state`` under ``<ckpt_dir>/step_<round>/``
     (params, generators, losses, kernel and spectral cache, client data,
-    candidates, quarantine, FedDyn state) -> that path.  Where JAX saves its
-    key's data, this saves each generator's state."""
-    return checkpoint_lib.save(ckpt_dir, state.round, _state_tree(state))
+    candidates, quarantine, FedDyn state, the staleness ring and counters)
+    -> that path; a rank's state under its :func:`rank_dir`.  Where JAX
+    saves its key's data, this saves each generator's state."""
+    return checkpoint_lib.save(rank_dir(ckpt_dir, state), state.round, _state_tree(state))
 
 
-def restore_server_state(ckpt_dir: str, template: ServerState, step: Optional[int] = None) -> ServerState:
+def restore_server_state(
+    ckpt_dir: str, template: ServerState, step: Optional[int] = None
+) -> ServerState:
     """A :func:`save_server_state` snapshot (the latest without ``step``)
     loaded against ``template``, e.g. a fresh :func:`init_server_state` of
     the same config, onto the template's devices, with generators of its
@@ -822,8 +1146,9 @@ def restore_server_state(ckpt_dir: str, template: ServerState, step: Optional[in
     generator's state against a CUDA one's included) raises ``ValueError``.
     The restored state continues as the snapshotting run did: every tensor
     and every generator's state is the value it held after round
-    ``state.round``."""
-    tree = checkpoint_lib.restore(ckpt_dir, _state_tree(template), step=step)
+    ``state.round``.  A rank's template loads its rank's own snapshot
+    (:func:`rank_dir`)."""
+    tree = checkpoint_lib.restore(rank_dir(ckpt_dir, template), _state_tree(template), step=step)
 
     def unleafy(t, v):
         if isinstance(t, torch.Generator):
@@ -849,12 +1174,12 @@ def run_checkpointed(
     sink: Optional[obs_sink_lib.TelemetrySink] = None,
 ) -> Tuple[ServerState, Dict[str, Any]]:
     """:func:`run_scanned` in ``ckpt_every``-round segments, the whole state
-    saved (:func:`save_server_state`) after each.  Segmenting changes no
-    number, and a run restored from a snapshot continues as the
-    uninterrupted one (run N == run n, restore, run N − n).  With
-    ``ckpt_dir`` or ``ckpt_every`` unset this is :func:`run_scanned`.
-    ``sink`` takes each segment's rounds and an ``fl_checkpoint`` event
-    after each save."""
+    saved (:func:`save_server_state`; a rank's state its own) after
+    each.  Segmenting changes no number, and a run restored from a
+    snapshot continues as the uninterrupted one (run N == run n, restore,
+    run N − n).  With ``ckpt_dir`` or ``ckpt_every`` unset this is
+    :func:`run_scanned`.  ``sink`` takes each segment's rounds and an
+    ``fl_checkpoint`` event after each save."""
     if ckpt_dir is None or not ckpt_every:
         return run_scanned(round_fn, state, num_rounds, sink=sink)
     done = 0
@@ -888,7 +1213,7 @@ def stack_states(states: Sequence[ServerState]) -> Tuple[ServerState, ...]:
 
 
 def run_many(
-    round_fn, stacked_states: Sequence[ServerState], num_rounds: int
+    round_fn, stacked_states: Sequence[ServerState], num_rounds: int,
 ) -> Tuple[Tuple[ServerState, ...], Dict[str, torch.Tensor]]:
     """A batched simulation over a grid of states (:func:`stack_states`),
     e.g. S seeds × K strategies flattened, each dispatching through its own

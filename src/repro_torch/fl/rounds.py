@@ -6,6 +6,10 @@ Mode-B optimizer step.
 ``sequential_clients=True`` form: each cohort client runs its E local steps
 in turn from the round's global params, then one weighted average forms the
 new global params (after the update guard, when one is given).
+``build_shard_cohort_round`` and ``build_stale_shard_cohort_round`` are the
+round of one rank of a client mesh (``launch/mesh.py``): local updates for
+the rank's resident clients, then eq. (6) as partial weighted sums that one
+all-reduce combines with every other partial the round needs.
 ``build_server_opt_round`` is FedOpt: the Mode-A round's aggregate taken as
 a pseudo-gradient for a server optimizer.  ``build_fedsgd_step`` is Mode B:
 one optimizer step on the (micro-batch accumulated) gradient; the pretrain
@@ -21,7 +25,7 @@ import torch
 from repro_torch.core.metrics import finite_mean, safe_div
 from repro_torch.fl.local_algos import FedAvg, make_grad_fn
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "weighted_average",
@@ -29,6 +33,8 @@ __all__ = [
     "build_local_algo_update",
     "build_local_update",
     "build_client_parallel_round",
+    "build_shard_cohort_round",
+    "build_stale_shard_cohort_round",
     "build_server_opt_round",
     "build_fedsgd_step",
 ]
@@ -177,6 +183,244 @@ def build_client_parallel_round(
         mean_loss = finite_mean(entry, where=w > 0)
         survivors = torch.sum((w > 0).to(torch.int32))
         return (weighted_average(stacked, w), mean_loss, flagged, survivors) + out
+
+    return round_step
+
+
+def _local_updates(local_update, stateful: bool, global_params: Params, batches: tuple, n: int, states=None):
+    """``n`` clients' local updates in turn from ``global_params`` ->
+    ``(stacked params (n, ...), losses (n, steps), stacked new states or
+    None)``; each client's own copy is dropped once it is in the stack."""
+    stacked = new_states = None
+    losses = []
+    for i in range(n):
+        batch = tuple(x[i] for x in batches)
+        if stateful:
+            p, st, l = local_update(global_params, tree_map(lambda s: s[i], states), batch)
+            new_states = _write_row(new_states, st, i, n)
+        else:
+            p, l = local_update(global_params, batch)
+        stacked = _write_row(stacked, p, i, n)
+        del p
+        losses.append(l)
+    return stacked, torch.stack(losses), new_states
+
+
+def _all_reduce_sums(mesh, parts: list) -> list:
+    """Every tensor of ``parts`` summed over the mesh's ranks through ONE
+    all-reduce of their fp32 concatenation -> the sums, each in its own
+    shape and in fp32."""
+    flat = torch.cat([p.reshape(-1).float() for p in parts])
+    mesh.all_reduce(flat)
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return out
+
+
+def build_shard_cohort_round(
+    loss_fn: LossFn,
+    lr: float,
+    mesh,
+    grad_clip: Optional[float] = None,
+    cap: Optional[int] = None,
+    update_transform: Optional[Callable] = None,
+    algo=None,
+) -> Callable[..., tuple]:
+    """The Mode-A round of ONE rank of a client mesh (``launch/mesh.py``):
+    local updates only for clients resident on this rank, then eq. (6) as
+    this rank's partial weighted sums ``Σ_c w_c·θ_c`` and ``Σ_c w_c``, which
+    ``mesh.all_reduce`` combines across the ranks.  The parameter tree is
+    never gathered; every partial the round needs (the params' sums, the
+    weight sum, the cohort loss total and count, the caller's ``extras``,
+    and under the guard the survivor count and the flags) rides the same
+    ONE all-reduce, JAX's single ``psum``.
+
+    Two modes, by ``cap``:
+
+    * ``cap=None`` (resident): ``round_step(global_params, local_batches,
+      local_weights, extras=None)``, leaves of ``local_batches`` leading
+      ``(C_loc, local_steps, ...)`` and ``local_weights`` (C_loc,), 0 for a
+      resident outside the round's cohort.  Every resident runs its local
+      update, weight 0 or not, as JAX's does.
+    * ``cap=int`` (capacity slots): ``slot_round_step(global_params,
+      slot_batches, local_weights, slot_index, extras=None)``: the caller
+      packs the rank's (at most ``cap``) cohort residents into slots
+      (``slot_index``, (cap,) distinct local positions, cohort members
+      first; padding slots point at other residents and get weight 0), and
+      only the slots train.  Slot losses are scattered back to resident
+      layout.
+
+    Both return ``(agg_params, client_losses, mean_loss, extras)``: the
+    aggregate (the same on every rank), the per-resident losses (C_loc,)
+    (mean over local steps; NaN for every resident outside the cohort, so
+    an unselected client's loss never reads as a cohort measurement), the
+    cohort's mean local loss, and ``extras`` (a tree of tensors) summed
+    over the ranks.
+
+    ``update_transform`` is the update guard (``fl/faults.make_update_guard``):
+    both steps then take ``guard_args`` (the fault masks in the rows'
+    layout: resident or slot), apply the guard between the local updates
+    and the partial sums, so a rejected update never leaves its rank, and
+    return ``(agg, client_losses, mean_loss, extras, flagged, survivors)``
+    with ``flagged`` in resident layout.  With ``flag_span=(lo, C)`` the
+    flags of all ranks ride the all-reduce too (this rank's at
+    ``[lo, lo + C_loc)``), and ``flagged`` is the whole (C,) vector.
+
+    ``algo`` is the local-update algorithm (``None``: FedAvg).  A stateful
+    one takes ``local_states`` (the rank's resident-layout states, leaves
+    leading ``(C_loc, ...)``) and appends the candidate new states (same
+    layout; in slot mode the trained slots scattered back, other residents
+    keeping theirs) to the return.  Per-rank state, never all-reduced: the
+    caller writes back the ones whose update it keeps."""
+    local_update = build_local_algo_update(algo, loss_fn, lr, grad_clip=grad_clip)
+    stateful = algo is not None and algo.stateful
+
+    def aggregate(stacked, losses, weights, extras, survivors_local=None, flags=None):
+        w = weights.float()
+        mask = w > 0
+        entry = torch.mean(losses, dim=tuple(range(1, losses.ndim)))
+        # only finite cohort entries enter the loss total (where, never
+        # mask·x: 0·NaN = NaN); no finite entry reports NaN, not 0
+        ok = mask & torch.isfinite(entry)
+        partials = [
+            torch.sum(w.reshape((-1,) + (1,) * (x.ndim - 1)) * x.float(), dim=0) for x in tree_leaves(stacked)
+        ]
+        ex_leaves = [] if extras is None else tree_leaves(extras)
+        parts = partials + [
+            torch.sum(w), torch.sum(torch.where(ok, entry, torch.zeros((), dtype=entry.dtype, device=entry.device))),
+            torch.sum(ok.float()),
+        ] + list(ex_leaves)
+        if survivors_local is not None:
+            parts.append(survivors_local)
+        if flags is not None:
+            parts.append(flags)
+        sums = _all_reduce_sums(mesh, parts)
+        n_p = len(partials)
+        wsum, tot, cnt = sums[n_p:n_p + 3]
+        inv = safe_div(torch.ones((), dtype=torch.float32, device=wsum.device), wsum)
+        agg = tree_unflatten(
+            stacked, [(part * inv).to(x.dtype) for part, x in zip(sums[:n_p], tree_leaves(stacked))]
+        )
+        mean_loss = torch.where(cnt > 0, tot / torch.clamp_min(cnt, 1.0), torch.full_like(tot, float("nan")))
+        masked = torch.where(mask, entry, torch.full_like(entry, float("nan")))
+        at = n_p + 3 + len(ex_leaves)
+        red_extras = None if extras is None else tree_unflatten(
+            extras, [s.to(x.dtype) for s, x in zip(sums[n_p + 3:at], ex_leaves)]
+        )
+        rest = sums[at:]
+        return agg, masked, mean_loss, red_extras, rest
+
+    def flag_row(flagged: torch.Tensor, flag_span):
+        """This rank's resident flags placed in the (C,) vector of all."""
+        lo, c = flag_span
+        full = torch.zeros((c,), dtype=torch.float32, device=flagged.device)
+        full[lo:lo + flagged.shape[0]] = flagged.float()
+        return full
+
+    def guarded_tail(agg, masked, mean_loss, red, rest, flagged, flag_span):
+        survivors = rest[0].round().to(torch.int32)
+        if flag_span is not None:
+            flagged = rest[1] > 0.5
+        return (agg, masked, mean_loss, red, flagged, survivors)
+
+    def round_step(
+        global_params, local_batches, local_weights, extras=None, guard_args=(), local_states=None,
+        flag_span: Optional[Tuple[int, int]] = None,
+    ):
+        n = local_weights.shape[0]
+        stacked, losses, new_states = _local_updates(
+            local_update, stateful, global_params, local_batches, n, local_states
+        )
+        tail = (new_states,) if stateful else ()
+        if update_transform is None:
+            agg, masked, mean_loss, red, _ = aggregate(stacked, losses, local_weights, extras)
+            return (agg, masked, mean_loss, red) + tail
+        stacked, w, losses, flagged = update_transform(stacked, global_params, local_weights, losses, *guard_args)
+        surv = torch.sum((w > 0).float())
+        flags = None if flag_span is None else flag_row(flagged, flag_span)
+        agg, masked, mean_loss, red, rest = aggregate(stacked, losses, w, extras, surv, flags)
+        return guarded_tail(agg, masked, mean_loss, red, rest, flagged, flag_span) + tail
+
+    def slot_round_step(
+        global_params, slot_batches, local_weights, slot_index, extras=None, guard_args=(),
+        local_states=None, flag_span: Optional[Tuple[int, int]] = None,
+    ):
+        idx = slot_index.long()
+        slot_states = tree_map(lambda s: s[idx], local_states) if stateful else None
+        stacked, losses, new_slot_states = _local_updates(
+            local_update, stateful, global_params, slot_batches, cap, slot_states
+        )
+        tail = ()
+        if stateful:
+            # trained slots scattered back; residents no slot covered keep
+            # their state (their write-back mask is False anyway)
+            tail = (tree_map(lambda full, new: full.index_put((idx,), new), local_states, new_slot_states),)
+        slot_weights = local_weights[idx]
+        if update_transform is not None:
+            stacked, slot_weights, losses, slot_flagged = update_transform(
+                stacked, global_params, slot_weights, losses, *guard_args
+            )
+            surv = torch.sum((slot_weights > 0).float())
+            # padding slots carry weight 0, so they are never flagged and the
+            # scatter to resident layout has no collisions
+            flagged = torch.zeros(local_weights.shape, dtype=torch.bool, device=idx.device).index_put(
+                (idx,), slot_flagged
+            )
+            flags = None if flag_span is None else flag_row(flagged, flag_span)
+            agg, slot_losses, mean_loss, red, rest = aggregate(stacked, losses, slot_weights, extras, surv, flags)
+        else:
+            agg, slot_losses, mean_loss, red, _ = aggregate(stacked, losses, slot_weights, extras)
+        # slot losses scattered back; what no slot covered (and weight-0
+        # padding slots) stays NaN by the convention
+        client_losses = torch.full(
+            local_weights.shape, float("nan"), dtype=slot_losses.dtype, device=slot_losses.device
+        ).index_put((idx,), slot_losses)
+        if update_transform is None:
+            return (agg, client_losses, mean_loss, red) + tail
+        return guarded_tail(agg, client_losses, mean_loss, red, rest, flagged, flag_span) + tail
+
+    return round_step if cap is None else slot_round_step
+
+
+def build_stale_shard_cohort_round(
+    loss_fn: LossFn,
+    lr: float,
+    mesh,
+    grad_clip: Optional[float] = None,
+    update_transform: Optional[Callable] = None,
+    algo=None,
+) -> Callable[..., tuple]:
+    """The bounded-staleness form of :func:`build_shard_cohort_round`'s
+    resident round: the same residents, local updates and one all-reduce,
+    started from this rank's stale params.
+
+    ``round_step(param_hist, read_slot, stale_scale, local_batches,
+    local_weights, extras=None)``: ``param_hist`` is the ring of global
+    param snapshots (``fl/staleness.py``, leaves leading ``(s+1, ...)``),
+    ``read_slot`` this rank's ring index (the round-``t − s_d`` params) and
+    ``stale_scale`` its decay weight λ(s_d) > 0.  The rank trains from the
+    ring's params and contributes partial sums with weights ``λ·w_c``; the
+    all-reduced ``Σ λw`` normalises them, so the aggregate is a convex
+    combination across ranks of different staleness.  With ``read_slot`` at
+    the current round and ``stale_scale = 1`` this is the synchronous round
+    bit for bit.  The guard's base params and a drift-correcting algorithm's
+    anchor are the stale read: the params the clients trained from."""
+    inner = build_shard_cohort_round(
+        loss_fn, lr, mesh, grad_clip=grad_clip, update_transform=update_transform, algo=algo,
+    )
+
+    def round_step(
+        param_hist, read_slot, stale_scale, local_batches, local_weights, extras=None, guard_args=(),
+        local_states=None, flag_span: Optional[Tuple[int, int]] = None,
+    ):
+        slot = int(read_slot)
+        base = tree_map(lambda h: h[slot], param_hist)
+        kw = dict(extras=extras, local_states=local_states)
+        if update_transform is not None:
+            kw.update(guard_args=guard_args, flag_span=flag_span)
+        return inner(base, local_batches, local_weights * stale_scale, **kw)
 
     return round_step
 

@@ -19,6 +19,17 @@ history bit for bit.
 Works for any model exposing ``loss_fn(params, x, y)`` and
 ``feature_fn(params, x) -> (logits, feats)``; the paper's CNN is the default.
 The Cluster baseline fingerprints clients by representative gradients.
+
+With a client ``mesh`` (``launch/mesh.py``) a trainer is one rank's: each
+rank builds one from the whole federation's arrays and keeps its C/D
+resident clients on its device.  It profiles and scores its residents; the
+(C, F) profiles the eq.-(14) kernel needs (or, under the funnel, the
+losses for the prefilter and the (Q, F) candidate block) come from the
+ranks through ``mesh.all_reduce`` at init and at each reprofile boundary,
+and the rounds run through the engine's sharded round
+(``engine.make_round_fn(mesh=)``), with the staleness ring restarted at
+the current params each ``run`` call, as JAX's.  ``run_legacy`` is the
+single-device loop and refuses a mesh.
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ from repro_torch.device import resolve_device
 from repro_torch.fl import engine as engine_lib
 from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl import scenarios as scenarios_lib
+from repro_torch.fl import staleness as staleness_lib
 from repro_torch.fl.engine import FLConfig
 from repro_torch.obs import tracing as obs_tracing_lib
+from repro_torch.tree import tree_map
 
 __all__ = ["FLConfig", "FLTrainer"]
 
@@ -58,22 +71,28 @@ class FLTrainer:
         eval_ys: Optional[np.ndarray] = None,
         accuracy_fn: Optional[Callable] = None,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
     ):
         """``device`` defaults to ``cuda`` (raising when there is none);
-        pass ``device="cpu"`` to run on the CPU."""
+        pass ``device="cpu"`` to run on the CPU.  With ``mesh`` the trainer
+        is that rank's and runs on the rank's device."""
         if client_xs.shape[0] != cfg.num_clients:
             raise ValueError(
                 f"client_xs holds {client_xs.shape[0]} clients, cfg.num_clients="
                 f"{cfg.num_clients}"
             )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        # this rank's residents [lo, hi) (the whole federation without a mesh)
+        lo, hi = (0, cfg.num_clients) if mesh is None else mesh.residents(cfg.num_clients)
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.feature_fn = feature_fn
         self.strategy = strategy
         self.params = {k: v.to(self.device) for k, v in params.items()}
-        self.client_xs = torch.as_tensor(client_xs, device=self.device)
-        self.client_ys = torch.as_tensor(client_ys, device=self.device)
+        self.client_xs = torch.as_tensor(client_xs[lo:hi], device=self.device)
+        self.client_ys = torch.as_tensor(client_ys[lo:hi], device=self.device)
+        all_ys = torch.as_tensor(client_ys, device=self.device)
         self.eval_xs = None if eval_xs is None else torch.as_tensor(eval_xs, device=self.device)
         self.eval_ys = None if eval_ys is None else torch.as_tensor(eval_ys, device=self.device)
         self.accuracy_fn = accuracy_fn
@@ -98,11 +117,11 @@ class FLTrainer:
         self.client_label_dists = torch.stack(
             [
                 metrics_lib.label_distribution(self.client_ys[c], cfg.num_classes)
-                for c in range(cfg.num_clients)
+                for c in range(hi - lo)
             ]
         )
         self.global_label_dist = metrics_lib.label_distribution(
-            self.client_ys.reshape(-1), cfg.num_classes
+            all_ys.reshape(-1), cfg.num_classes
         )
 
         steps = engine_lib._steps_per_round(cfg, n_c)
@@ -127,15 +146,22 @@ class FLTrainer:
         """Per-client loss of the current params: (M, n_c, ...) -> (M,)."""
         return torch.stack([self.loss_fn(self.params, x, y) for x, y in zip(xs, ys)])
 
+    def _all_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """The (C, ...) tensor of every client's rows: ``rows`` itself
+        without a mesh, else the ranks' residents' rows through one
+        all-reduce (``ClientMesh.assemble``)."""
+        return rows if self.mesh is None else self.mesh.assemble(rows, self.cfg.num_clients)
+
     def _init_profiles(self):
-        """Alg. 1 lines 2-5: one-shot FC-1 profiling + kernel construction."""
+        """Alg. 1 lines 2-5: one-shot FC-1 profiling + kernel construction
+        (on a mesh: the residents' profiles, the kernel over all of them)."""
         feats = profiles_lib.profile_all_clients(
             self.feature_fn, self.params, list(self.client_xs)
         )
         self.round_state.profiles = feats
         if self.cfg.candidate_frac is None:
             self.round_state.kernel = similarity_lib.kernel_from_profiles(
-                feats, use_kernel=self.cfg.use_pallas_kernel
+                self._all_rows(feats), use_kernel=self.cfg.use_pallas_kernel
             )
         else:
             # under the funnel the kernel lives on the candidate block, built
@@ -153,9 +179,9 @@ class FLTrainer:
                 profiles_lib.representative_gradient_profile(
                     self.loss_fn, self.params, self.client_xs[c], self.client_ys[c]
                 )
-                for c in range(self.cfg.num_clients)
+                for c in range(self.client_xs.shape[0])
             ]
-            self.round_state.grad_profiles = torch.stack(gp)
+            self.round_state.grad_profiles = self._all_rows(torch.stack(gp))
 
     def _cluster_labels(self, candidates: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Host-fitted cluster labels of the Cluster baseline (the fit is
@@ -220,8 +246,8 @@ class FLTrainer:
             cand, kern, eig = None, rs.kernel, self.eig_state()
         else:
             cand, kern, eig = engine_lib.funnel_fields(
-                self.cfg, self.funnel_generator, rs.profiles, self.losses,
-                strategy=self.strategy, round_index=rs.round,
+                self.cfg, self.funnel_generator, rs.profiles, self._all_rows(self.losses),
+                strategy=self.strategy, round_index=rs.round, mesh=self.mesh,
             )
         return dict(profiles=rs.profiles, kernel=kern, eig_state=eig,
                     cluster_labels=self._cluster_labels(cand), candidates=cand)
@@ -230,8 +256,22 @@ class FLTrainer:
         """The trainer's current server knowledge as a ServerState, sharing
         the trainer's generators; a guarded config's quarantine counters and
         a stateful algorithm's per-client state start at zero (as JAX's:
-        they carry across the reprofile segments of one ``run`` call)."""
+        they carry across the reprofile segments of one ``run`` call).  On a
+        mesh, the rank's state; a staleness config's ring starts with every
+        slot at the current params and its counters at 0, each ``run``
+        call opening on a synced federation (as JAX's)."""
         cfg = self.cfg
+        rob = engine_lib.robustness_fields(cfg, self.params, cfg.num_clients, self.device, self.fault_generator)
+        extra = {}
+        if self.mesh is not None:
+            lo, hi = self.mesh.residents(cfg.num_clients)
+            if rob["algo_state"] is not None:
+                rob["algo_state"] = tree_map(lambda x: x[lo:hi], rob["algo_state"])
+            extra.update(shard_rank=self.mesh.rank, shard_count=self.mesh.size)
+        if cfg.staleness_bound is not None:
+            extra["param_hist"], extra["shard_staleness"] = staleness_lib.init_staleness_fields(
+                self.params, cfg.staleness_bound, self.mesh
+            )
         return engine_lib.ServerState(
             params=self.params,
             generator=self.generator,
@@ -243,8 +283,9 @@ class FLTrainer:
             client_label_dists=self.client_label_dists,
             global_label_dist=self.global_label_dist,
             env_generator=self.env_generator,
-            **engine_lib.robustness_fields(cfg, self.params, cfg.num_clients, self.device, self.fault_generator),
+            **rob,
             **self._selection_fields(),
+            **extra,
         )
 
     def round_fn(self):
@@ -253,6 +294,7 @@ class FLTrainer:
             self._round_fn_memo = engine_lib.make_round_fn(
                 self.cfg, self.loss_fn, (self.strategy,), accuracy_fn=self.accuracy_fn,
                 eval_data=None if self.eval_xs is None else (self.eval_xs, self.eval_ys),
+                mesh=self.mesh,
             )
         return self._round_fn_memo
 
@@ -334,6 +376,10 @@ class FLTrainer:
         update guard and runs plain SGD, so it refuses faults, robust
         aggregation and any other local algorithm (JAX's ``run`` messages)."""
         cfg = self.cfg
+        if self.mesh is not None:
+            raise ValueError(
+                "the legacy loop runs on one device: build the trainer without a mesh, or use run()"
+            )
         if cfg.candidate_frac is not None:
             raise ValueError("candidate_frac needs the engine (FLTrainer.run): the legacy loop has no funnel")
         if cfg.guarded():
@@ -396,4 +442,10 @@ class FLTrainer:
         # Fig.-1 protocol: accuracy of the global model on the training set
         xs = self.client_xs.reshape((-1,) + self.client_xs.shape[2:])
         ys = self.client_ys.reshape(-1)
-        return self.accuracy_fn(self.params, xs, ys)
+        acc = self.accuracy_fn(self.params, xs, ys)
+        if self.mesh is None:
+            return acc
+        # every rank's residents, each share weighed by its samples
+        n = float(ys.numel())
+        tot, cnt = self.mesh.all_reduce(torch.tensor([float(acc) * n, n], device=self.device))
+        return float(tot / cnt)

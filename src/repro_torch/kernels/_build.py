@@ -17,7 +17,9 @@ machines that may have no ``nvcc``.  The first CUDA launch builds what it
 needs.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.  ``on_device`` and ``stream`` are the
+launches its kernel and nowhere else.  The counts are the process's: the
+ranks of a client mesh (``launch/mesh.run_ranks``, threads of one process)
+add to the same counts, which then sum over the ranks.  ``on_device`` and ``stream`` are the
 wrappers' launch context: the device guard switches the current CUDA device
 only when the tensors lie on another one, and ``stream`` is the handle of
 PyTorch's current stream on a device, read without building a Stream object.

@@ -34,9 +34,18 @@ PATH`` writes the run's manifest and one ``fl_round`` event a round (with
 the per-round diagnostics of ``FLConfig.telemetry``) as JSONL, which
 ``python -m repro_torch.analysis.report PATH`` renders, and
 ``--profile-dir DIR`` traces the rounds with ``torch.profiler`` into a
-Chrome trace there; both only in ``--mode fl``.  Flags of features the
-port does not run yet raise ``NotImplementedError`` naming their ROADMAP
-item.
+Chrome trace there; both only in ``--mode fl``.
+
+``--shard-clients N`` runs the federation on a client mesh of N
+``torch.distributed`` ranks (``launch/mesh.py``; one thread a rank, rank r
+on ``cuda:r`` over NCCL, or all on the CPU over gloo with ``--device
+cpu``), each holding ``--clients / N`` resident clients; rank 0 prints and
+writes the telemetry, and each rank keeps its own snapshots under
+``--ckpt``.  ``--cohort-cap`` trains at most that many cohort clients a
+rank, and ``--staleness-bound`` (with ``--scenario``,
+``--staleness-decay`` and ``--staleness-alpha``) lets a rank that misses
+the scenario's deadline contribute stale work; both need
+``--shard-clients``, as JAX's launcher.
 
 Every arch of the registry trains in both modes.  ``--layers N`` (with
 ``--full-width``) keeps the first N layers of the published config, a
@@ -67,10 +76,13 @@ from repro_torch.fl import rounds as rounds_lib
 from repro_torch.fl.faults import AGGREGATORS, FAULT_NAMES
 from repro_torch.fl.local_algos import ALGO_NAMES
 from repro_torch.fl.scenarios import SCENARIO_NAMES
+from repro_torch.fl.staleness import DECAY_FAMILIES
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import build_model
 from repro_torch.models import transformer as T
 from repro_torch.obs import TelemetrySink
 from repro_torch.obs import tracing as obs_tracing_lib
+from repro_torch.tree import tree_map
 
 __all__ = ["main", "parse_args", "pretrain_optimizer", "run_fl", "run_pretrain"]
 
@@ -103,22 +115,6 @@ def _token_clients(cfg, num_clients, docs_per_client, seq, seed=0):
     return np.stack(clients)  # (C, docs, seq)
 
 
-def _refuse_unported(args) -> None:
-    """Flags of features the port does not run yet, with their ROADMAP
-    Queue-1 items."""
-    checks = [
-        ("--shard-clients", bool(args.shard_clients), 15),
-        ("--cohort-cap", args.cohort_cap is not None, 15),
-        # JAX runs staleness on a mesh only, which item 15 brings
-        ("--staleness-bound", args.staleness_bound is not None, 15),
-        ("--staleness-decay", args.staleness_decay != "polynomial", 15),
-        ("--staleness-alpha", args.staleness_alpha != 0.5, 15),
-    ]
-    used = [f"{flag} (ROADMAP Queue 1 item {item})" for flag, on, item in checks if on]
-    if used:
-        raise NotImplementedError(f"not ported yet: {', '.join(used)}")
-
-
 def run_fl(
     args, model: Optional[Tuple[ModelConfig, Dict]] = None
 ) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
@@ -127,13 +123,33 @@ def run_fl(
     selection, local updates and loss refresh, and with ``--telemetry``
     each round's ``telemetry``; empty when a resumed run has no round
     left).  ``model`` (config, params on the device) trains in place of the
-    random model the flags describe."""
-    _refuse_unported(args)
+    random model the flags describe.  With ``--shard-clients`` rank 0's
+    state and outputs (every rank's outputs are the same)."""
     if args.ckpt_every is not None and not args.ckpt:
         raise SystemExit("--ckpt-every requires --ckpt DIR")
-    device = resolve_device(args.device)
+    ranks = args.shard_clients
+    if ranks:
+        if args.clients % ranks:
+            raise SystemExit(f"--clients={args.clients} must be divisible by --shard-clients={ranks}")
+    elif args.cohort_cap is not None:
+        raise SystemExit("--cohort-cap requires --shard-clients")
+    elif args.staleness_bound is not None:
+        raise SystemExit("--staleness-bound requires --shard-clients")
+    if not ranks:
+        return _run_fl(args, model, None)
+    return mesh_lib.run_ranks(ranks, lambda mesh: _run_fl(args, model, mesh), args.device)[0]
+
+
+def _run_fl(args, model, mesh) -> Tuple[engine_lib.ServerState, Dict[str, torch.Tensor]]:
+    """:func:`run_fl` on one device, or as one rank of ``mesh``."""
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     spec = get_arch(args.arch)
-    cfg, params = model or build_model(args.arch, args.seed, args.full_width, device, layers=args.layers)
+    if model is None:
+        cfg, params = build_model(args.arch, args.seed, args.full_width, device, layers=args.layers)
+    else:
+        cfg, params = model[0], tree_map(lambda x: x.to(device), model[1])
     clients = _token_clients(cfg, args.clients, args.docs_per_client, args.seq)
     c, n_docs, _ = clients.shape
     num_topics = min(10, args.clients)
@@ -164,6 +180,10 @@ def run_fl(
         eval_every=max(args.log_every, 1),
         num_classes=num_topics,
         seed=args.seed,
+        cohort_cap=args.cohort_cap,
+        staleness_bound=args.staleness_bound,
+        staleness_decay=args.staleness_decay,
+        staleness_alpha=args.staleness_alpha,
         scenario=args.scenario,
         candidate_frac=args.candidate_frac,
         faults=args.faults,
@@ -177,67 +197,78 @@ def run_fl(
     # the run's events; the sink closes however the run ends
     with contextlib.ExitStack() as stack:
         sink = None
-        if args.telemetry:
+        if args.telemetry and lead:
             sink = stack.enter_context(TelemetrySink(args.telemetry))
             sink.write_manifest(
-                config=dataclasses.asdict(flcfg), device=device,
+                config=dataclasses.asdict(flcfg), device=device, mesh=mesh,
                 extra={"mode": "fl", "arch": args.arch, "selection": args.selection},
             )
         state = engine_lib.init_server_state(
             flcfg, params, xs, topics, profiles, torch.ones((c,), device=device), strategy, device=device,
-            loss_fn=loss_fn,
+            loss_fn=loss_fn, mesh=mesh,
         )
         tag = f"[fl:{args.selection}]"
+        if mesh is not None:
+            cap = "" if flcfg.cohort_cap is None else f", cohort cap {min(flcfg.cohort_cap, c // mesh.size)}"
+            stale = "" if flcfg.staleness_bound is None else (
+                f", staleness bound {flcfg.staleness_bound} ({flcfg.staleness_decay}, alpha {flcfg.staleness_alpha})"
+            )
+            say(f"{tag} client mesh: {mesh.size} ranks over {mesh.backend}, {c // mesh.size} resident clients "
+                f"a rank{cap}{stale}")
         if flcfg.candidate_frac is not None:
-            print(f"{tag} funnel: C={c} -> Q={flcfg.candidate_count()} candidates "
-                  f"(kernel {tuple(state.kernel.shape)})")
-        round_fn = engine_lib.make_round_fn(flcfg, loss_fn, (strategy,))
+            say(f"{tag} funnel: C={c} -> Q={flcfg.candidate_count()} candidates "
+                f"(kernel {tuple(state.kernel.shape)})")
+        round_fn = engine_lib.make_round_fn(flcfg, loss_fn, (strategy,), mesh=mesh)
         # crash-resume: with --ckpt-every the directory holds whole-state
-        # snapshots, so a relaunch continues from the latest and runs only the
-        # rounds left, as the uninterrupted run would have
+        # snapshots (on a mesh, each rank's own), so a relaunch continues from
+        # the latest and runs only the rounds left, as the uninterrupted run
+        # would have
         checkpointed = flcfg.ckpt_every is not None
         start = 0
         if checkpointed:
-            step = latest_step(args.ckpt)
+            step = latest_step(engine_lib.rank_dir(args.ckpt, state))
             if step is not None:
                 state = engine_lib.restore_server_state(args.ckpt, state, step=step)
                 start = state.round
-                print(f"{tag} resumed round {start} from {args.ckpt}/step_{step:08d}")
+                say(f"{tag} resumed round {start} from {engine_lib.rank_dir(args.ckpt, state)}/step_{step:08d}")
         remaining = max(args.rounds - start, 0)
-        with obs_tracing_lib.trace(args.profile_dir):
+        with obs_tracing_lib.trace(args.profile_dir if lead else None):
             state, outs = engine_lib.run_checkpointed(
-                round_fn, state, remaining, ckpt_dir=args.ckpt, ckpt_every=flcfg.ckpt_every, sink=sink
+                round_fn, state, remaining, ckpt_dir=args.ckpt, ckpt_every=flcfg.ckpt_every, sink=sink,
             )
         for i in range(remaining):
             t = int(outs["round"][i])
             if t % args.log_every == 0 or t == args.rounds:
-                print(f"{tag} round {t:4d} sel={outs['selected'][i].tolist()} "
-                      f"loss={float(outs['loss'][i]):.4f} gemd={float(outs['gemd'][i]):.3f}")
-                print(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
-                      f"local updates {float(outs['t_local'][i]):.4f} "
-                      f"refresh {float(outs['t_refresh'][i]):.4f}")
+                say(f"{tag} round {t:4d} sel={outs['selected'][i].tolist()} "
+                    f"loss={float(outs['loss'][i]):.4f} gemd={float(outs['gemd'][i]):.3f}")
+                say(f"{tag} round {t:4d} seconds: selection {float(outs['t_select'][i]):.4f} "
+                    f"local updates {float(outs['t_local'][i]):.4f} "
+                    f"refresh {float(outs['t_refresh'][i]):.4f}")
         if flcfg.guarded() and remaining:
             # identity rounds and all-corrupt cohorts report NaN round losses
             surv, losses = outs["survivors"].double(), outs["loss"].double()
             finite = losses[torch.isfinite(losses)]
             best = f"{float(finite.min()):.4f}" if finite.numel() else "n/a (no finite round losses)"
-            print(f"{tag} faults={flcfg.faults or 'none'} aggregator={flcfg.aggregator}: "
-                  f"mean survivors {float(surv.mean()):.1f}/{args.per_round}, "
-                  f"flagged {int(outs['flagged'].sum())}, "
-                  f"identity rounds {int(outs['identity_round'].sum())}, best finite loss {best}")
+            say(f"{tag} faults={flcfg.faults or 'none'} aggregator={flcfg.aggregator}: "
+                f"mean survivors {float(surv.mean()):.1f}/{args.per_round}, "
+                f"flagged {int(outs['flagged'].sum())}, "
+                f"identity rounds {int(outs['identity_round'].sum())}, best finite loss {best}")
         if "sim_time" in outs:
             sim = outs["sim_time"].double()
-            print(f"{tag} scenario={args.scenario} (synchronous barrier): simulated wall clock "
-                  f"{float(sim.sum()):.2f} (mean round {float(sim.mean()):.2f})")
-        if args.ckpt and not checkpointed:
+            mode = "bounded-staleness" if flcfg.staleness_bound is not None else "synchronous barrier"
+            say(f"{tag} scenario={args.scenario} ({mode}): simulated wall clock "
+                f"{float(sim.sum()):.2f} (mean round {float(sim.mean()):.2f})")
+        if "staleness" in outs:
+            say(f"{tag} mean staleness a round {[round(float(v), 3) for v in outs['staleness']]}")
+        if args.ckpt and not checkpointed and lead:
             # the final params alone; with --ckpt-every the directory already
             # holds whole-state snapshots
             save(args.ckpt, args.rounds, state.params)
-            print(f"checkpoint -> {args.ckpt}")
+            say(f"checkpoint -> {args.ckpt}")
         if sink is not None:
             n_ev = sum(sink.event_counts.values())
-            print(f"{tag} telemetry -> {args.telemetry} ({n_ev} events; render with "
-                  f"`python -m repro_torch.analysis.report {args.telemetry}`)")
+            say(f"{tag} telemetry -> {args.telemetry} ({n_ev} events; render with "
+                f"`python -m repro_torch.analysis.report {args.telemetry}`)")
     return state, outs
 
 
@@ -247,8 +278,12 @@ def run_pretrain(
     """Optimizer steps on random batches -> (params, optimizer state, one
     record per logged step: step, loss, host seconds since the first step
     began, tokens/s so far).  ``model`` as in :func:`run_fl`."""
-    _refuse_unported(args)
-    fl_only = [flag for flag, on in (("--scenario", args.scenario is not None),
+    fl_only = [flag for flag, on in (("--shard-clients", bool(args.shard_clients)),
+                                     ("--cohort-cap", args.cohort_cap is not None),
+                                     ("--staleness-bound", args.staleness_bound is not None),
+                                     ("--staleness-decay", args.staleness_decay != "polynomial"),
+                                     ("--staleness-alpha", args.staleness_alpha != 0.5),
+                                     ("--scenario", args.scenario is not None),
                                      ("--candidate-frac", args.candidate_frac is not None),
                                      ("--faults", args.faults is not None),
                                      ("--aggregator", args.aggregator != "mean"),
@@ -352,12 +387,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--profile-dir", default=None, metavar="PATH",
                     help="--mode fl: trace the rounds with torch.profiler into a Chrome trace "
                          "(*.pt.trace.json) in PATH")
-    # the JAX launcher's flags of features not ported yet: each raises
-    ap.add_argument("--shard-clients", type=int, default=0)
-    ap.add_argument("--cohort-cap", type=int, default=None)
-    ap.add_argument("--staleness-bound", type=int, default=None)
-    ap.add_argument("--staleness-decay", default="polynomial")
-    ap.add_argument("--staleness-alpha", type=float, default=0.5)
+    ap.add_argument("--shard-clients", type=int, default=0,
+                    help="--mode fl: run the federation on a client mesh of N ranks (one thread a rank; "
+                         "NCCL on the cards, gloo with --device cpu), --clients / N resident clients a rank")
+    ap.add_argument("--cohort-cap", type=int, default=None,
+                    help="capacity slots: at most N cohort clients trained a rank (requires "
+                         "--shard-clients; >= min(--per-round, clients / ranks))")
+    ap.add_argument("--staleness-bound", type=int, default=None,
+                    help="bounded staleness: the most rounds a rank may lag (requires --shard-clients and "
+                         "--scenario; 0 is the synchronous round)")
+    ap.add_argument("--staleness-decay", choices=DECAY_FAMILIES, default="polynomial",
+                    help="the decay family weighing stale contributions")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="the decay rate of the polynomial and exponential families")
     return ap.parse_args(argv)
 
 

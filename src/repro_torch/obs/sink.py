@@ -92,14 +92,17 @@ def run_manifest(
     config: Any = None,
     extra: Optional[Dict[str, Any]] = None,
     device: Optional[Any] = None,
+    mesh: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """The run's identity: torch and CUDA versions, the backend and card,
     host cores, git SHA, and the config with its hash.
 
     ``device`` is where the run computes (default: ``cuda`` when a card is
     present, else the CPU); ``device_kind`` is the card's name, or ``cpu``.
-    Written once per run as the sink's first event, so every JSONL file
-    says what produced it."""
+    With a client ``mesh`` (``launch/mesh.ClientMesh``) a ``mesh`` entry
+    gives JAX's ``axes`` and ``devices`` and the ranks, the collective's
+    backend and the writing rank's device.  Written once per run as the
+    sink's first event, so every JSONL file says what produced it."""
     dev = torch.device(device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
     on_card = dev.type == "cuda"
     man: Dict[str, Any] = {
@@ -116,6 +119,14 @@ def run_manifest(
             config = dataclasses.asdict(config)
         man["config"] = _jsonable(config)
         man["config_hash"] = config_hash(config)
+    if mesh is not None:
+        man["mesh"] = {
+            "axes": {"clients": int(mesh.size)},
+            "devices": int(mesh.size),
+            "ranks": int(mesh.size),
+            "backend": mesh.backend,
+            "device": str(mesh.device),
+        }
     if extra:
         man.update(_jsonable(extra))
     return man
@@ -173,8 +184,9 @@ class TelemetrySink:
         config: Any = None,
         extra: Optional[Dict[str, Any]] = None,
         device: Optional[Any] = None,
+        mesh: Optional[Any] = None,
     ) -> Dict[str, Any]:
-        man = run_manifest(config=config, extra=extra, device=device)
+        man = run_manifest(config=config, extra=extra, device=device, mesh=mesh)
         self.emit("manifest", **man)
         self.flush()
         return man

@@ -48,8 +48,7 @@ class Telemetry:
     identity_round: torch.Tensor  # int32 0/1, the survivors floor tripped
     # -- scenario ------------------------------------------------------------
     avail_frac: Optional[torch.Tensor] = None  # float32, mean availability
-    # (staleness_bound + 1,) int32 shards contributing at each lag: runs
-    # only with staleness, which needs the mesh engine; None until then
+    # (staleness_bound + 1,) int32: the shards contributing at each lag
     staleness_hist: Optional[torch.Tensor] = None
 
     @staticmethod
@@ -69,6 +68,7 @@ def round_telemetry(
     *,
     t: int,
     avail: Optional[torch.Tensor] = None,
+    new_s: Optional[torch.Tensor] = None,
     flagged: Optional[torch.Tensor] = None,
     survivors: Optional[torch.Tensor] = None,
     quarantine: Optional[torch.Tensor] = None,
@@ -78,8 +78,9 @@ def round_telemetry(
     ``cfg`` and ``state`` are the engine's ``FLConfig`` and the
     ``ServerState`` the round started from; ``t`` the round's number
     (1-based); the keyword arguments are the availability mask, the
-    guard's per-client flags and survivor count, and the quarantine
-    counters after the round, each None when its feature is off."""
+    shards' staleness counters after the round, the guard's per-client
+    flags and survivor count, and the quarantine counters after the round,
+    each None when its feature is off."""
     k, c = cfg.clients_per_round, cfg.num_clients
     q = cfg.candidate_count() if cfg.candidate_frac is not None else c
     lam = state.eig_state.lam.float()
@@ -108,4 +109,9 @@ def round_telemetry(
         quarantined=const(0) if quarantine is None else torch.sum(quarantine > 0).to(torch.int32),
         identity_round=ident,
         avail_frac=None if avail is None else torch.mean(avail.float()),
+        # shards at each lag s in [0, bound], a fixed-width comparison
+        staleness_hist=None if new_s is None else torch.sum(
+            (new_s[None, :] == torch.arange(cfg.staleness_bound + 1, device=new_s.device)[:, None]).to(torch.int32),
+            dim=1,
+        ).to(torch.int32),
     )

@@ -1182,3 +1182,72 @@ def test_dryrun_mode_a_round_matches_the_card(card):
     assert flops == rec["flops"]
     want = rec["peak_bytes"] - rec["workspace_bytes"]
     assert abs(peak / want - 1) <= 0.10, (peak, want)
+
+
+# ------------------------------------------------------------- client mesh
+
+
+def _mesh_federation(card, c=8, n_c=6, feat=8, ncls=4, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(c, n_c, feat, generator=g)
+    ys = torch.randint(0, ncls, (c, n_c), generator=g).to(torch.int32)
+    params = {"w": (0.01 * torch.randn(feat, ncls, generator=g)).to(card), "b": torch.zeros(ncls, device=card)}
+    return xs.numpy(), ys.numpy(), params
+
+
+def _mesh_loss(params, x, y):
+    logp = torch.log_softmax(x @ params["w"] + params["b"], -1)
+    return -torch.mean(torch.gather(logp, -1, y.long()[..., None]))
+
+
+def test_nccl_mesh_of_one_rank(card):
+    """The client mesh on the card: NCCL at world size 1, one counted
+    all-reduce a call, its tensor summed in place; more ranks than cards
+    raise."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_client_mesh(1)
+    try:
+        assert (mesh.backend, mesh.device, mesh.size) == ("nccl", torch.device("cuda", 0), 1)
+        x = torch.arange(6.0, device=card)
+        assert mesh.all_reduce(x) is x and torch.equal(x, torch.arange(6.0, device=card))
+        assert mesh.all_reduce_calls == 1
+        with pytest.raises(ValueError, match="on cpu"):
+            mesh.all_reduce(torch.ones(2))
+    finally:
+        mesh.close()
+    with pytest.raises(ValueError, match="CUDA devices visible"):
+        mesh_lib.make_client_mesh(torch.cuda.device_count() + 1, store=torch.distributed.HashStore())
+
+
+@pytest.mark.parametrize("cap", [None, 3])
+def test_sharded_round_on_the_card_equals_the_unsharded_one(card, cap):
+    """One NCCL rank: each round's cohort the unsharded engine's from the
+    same seed, params and losses within 1e-5, one all-reduce a round."""
+    from repro_torch.core import selection
+    from repro_torch.fl import engine
+    from repro_torch.launch import mesh as mesh_lib
+
+    xs, ys, params = _mesh_federation(card)
+    cfg = engine.FLConfig(num_clients=8, clients_per_round=3, local_epochs=2, lr=0.1, num_classes=4, seed=0,
+                          cohort_cap=cap)
+    with torch.no_grad():
+        l0 = torch.stack([_mesh_loss(params, torch.as_tensor(x, device=card), torch.as_tensor(y, device=card))
+                          for x, y in zip(xs, ys)])
+    prof = torch.as_tensor(xs.mean(1), device=card)
+    strat = selection.DPPSelection()
+    ref_state = engine.init_server_state(cfg, params, xs, ys, prof, l0, strat)
+    ref, ref_outs = engine.run_scanned(engine.make_round_fn(cfg, _mesh_loss, (strat,)), ref_state, 4)
+    mesh = mesh_lib.make_client_mesh(1)
+    try:
+        state = engine.init_server_state(cfg, params, xs, ys, prof, l0, strat, mesh=mesh)
+        fn = engine.make_round_fn(cfg, _mesh_loss, (strat,), mesh=mesh)
+        mesh.reset_counts()
+        final, outs = engine.run_scanned(fn, state, 4)
+        assert mesh.all_reduce_calls == 4
+    finally:
+        mesh.close()
+    assert torch.equal(outs["selected"], ref_outs["selected"])
+    for name in ref.params:
+        assert float((final.params[name] - ref.params[name]).abs().max()) <= 1e-5
+    assert float((final.losses - ref.losses).abs().max()) <= 1e-5

@@ -353,8 +353,13 @@ def test_stack_states_and_unstack_outputs():
     [("cohort_cap", 2, 15), ("staleness_bound", 1, 15)],
 )
 def test_flconfig_refusals_name_their_roadmap_item(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"{field} .ROADMAP Queue 1 item {item}."):
-        tengine.FLConfig(**{field: value})
+    """ROADMAP Queue 1 item ``item`` ported these fields: FLConfig takes them
+    where JAX's does and refuses them where JAX's does, with its messages.
+    The name dates from when FLConfig refused these fields."""
+    kw = {field: value, "scenario": "heavy_tail"}
+    assert getattr(tengine.FLConfig(**kw), field) == getattr(jengine.FLConfig(**kw), field) == value
+    with pytest.raises(ValueError, match="incompatible"):
+        tengine.FLConfig(cohort_cap=value, staleness_bound=value, scenario="heavy_tail")
 
 
 # ------------------------------------------------------- the whole slice

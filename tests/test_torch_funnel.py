@@ -466,9 +466,9 @@ def test_trainer_refunnels_each_segment(monkeypatch, scenario):
     calls = []
     orig = tengine.funnel_fields
 
-    def spy(cfg_, generator, profiles, losses, strategy=None, round_index=0):
-        out = orig(cfg_, generator, profiles, losses, strategy, round_index)
-        assert generator is tr.funnel_generator
+    def spy(cfg_, generator, profiles, losses, strategy=None, round_index=0, mesh=None):
+        out = orig(cfg_, generator, profiles, losses, strategy, round_index, mesh=mesh)
+        assert generator is tr.funnel_generator and mesh is None
         calls.append((round_index, losses.clone(), out[0]))
         return out
 

@@ -95,5 +95,10 @@ def test_quickstart_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     ],
 )
 def test_flconfig_refuses_features_not_yet_ported(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        tengine.FLConfig(**{field: value})
+    """The client mesh's fields are ported: FLConfig takes them with JAX's
+    checks (staleness needs a latency scenario).  The name dates from when
+    FLConfig refused these fields."""
+    assert getattr(tengine.FLConfig(**{field: value, "scenario": "heavy_tail"}), field) == value
+    if field == "staleness_bound":
+        with pytest.raises(ValueError, match="requires a latency scenario"):
+            tengine.FLConfig(**{field: value})

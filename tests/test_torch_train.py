@@ -408,9 +408,30 @@ def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     ],
 )
 @pytest.mark.parametrize("mode", ["fl", "pretrain"])
-def test_launcher_refuses_flags_not_ported(mode, flag, value):
-    with pytest.raises(NotImplementedError, match=f"{flag} .ROADMAP Queue 1 item"):
-        ttrain.main(["--mode", mode, flag, value, "--device", "cpu"])
+def test_launcher_refuses_flags_not_ported(monkeypatch, mode, flag, value):
+    """The client mesh's flags are ported: ``--mode pretrain`` refuses them
+    as federation features; ``--mode fl`` gives JAX's errors for a cap or a
+    bound without ``--shard-clients`` and otherwise runs with the flag (the
+    run itself stubbed here: ``tests/test_torch_shard_engine.py`` runs it).
+    The name dates from when the launcher refused these flags."""
+    if mode == "pretrain":
+        with pytest.raises(ValueError, match=f"{flag}.*use --mode fl"):
+            ttrain.main(["--mode", mode, flag, value, "--device", "cpu"])
+        return
+    seen = []
+    monkeypatch.setattr(ttrain, "_run_fl", lambda args, model, mesh: seen.append((args, mesh)) or (None, {}))
+    argv = ["--mode", mode, flag, value, "--device", "cpu"]
+    if flag in ("--cohort-cap", "--staleness-bound"):
+        with pytest.raises(SystemExit, match=f"{flag} requires --shard-clients"):
+            ttrain.main(argv)
+        return
+    ttrain.main(argv)
+    if flag == "--shard-clients":
+        # one call a rank, each in its own thread (in either order)
+        assert sorted(m.rank for _, m in seen) == [0, 1] and all(m.backend == "gloo" for _, m in seen)
+    else:
+        (args, mesh), = seen
+        assert mesh is None and str(getattr(args, flag[2:].replace("-", "_"))) == value
 
 
 def test_layers_cuts_the_published_config():
