@@ -196,6 +196,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    smollm-360m ``--shard-clients 1 --cohort-cap 4 --flash``, K6 once a
    layer and refresh; against the same argv unsharded: cohorts bit for
    bit, bf16 params within 2 steps of bf16, losses close).
+8b. The production mesh on the card (``prod_mesh_phase``, in a spawned
+   worker: the ``fake`` process group is the process's default group):
+   rank 0's program of the 16 x 16 mesh (``launch/mesh.
+   make_production_mesh``'s layout on ``cuda``) on real CUDA tensors made
+   at each device's shapes (``dryrun.materialize``), its collectives
+   moving nothing: smollm-360m's Mode-A round cut as phase 7's
+   ``TRAIN_CUT`` to one client a device, its decode_32k step (the plain
+   attention: the caches' sequence is sharded, K5 launched never), and
+   rwkv6-7b's decode_32k step (K7 through ``local_map`` on the device's 8
+   rows and 4 of 64 heads, its first call held to the plain scan on the
+   same local inputs).  Each step's FLOPs (``analysis/ops.StepCounter``,
+   ``FlopCounterMode``'s formulas on the local tensors) equal the sharded
+   dry run's per-device count, its ``max_memory_allocated`` lies within
+   ``DRY_MEM_BAND`` of the dry run's per-device peak, and its collectives
+   match the record's, kind by kind.
 9. Prints, for each shape a path gives K1 or K3, each shape the RWKV
    path gave K7, each new arch's decode shape of K5 and each refresh shape
    of K6 in phase 5b and phase 8, its launches there beside that shape's
@@ -335,6 +350,8 @@ ATTN_SHAPES += TRAIN_ATTN_SHAPES
 # launcher's default 128 tokens
 MESH_ATTN_SHAPES = [(16, 128, 15, 5, 64, "bf16", None)]
 ATTN_SHAPES += MESH_ATTN_SHAPES
+# rwkv6-7b's decode step on the 16 x 16 mesh (phase 8b): one device's K7 call
+PROD_MESH_K7 = (8, 1, 4, 64)
 # K7: (B, T, H, hd, dtype name, decays); rwkv6-7b's decode step first,
 # then its prefill of one admitted request and of the scan batch.  Decays:
 # None = the JAX test's (fp32) or the model's law (bf16); "edge" = the
@@ -342,6 +359,7 @@ ATTN_SHAPES += MESH_ATTN_SHAPES
 # at 8) and a fifth at 1 - 1e-7 (its slowest)
 WKV_SHAPES = [
     (16, 1, 64, 64, "bf16", None),
+    PROD_MESH_K7 + ("bf16", None),  # the decode step's on the 16 x 16 mesh (phase 8b)
     (1, 128, 64, 64, "bf16", None),
     (16, 128, 64, 64, "bf16", None),
     (4, 2048, 64, 64, "bf16", None),
@@ -435,6 +453,15 @@ DRY_CASES = (("smollm-360m", "train_4k"), ("smollm-360m", "decode_32k"), ("llama
 DRY_WORKERS, DRY_CLIENTS, DRY_LOCAL_STEPS, DRY_FIT, DRY_MEM_BAND, DRY_PARITY_SEQ = 4, 2, 2, 0.85, 0.10, 16
 TRAIN_CUT = dict(arch="smollm-360m", shape="train_4k", batch=DRY_CLIENTS, clients=DRY_CLIENTS,
                  local_steps=DRY_LOCAL_STEPS)
+# phase 8b: rank 0's program of the 16 x 16 mesh on the card, each case a
+# DryRunCase's fields: the Mode-A round cut as TRAIN_CUT to one client of
+# one sequence a device (16 clients), and the two decode steps at the
+# shape's batch of 128 (8 rows a device; K7's call there: PROD_MESH_K7)
+PROD_MESH_CASES = (
+    ("smollm-360m Mode-A round", dict(arch="smollm-360m", shape="train_4k", batch=16, local_steps=DRY_LOCAL_STEPS)),
+    ("smollm-360m decode_32k", dict(arch="smollm-360m", shape="decode_32k")),
+    ("rwkv6-7b decode_32k", dict(arch="rwkv6-7b", shape="decode_32k")),
+)
 # the order of the runs with telemetry (True) and without, in (a) and (c)
 OBS_TURNS = (False, True, True, False)
 OBS_REQUESTS, OBS_BUDGETS, OBS_CHUNK = 16, (8, 32), 8
@@ -3296,6 +3323,125 @@ def mesh_phase(torch, dev, exp, client_xs, client_ys, ds) -> dict:
             "normalized_gram": d_launches["normalized_gram"], "flash_attention": e_launches["flash_attention"]}
 
 
+def prod_mesh_steps() -> list:
+    """Phase 8b in a spawned worker (the ``fake`` group is the process's
+    default group): for each of ``PROD_MESH_CASES`` on the 16 x 16 mesh
+    over ``cuda``, the sharded dry run's record (fake tensors, a host
+    core), then rank 0's program on real tensors made at its shapes,
+    counted (``StepCounter``) and its peak read; K7's calls spied on, the
+    first one's local inputs and outputs kept -> one dict a case."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.ops import StepCounter, collective_bytes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+    from repro_torch.launch import dryrun
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    k7_calls = []
+    kernel = wkv_ops.wkv6
+
+    def spy(*a):
+        y, s_new = kernel(*a)
+        if not _build.is_fake(a[0]):  # the real run's calls, not the dry run's
+            k7_calls.append((tuple(a[0].shape), [x.clone() for x in a], y.clone(), s_new.clone()) if not k7_calls
+                            else (tuple(a[0].shape),))
+        return y, s_new
+
+    wkv_ops.wkv6 = spy
+    out = []
+    for what, kw in PROD_MESH_CASES:
+        case = dryrun.DryRunCase(**kw, multi_pod=False, mesh_device="cuda")
+        t0 = time.perf_counter()
+        rec = dryrun.run_case(case)
+        got = dict(what=what, dry_s=time.perf_counter() - t0,
+                   rec={k: v for k, v in rec.items() if k not in ("ops", "traceback")})
+        out.append(got)
+        if not rec["ok"]:
+            got["error"] = rec["error"] + "\n" + rec.get("traceback", "")
+            continue
+        mesh = dryrun.case_mesh(case)
+        with FakeTensorMode():
+            step, fake_args, _ = dryrun.build_sharded_step(case, mesh, "cuda")
+        # cuBLAS's workspaces are made again in the step, as the dry run counts them
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        args = dryrun.materialize(fake_args, dev)
+        counter = StepCounter(mesh)
+        counter.hold(args)
+        _build.reset_launches()
+        k7_calls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with counter:
+            res = step(*args)
+        torch.cuda.synchronize()
+        got.update(seconds=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(dev) - m0,
+                   flops=counter.flops, calls=collective_bytes(counter.collectives)["calls"],
+                   launches=dict(_build.LAUNCHES), k7_shapes=sorted({c[0] for c in k7_calls}), k7_n=len(k7_calls))
+        if k7_calls:
+            _, inputs, y, s_new = k7_calls[0]
+            want_y, want_s = wkv6_scan_ref(*inputs)
+            want_y = want_y.to(y.dtype).float()
+            dy, ds = (y.float() - want_y).abs(), (s_new - want_s).abs()
+            # the bf16 criterion of section 2's K7 check
+            atol = 2.0**-8 * want_y.abs().amax(dim=-1, keepdim=True)
+            got.update(k7_err=float(dy.max()), k7_bad=int((dy > 2.0**-7 * want_y.abs() + atol).sum()),
+                       k7_bad_s=int((ds > 1e-5 * want_s.abs().amax(dim=(2, 3), keepdim=True)).sum()),
+                       k7_err_s=float(ds.max()))
+        del args, res, step, fake_args, k7_calls[:]
+        torch.cuda.empty_cache()
+    wkv_ops.wkv6 = kernel
+    return out
+
+
+def prod_mesh_phase(smi: str) -> dict:
+    """Phase 8b (module docstring): the worker's readings held to the dry
+    run's per-device records; one line a case -> K7's launches there."""
+    t_phase = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cases = pool.apply(prod_mesh_steps)
+    k7_launches = 0
+    for got in cases:
+        rec, what = got["rec"], got["what"]
+        check(rec["ok"], f"8b {what}: the sharded dry run failed: {got.get('error')}")
+        ratio = got["peak"] / rec["peak_bytes"]
+        print(f"8b {what} on the 16 x 16 mesh (rank 0, {smi}): {got['seconds']:.2f} s (counted), "
+              f"FLOPs {got['flops']:.6e} (dry run {rec['flops_counted']:.6e}), peak {_gib(got['peak'])} "
+              f"(dry run {_gib(rec['peak_bytes'])}: {ratio:.4f}, band {1 - DRY_MEM_BAND:.2f}-{1 + DRY_MEM_BAND:.2f}), "
+              f"collectives {got['calls']} (dry run {rec['collectives']['calls']}, "
+              f"{rec['collectives']['total']:.4e} B by the estimators), roofline compute {rec['t_compute']:.4e} s "
+              f"memory {rec['t_memory']:.4e} s collective {rec['t_collective']:.4e} s; launches "
+              f"{ {k: v for k, v in got['launches'].items() if v} }, dry run {got['dry_s']:.1f} s")
+        check(got["flops"] == rec["flops_counted"], f"8b {what}: FLOPs {got['flops']} vs {rec['flops_counted']}")
+        check(abs(ratio - 1) <= DRY_MEM_BAND, f"8b {what}: peak {got['peak']} vs {rec['peak_bytes']}")
+        check(got["calls"] == rec["collectives"]["calls"],
+              f"8b {what}: collectives {got['calls']} vs {rec['collectives']['calls']}")
+        check(got["launches"]["flash_decode"] == 0, f"8b {what}: K5 launched on a sequence-sharded cache")
+        if rec["kind"] == "decode" and rec.get("decode_attention") is not None:
+            check(rec["decode_attention"] == "plain", f"8b {what}: the dry run took {rec['decode_attention']}")
+        if rec["arch"] == "rwkv6-7b":
+            n = got["launches"]["wkv6"]
+            print(f"8b K7 on the mesh: {n} launches at {got['k7_shapes']} (dry run {rec['kernel_calls']['wkv6']}); "
+                  f"first call vs the plain scan on its local inputs: y {got['k7_err']:.3e} ({got['k7_bad']} "
+                  f"outside 2^-7*|y| + 2^-8*max|y| of the row), S {got['k7_err_s']:.3e} ({got['k7_bad_s']} "
+                  f"outside 1e-5*max|S| of the head)")
+            check(n == rec["kernel_calls"]["wkv6"] == got["k7_n"] and n > 0,
+                  f"8b K7 launches {n}, spied {got['k7_n']}, dry run {rec['kernel_calls']['wkv6']}")
+            check(got["k7_shapes"] == [PROD_MESH_K7], f"8b K7 at {got['k7_shapes']}, not {PROD_MESH_K7}")
+            check(got["k7_bad"] == 0 and got["k7_bad_s"] == 0, "8b K7 off its plain version on the mesh")
+            k7_launches = n
+    print(f"phase 8b: {time.perf_counter() - t_phase:.1f} s")
+    return {"wkv6": k7_launches}
+
+
 def _ulps(torch, a, b):
     """Entrywise distance between ``a`` and ``b`` (one floating dtype) in
     representable steps of that dtype: each value's bits as a signed
@@ -3958,6 +4104,11 @@ def _run(stack: contextlib.ExitStack) -> int:
     torch.cuda.empty_cache()
     mesh_launches = mesh_phase(torch, dev, exp, client_xs, client_ys, ds)
 
+    # ------------------------------------------- 8b. the production mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    prod_launches = prod_mesh_phase(smi)
+
     # ---------------------------------------------------------- 9. results
     main_shape = SHAPES[0]
     sources = {
@@ -4168,6 +4319,14 @@ def _run(stack: contextlib.ExitStack) -> int:
         route="cuda", source=sources["flash_attention"][0], replaces=sources["flash_attention"][1],
         launches=mesh_launches["flash_attention"], max_abs_err=r["max_abs_err"], ms=r["ms"],
         device_ms=r["device_ms_cold"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"],
+    ))
+    b, t, h, hd = PROD_MESH_K7
+    r = wkv_rows[(b, t, "bf16", None)]
+    table.append(dict(
+        name=f"wkv6 rwkv6-7b decode on the 16x16 mesh {b}x{t}x{h}x{hd}", route="cuda", source=sources["wkv6"][0],
+        replaces=sources["wkv6"][1], launches=prod_launches["wkv6"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"],
     ))
     r = wkv_rows[(LM_DOCS, TRAIN_SEQ, "bf16", None)]

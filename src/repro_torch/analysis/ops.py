@@ -16,9 +16,19 @@ counts them at that op.  It runs over
 real tensors or fake ones (``torch._subclasses.fake_tensor``: shapes and
 dtypes, no storage), where the sizes are those the real step would take.
 
+On a sharded step (DTensors, ``launch/sharding.py``) the counter counts
+one device's share: an op on DTensors is handed back to DTensor
+(``NotImplemented``, as ``CommDebugMode`` does), which runs it as ops on
+this rank's local tensors and, where the placements call for it, as
+``_c10d_functional`` collectives on them; the counter sees and counts
+those, at the local shapes.  Each collective is recorded with its kind,
+the mesh axis of its group and its bytes by the JAX package's per-device
+estimators (``analysis/hlo.py``): :func:`collective_bytes` sums them.
+What DTensor runs to infer a result's global shape is not counted
+(``_mute_meta_propagation``).
+
 :func:`op_histogram` reads a dry-run record's histogram back, most
-frequent first.  The HLO module's other measure, ``collective_bytes``, has
-no counterpart yet: one card runs no collective (ROADMAP Queue 1 item 15).
+frequent first.
 """
 
 from __future__ import annotations
@@ -31,15 +41,36 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["StepCounter", "card_temporaries", "op_histogram", "tensor_bytes"]
+__all__ = ["StepCounter", "card_temporaries", "collective_bytes", "op_histogram", "tensor_bytes"]
 
 # results allocated without being written: they move no bytes
 _UNWRITTEN = ("empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided")
 
 
+# ``_c10d_functional`` op -> the collective's kind, JAX's names
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",  # DTensor's shard-to-shard move on a CUDA mesh
+}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (this rank's storage); any other tensor."""
+    local = getattr(t, "_local_tensor", None)
+    return t if local is None else local
+
+
 def tensor_bytes(t: torch.Tensor) -> int:
     """Bytes of ``t``'s distinct elements: its elements, or the span its
-    strides reach when fewer (an expanded view reads each element once)."""
+    strides reach when fewer (an expanded view reads each element once);
+    of a DTensor, its local shard's."""
+    t = _local(t)
     n = t.numel()
     if n == 0:
         return 0
@@ -72,6 +103,76 @@ def _tensors(tree) -> Iterable[torch.Tensor]:
             yield from _tensors(x)
 
 
+def collective_bytes(calls: Iterable[Tuple[str, str, float]]) -> Dict[str, Dict[str, float]]:
+    """Per-device collective traffic of ``calls`` ((kind, mesh axis,
+    bytes) as :class:`StepCounter` records them): bytes ``by_kind`` and
+    ``by_axis``, ``calls`` by kind, and the ``total``."""
+    by_kind: Dict[str, float] = collections.defaultdict(float)
+    by_axis: Dict[str, float] = collections.defaultdict(float)
+    n: Dict[str, int] = collections.defaultdict(int)
+    for kind, axis, b in calls:
+        by_kind[kind] += b
+        by_axis[axis] += b
+        n[kind] += 1
+    return {"by_kind": dict(by_kind), "by_axis": dict(by_axis), "calls": dict(n),
+            "total": float(sum(by_kind.values()))}
+
+
+def _collective(func, args, out, axes: Dict[str, str]) -> Optional[Tuple[str, str, float]]:
+    """(kind, axis, bytes) of a ``_c10d_functional`` collective, by JAX's
+    per-device estimators: all-reduce 2 × size, all-gather size(result),
+    reduce-scatter size × group (its input), all-to-all size(result)."""
+    kind = COLLECTIVE_KINDS.get(func.overloadpacket.__name__)
+    if kind is None:
+        return None
+    group = args[-1] if isinstance(args[-1], str) else None
+    axis = axes.get(group, group or "?")
+    if kind == "all-reduce":
+        b = 2.0 * sum(tensor_bytes(t) for t in _tensors(out))
+    elif kind == "reduce-scatter":
+        b = float(sum(tensor_bytes(t) for t in _tensors(args[0])))
+    else:
+        b = float(sum(tensor_bytes(t) for t in _tensors(out)))
+    return kind, axis, b
+
+
+_PROPAGATING = [0]  # > 0 while DTensor infers an op's global output on fake tensors
+
+
+def _mute_meta_propagation() -> None:
+    """DTensor infers an op's global output shape by running the op on fake
+    tensors of the global shapes (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, once per op signature), under the
+    same mode stack: those ops are no device's, so the counter skips what
+    runs inside it.  Installed once, when a counter is made."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    inner = ShardingPropagator._propagate_tensor_meta_non_cached
+    if getattr(inner, "_step_counter_muted", False):
+        return
+
+    def propagate(self, op_schema):
+        _PROPAGATING[0] += 1
+        try:
+            return inner(self, op_schema)
+        finally:
+            _PROPAGATING[0] -= 1
+
+    propagate._step_counter_muted = True
+    ShardingPropagator._propagate_tensor_meta_non_cached = propagate
+
+
+def mesh_axes(mesh) -> Dict[str, str]:
+    """Process-group names -> mesh axis names: ``mesh``'s dims, and those
+    of every fake mesh of the process (``launch/mesh.GROUP_AXES``; DTensor
+    may run a plan it cached for an equal mesh on that mesh's groups)."""
+    if mesh is None:
+        return {}
+    from repro_torch.launch.mesh import GROUP_AXES
+
+    return dict(GROUP_AXES, **{mesh.get_group(i).group_name: name for i, name in enumerate(mesh.mesh_dim_names)})
+
+
 class StepCounter(TorchDispatchMode):
     """Counts aten ops, bytes moved and live bytes while it is active.
 
@@ -80,10 +181,19 @@ class StepCounter(TorchDispatchMode):
     storages made while active and still alive, and their most.
     ``window()`` starts a sub-peak (``window_peak``) at the current live
     bytes.  While ``muted`` ops are not counted, but the storages they make
-    are still tracked.  ``hold(args)`` leaves the arguments' storages out."""
+    are still tracked.  ``hold(args)`` leaves the arguments' storages out.
+    On DTensors it counts this rank's local ops (module docstring), and
+    ``collectives`` lists each collective as (kind, mesh axis, bytes),
+    the axis named by ``mesh`` (a ``DeviceMesh``)."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
+        from torch.distributed.tensor import DTensor
+
+        _mute_meta_propagation()
+        self._dtensor = DTensor
+        self.collectives: List[Tuple[str, str, float]] = []
+        self._axes = mesh_axes(mesh)
         self.ops: collections.Counter = collections.Counter()
         self.flops = 0
         self.bytes_moved = 0
@@ -98,7 +208,7 @@ class StepCounter(TorchDispatchMode):
         """Storages of ``tree`` (the step's arguments) are not the step's:
         views of them made while active add nothing."""
         for x in _tensors(tree):
-            self._seen[x.untyped_storage()] = 0
+            self._seen[_local(x).untyped_storage()] = 0
 
     def window(self) -> int:
         self.window_peak = self.live
@@ -126,7 +236,19 @@ class StepCounter(TorchDispatchMode):
         self.raise_peak(self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented  # DTensor runs it as local ops and collectives, counted here
         out = func(*args, **(kwargs or {}))
+        if _PROPAGATING[0]:
+            return out
+        if func.namespace in ("_c10d_functional", "_dtensor"):
+            call = _collective(func, args, out, self._axes)
+            if call is not None and not self.muted:
+                self.ops[str(func.overloadpacket)] += 1
+                self.collectives.append(call)
+            for t in _tensors(out):
+                self._track(t)
+            return out
         if func.namespace != "aten":  # prim.device and the like: queries, not ops
             return out
         if not self.muted:

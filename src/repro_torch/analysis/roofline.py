@@ -1,18 +1,23 @@
-"""Roofline terms of the dry run's steps on one NVIDIA H100.
+"""Roofline terms of the dry run's steps on NVIDIA H100s.
 
-For each full-width (arch × input shape) record of ``launch/dryrun.py``:
+For each full-width (arch × input shape) record of ``launch/dryrun.py``,
+one device's step (the one card's, or rank 0's on a production mesh):
 
     compute    = flops / peak FLOP/s of the model's dtype   (HW.PEAK_FLOPS)
     memory     = bytes_moved / HBM bandwidth                (HW.HBM_BW)
-    collective = 0: one card runs no collective (ROADMAP Queue 1 item 15
-                 brings the mesh and fills this term)
+    collective = Σ over mesh axes of the axis's collective bytes (JAX's
+                 per-device estimators, ``analysis/ops.collective_bytes``)
+                 over the bandwidth of the link it crosses (``axis_link``:
+                 NVLink inside an 8-card board, InfiniBand between boards);
+                 0 on one card
 
 ``flops`` is ``FlopCounterMode``'s count of the step's matmuls plus the
 model kernels' analytic FLOPs; ``bytes_moved`` is every dispatched op's
 argument and result bytes plus the kernels' (``analysis/ops.py``): the
 eager port's traffic, op by op, without fusion.
 
-MODEL_FLOPS is the analytic "useful" count, the JAX package's:
+MODEL_FLOPS is the analytic "useful" count, the JAX package's (the whole
+step's, so on a mesh ``useful_ratio`` = MODEL_FLOPS / (flops × devices)):
     train:   6·N_active·tokens + 3·attn_flops(S)
     prefill: 2·N_active·tokens + attn_flops(S)
     decode:  2·N_active·batch + attn_kv_flops(S_cache)
@@ -30,7 +35,7 @@ import argparse
 import json
 import math
 import os
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import INPUT_SHAPES
@@ -40,10 +45,17 @@ __all__ = ["HW", "active_param_count", "analyse", "model_flops", "peak_flops", "
 
 
 class HW:
-    """One NVIDIA H100 SXM (NVIDIA's data sheet, dense, at 700 W)."""
+    """One NVIDIA H100 SXM (NVIDIA's data sheet, dense, at 700 W), and the
+    links a collective between such cards crosses (NVIDIA's H100 and DGX
+    H100 data sheets)."""
 
     NAME = "NVIDIA H100 80GB HBM3"
     HBM_BW = 3.35e12  # bytes/s
+    # NVLink 4 inside an 8-card HGX board: 900 GB/s a card, both ways
+    NVLINK_BW = 450e9  # bytes/s a card, one way
+    # InfiniBand NDR between boards: one 400 Gb/s ConnectX-7 port a card
+    IB_BW = 50e9  # bytes/s a card, one way
+    CARDS_PER_BOARD = 8
     HBM_BYTES = 80 * 2**30
     # cuBLAS's workspace, which PyTorch allocates on sm_90 for each thread
     # that runs a matmul on the card (read back by chip_smoke.py phase 7)
@@ -135,24 +147,53 @@ def peak_flops(dtype: str) -> float:
     return HW.PEAK_FLOPS["bf16" if dtype == "bfloat16" else "fp32"]
 
 
+def axis_link(shape: Sequence[int], axes: Sequence[str], axis: str) -> str:
+    """The link a collective over mesh axis ``axis`` crosses: ranks are
+    numbered row-major over ``shape`` (the last axis fastest) and placed
+    ``HW.CARDS_PER_BOARD`` to a board in order, so an axis whose group
+    lies on one board talks over NVLink and any other over InfiniBand
+    (its ring's slowest hop)."""
+    i = list(axes).index(axis)
+    stride = math.prod(shape[i + 1 :])
+    return "nvlink" if (shape[i] - 1) * stride < HW.CARDS_PER_BOARD else "infiniband"
+
+
+def step_terms(rec: Dict, mesh=None) -> Dict[str, float]:
+    """The three roofline terms of one device's step (a dry-run record):
+    its FLOPs over the peak of the model's dtype, its bytes over the HBM
+    bandwidth, and each mesh axis's collective bytes over the link that
+    axis crosses (:func:`axis_link`; ``mesh`` is (shape, axis names), None
+    on one card, where the term is 0)."""
+    t_coll = 0.0
+    if mesh is not None:
+        shape, axes = mesh
+        bw = {"nvlink": HW.NVLINK_BW, "infiniband": HW.IB_BW}
+        for axis, b in rec.get("collectives", {}).get("by_axis", {}).items():
+            t_coll += b / bw[axis_link(shape, axes, axis)]
+    return dict(t_compute=rec["flops"] / peak_flops(rec["dtype"]), t_memory=rec["bytes_moved"] / HW.HBM_BW,
+                t_collective=t_coll)
+
+
 def analyse(records: List[Dict]) -> List[Dict]:
-    """One row per full-width record that ran: the three terms on one H100,
-    the dominant one, MODEL_FLOPS and the useful ratio, and the fit."""
+    """One row per full-width record that ran: the three terms of one
+    device's step, the dominant one, MODEL_FLOPS and the useful ratio, the
+    fit, and the record's mesh ("1": one card)."""
     out = []
     for r in records:
         if not r.get("ok") or r.get("reduced") or r.get("case", "arch") != "arch":
             continue
-        t_compute = r["flops"] / peak_flops(r["dtype"])
-        t_memory = r["bytes_moved"] / HW.HBM_BW
-        t_coll = 0.0  # one card: no collective (ROADMAP Queue 1 item 15)
-        terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
-        dominant = max(terms, key=terms.get)
+        mesh = r.get("mesh", "1")
+        dims = None if mesh == "1" else (tuple(int(n) for n in mesh.split("x")),
+                                         ("pod", "data", "model") if mesh.count("x") == 2 else ("data", "model"))
+        terms = step_terms(r, dims)
+        dominant = max(("compute", "memory", "collective"), key=lambda k: terms[f"t_{k}"])
         mf = model_flops(r["arch"], r["shape"], r["fl_mode"], get_arch(r["arch"]).fl.local_steps)
         mf *= r.get("scan_rounds", 1)
+        devices = r.get("devices", 1)
         out.append(dict(
-            arch=r["arch"], shape=r["shape"], fl_mode=r["fl_mode"], card=HW.NAME,
-            t_compute=t_compute, t_memory=t_memory, t_collective=t_coll, dominant=dominant,
-            model_flops=mf, flops=r["flops"], useful_ratio=mf / r["flops"] if r["flops"] else float("nan"),
+            arch=r["arch"], shape=r["shape"], fl_mode=r["fl_mode"], card=HW.NAME, mesh=mesh, devices=devices,
+            **terms, dominant=dominant, model_flops=mf, flops=r["flops"],
+            useful_ratio=mf / (r["flops"] * devices) if r["flops"] else float("nan"),
             peak_bytes=r["peak_bytes"], fits_one_card=r["peak_bytes"] <= HW.HBM_BYTES,
             cards_needed=math.ceil(r["peak_bytes"] / HW.HBM_BYTES),
         ))
@@ -167,8 +208,17 @@ _SUGGEST = {
 
 
 def render_markdown(rows: List[Dict]) -> str:
+    """One table a mesh: one card's, then each production mesh's per-device
+    rows."""
+    meshes = sorted({r.get("mesh", "1") for r in rows}, key=lambda m: (m != "1", m))
+    return "\n\n".join(_table([r for r in rows if r.get("mesh", "1") == m], m) for m in meshes)
+
+
+def _table(rows: List[Dict], mesh: str) -> str:
+    where = ("One" if mesh == "1" else f"Each device of the {mesh} mesh, one") + f" {HW.NAME}"
     lines = [
-        f"One {HW.NAME} (700 W data-sheet peaks; collective term 0 on one card).",
+        f"{where} (700 W data-sheet peaks; collective term 0 on one card, else NVLink "
+        f"{HW.NVLINK_BW / 1e9:.0f} GB/s or InfiniBand {HW.IB_BW / 1e9:.0f} GB/s a card by the axis).",
         "",
         "| arch | shape | mode | compute s | memory s | collective s | dominant | "
         "MODEL_FLOPS | useful ratio | peak GiB | fits one card | cards needed | what moves the dominant term |",
@@ -177,7 +227,7 @@ def render_markdown(rows: List[Dict]) -> str:
     for r in sorted(rows, key=lambda x: (x["arch"], x["shape"])):
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['fl_mode']} "
-            f"| {r['t_compute']:.3e} | {r['t_memory']:.3e} | {r['t_collective']:.1f} "
+            f"| {r['t_compute']:.3e} | {r['t_memory']:.3e} | {r['t_collective']:.3e} "
             f"| **{r['dominant']}** | {r['model_flops']:.2e} | {r['useful_ratio']:.2f} "
             f"| {r['peak_bytes'] / 2**30:.1f} | {'yes' if r['fits_one_card'] else 'no'} | {r['cards_needed']} "
             f"| {_SUGGEST[r['dominant']]} |"

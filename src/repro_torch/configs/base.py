@@ -3,8 +3,8 @@
 The port's own copies of ``ModelConfig`` (the JAX package's field names and
 defaults, ``q_dim``, ``kv_dim``, ``layer_types`` and ``reduced``), of
 ``FLRunConfig`` and of the dry run's four ``INPUT_SHAPES``.  The sharding
-rules are left out: the port runs on one card, and multi-device execution
-is ROADMAP Slice 5.
+rules live beside each arch's spec (``registry.SERVE_RULES`` and
+``TRAIN_RULES``, read by ``launch/sharding.py``).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Gemma particulars: GeGLU MLP, embeddings scaled by sqrt(d_model), q/k/v
 projected to 16·256 = 4096 (≠ d_model), logits over a 256k vocab."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -28,9 +28,13 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    rules_t = dict(TRAIN_RULES, kv_w="model")  # MHA: kv heads shard too
+    rules_s = dict(SERVE_RULES, kv_w="model")
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=4, lr=2e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="swa_variant",
     )

@@ -2,7 +2,7 @@
 vocab=49155 — GQA [hf:ibm-granite/granite-3.0-2b-base]."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -24,9 +24,12 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    rules_t, rules_s = dict(TRAIN_RULES), dict(SERVE_RULES)
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=4, lr=3e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="swa_variant",
     )

@@ -9,7 +9,7 @@ expert beside the 128 routed experts and a sigmoid top-1 router:
 202,112."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -36,9 +36,20 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    # 40 heads do not divide 16: attention shards on its embed dims; the
+    # experts shard over both axes (128 over data, d_ff over model)
+    rules_t = dict(
+        TRAIN_RULES, heads_w=None, attn_in_w="model", experts_w="data", expert_mlp_w="model", act_experts="data"
+    )
+    rules_s = dict(
+        SERVE_RULES, heads_w=None, attn_in_w="model", attn_out_w="model", experts_w="data",
+        expert_mlp_w="model", act_experts="data",
+    )
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="fedsgd_fsdp", local_steps=1, lr=1e-3, micro_batches=8),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adafactor",
         long_context="swa_variant",
     )

@@ -6,7 +6,7 @@ Its windowed attention reaches no kernel (K5 and K6 take attention
 without a window)."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -33,9 +33,15 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    # 8 experts < the 16-way model axis: experts replicate and d_ff shards;
+    # training puts the FSDP axis on the experts' embed dim
+    rules_t = dict(TRAIN_RULES, experts_w=None, expert_embed_w="data", expert_mlp_w="model")
+    rules_s = dict(SERVE_RULES, experts_w=None, expert_mlp_w="model")
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=2, lr=2e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adafactor",
         long_context="native",
     )

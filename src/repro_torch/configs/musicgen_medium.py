@@ -6,7 +6,7 @@ codebook token ids (vocab 2048), or precomputed embeddings; LayerNorm,
 GELU and sinusoidal absolute positions, MHA."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -29,9 +29,15 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    # 24 heads do not divide 16: attention shards on embed (1536 = 16·96);
+    # the 2048-entry vocabulary is replicated
+    rules_t = dict(TRAIN_RULES, heads_w=None, attn_in_w="model", vocab_w=None)
+    rules_s = dict(SERVE_RULES, heads_w=None, attn_in_w="model", attn_out_w="model", vocab_w=None)
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=8, lr=3e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="swa_variant",
     )

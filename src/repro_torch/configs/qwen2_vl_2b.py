@@ -7,7 +7,7 @@ language decoder takes precomputed embeddings (B, S, d_model)
 streams (temporal, height, width); for text the three are equal."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -31,9 +31,16 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    # 12 heads do not divide the 16-way model axis, and sharding the fused
+    # 12·128 head dim would split heads: the attention projections shard
+    # on their embed dims (1536 = 16·96 = 32·48)
+    rules_t = dict(TRAIN_RULES, heads_w=None, attn_in_w="model")
+    rules_s = dict(SERVE_RULES, heads_w=None, attn_in_w="model", attn_out_w="model")
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=4, lr=3e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="swa_variant",
     )

@@ -7,7 +7,7 @@ layers = 38.  The local attention's window is 2048, and the RG-LRU state
 is constant in the sequence length.  Neither reaches a kernel."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -32,9 +32,12 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    rules_t, rules_s = dict(TRAIN_RULES), dict(SERVE_RULES)
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=2, lr=2e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="native",
     )

@@ -5,7 +5,7 @@ vocab=65536 — Finch, data-dependent decay [arXiv:2404.05892].
 length (tm_x, cm_x and an fp32 (H, 64, 64) WKV state per layer)."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -27,9 +27,12 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    rules_t, rules_s = dict(TRAIN_RULES), dict(SERVE_RULES)
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=2, lr=2e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="native",
     )

@@ -2,7 +2,7 @@
 vocab=49152 — llama-arch small [hf:HuggingFaceTB/SmolLM-135M]."""
 
 from repro_torch.configs.base import FLRunConfig, ModelConfig
-from repro_torch.configs.registry import ArchSpec
+from repro_torch.configs.registry import SERVE_RULES, TRAIN_RULES, ArchSpec
 
 
 def spec() -> ArchSpec:
@@ -24,9 +24,15 @@ def spec() -> ArchSpec:
         dtype="bfloat16",
         remat=True,
     )
+    # 15 heads and 5 kv heads divide neither 16 nor 32: the attention
+    # projections shard on their embed dims (960 = 16·60 = 32·30)
+    rules_t = dict(TRAIN_RULES, heads_w=None, attn_in_w="model")
+    rules_s = dict(SERVE_RULES, heads_w=None, attn_in_w="model", attn_out_w="model")
     return ArchSpec(
         model=model,
         fl=FLRunConfig(mode="client_parallel", local_steps=8, lr=5e-3),
+        train_rules=rules_t,
+        serve_rules=rules_s,
         optimizer="adam",
         long_context="swa_variant",
     )

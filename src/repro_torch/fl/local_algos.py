@@ -34,7 +34,9 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Shard
 
+from repro_torch.launch.sharding import from_local_like, is_dtensor
 from repro_torch.optim.optimizers import clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -76,11 +78,9 @@ def make_grad_fn(loss_fn: Callable, micro_batches: int = 1) -> Callable[[Params,
         return full_grad
 
     def grad_fn(params: Params, batch):
-        micro = tree_map(
-            lambda x: x.reshape((micro_batches, x.shape[0] // micro_batches) + x.shape[1:]), batch
-        )
+        micro = tree_map(lambda x: _micro_split(x, micro_batches), batch)
         tot_l = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-        tot_g = tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32, device=w.device), params)
+        tot_g = tree_map(_zeros_f32, params)
         for i in range(micro_batches):
             l, g = full_grad(params, tree_map(lambda x: x[i], micro))
             tot_l = tot_l + l
@@ -89,6 +89,29 @@ def make_grad_fn(loss_fn: Callable, micro_batches: int = 1) -> Callable[[Params,
         return tot_l * inv, tree_map(lambda x: x * inv, tot_g)
 
     return grad_fn
+
+
+def _micro_split(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x`` (B, ...) as (m, B / m, ...) micro-batches.  A DTensor batch
+    sharded on its rows is split on each device's own rows (micro-batch i
+    holds every device's i-th slice: no row moves), which DTensor's own
+    reshape of a sharded dim cannot do; the full gradient is the same."""
+    if not is_dtensor(x):
+        return x.reshape((m, x.shape[0] // m) + x.shape[1:])
+    local = x.to_local()
+    place = tuple(Shard(p.dim + 1) if p.is_shard() else p for p in x.placements)
+    return from_local_like(local.reshape((m, local.shape[0] // m) + tuple(local.shape[1:])), x.device_mesh, place,
+                           (m, x.shape[0] // m) + tuple(x.shape[1:]))
+
+
+def _zeros_f32(w: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros of ``w``'s shape; of a DTensor ``w``, laid out as ``w``
+    (a plain tensor of its global shape would be replicated in full)."""
+    if not is_dtensor(w):
+        return torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    local = w.to_local()
+    return from_local_like(torch.zeros(local.shape, dtype=torch.float32, device=local.device), w.device_mesh,
+                           tuple(w.placements), w.shape)
 
 
 class LocalAlgo:

@@ -21,9 +21,11 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Shard
 
 from repro_torch.core.metrics import finite_mean, safe_div
 from repro_torch.fl.local_algos import FedAvg, make_grad_fn
+from repro_torch.launch.sharding import from_local_like, is_dtensor
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -104,11 +106,23 @@ def build_local_update(
     return build_local_algo_update(None, loss_fn, lr, grad_clip=grad_clip)
 
 
+def _empty_stack(x: torch.Tensor, m: int) -> torch.Tensor:
+    """An uninitialised ``(m, *x.shape)`` stack of ``x``'s dtype; of a
+    DTensor ``x``, a DTensor laid out as ``x`` with the new leading dim
+    replicated (the sharded dry run's client bodies)."""
+    if not is_dtensor(x):
+        return torch.empty((m,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    local = x.to_local()
+    place = tuple(Shard(p.dim + 1) if p.is_shard() else p for p in x.placements)
+    return from_local_like(torch.empty((m,) + tuple(local.shape), dtype=x.dtype, device=local.device), x.device_mesh,
+                           place, (m,) + tuple(x.shape))
+
+
 def _write_row(stack: Optional[Params], tree: Params, i: int, m: int) -> Params:
     """Row ``i`` of a tree of ``(m, ...)`` stacks set to ``tree``'s leaves;
     the stacks are allocated at the first row."""
     if stack is None:
-        stack = tree_map(lambda x: torch.empty((m,) + tuple(x.shape), dtype=x.dtype, device=x.device), tree)
+        stack = tree_map(lambda x: _empty_stack(x, m), tree)
     for row, x in zip(tree_leaves(stack), tree_leaves(tree)):
         row[i].copy_(x)
     return stack

@@ -1,8 +1,11 @@
 """Dry run: one step of each (arch × input shape) at full width on fake
-tensors, and what it would take on one H100, without running it.
+tensors, and what it would take on one H100, or on each H100 of a
+production mesh, without running it.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k --reduced
     PYTHONPATH=src python -m repro_torch.launch.dryrun --sweep --out build/dryrun.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch rwkv6-7b --shape decode_32k --reduced --both-meshes
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --fl-sharded --fl-devices 4
     PYTHONPATH=src python -m repro_torch.launch.dryrun --serve-engine
 
 The step is the port's own code path on tensors that have shapes and
@@ -39,11 +42,18 @@ of a loss is counted once per input signature and replayed for every
 later client, step and micro-batch of the same shapes (``_GradMemo``).
 The tests hold both against the direct count.
 
+``--mesh``, ``--multi-pod`` and ``--both-meshes`` run a case on the 16 ×
+16 or the 2 × 16 × 16 production mesh (``launch/mesh.make_production_mesh``:
+a ``fake`` process group, this process rank 0) with the JAX dry run's
+layout (``build_sharded_step``): each record holds one device's counts,
+its collectives by kind and mesh axis (``collectives``), the fit against
+one card and the three roofline terms (``t_compute``, ``t_memory``,
+``t_collective``); ``src/repro_torch/DESIGN.md``, "The model axis".
+``--fl-sharded`` runs the federation engine's six sharded rounds on a
+client mesh of gloo thread ranks and reports each one's all-reduces.
 ``--serve-engine`` runs ``ServeEngine`` (scan decode and continuous
 admission) on reduced archs on real CPU tensors, since the engine reads
 back to the host, and reports its shape signatures: one per entry point.
-``--multi-pod``, ``--both-meshes`` and ``--fl-sharded`` need a mesh or
-``shard_map`` and are refused (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -56,24 +66,28 @@ import math
 import os
 import time
 import traceback
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.analysis.ops import StepCounter, tensor_bytes
+from repro_torch.analysis.ops import StepCounter, collective_bytes, tensor_bytes
+from repro_torch.analysis import roofline
 from repro_torch.analysis.roofline import HW
 from repro_torch.configs import ARCH_NAMES, ArchSpec, ModelConfig, get_arch
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.fl import rounds as rounds_lib
 from repro_torch.kernels import _build
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.sharding import shard_like
 from repro_torch.launch.train import pretrain_optimizer
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
-    "DryRunCase", "SHAPE_NAMES", "arguments", "build_step", "case_config", "count_step", "main", "run_case",
+    "DryRunCase", "SHAPE_NAMES", "arguments", "build_sharded_step", "build_step", "case_config", "case_mesh",
+    "count_step", "main", "materialize", "run_case", "run_fl_sharded_case", "run_fl_sharded_cases",
     "run_serve_engine_case",
 ]
 
@@ -89,21 +103,67 @@ class DryRunCase:
     scan_rounds: int = 1  # > 1: N Mode-A rounds in one step, batches stacked (N, ...)
     use_flash: bool = True  # serving through K5 and K7, as the serving path runs
     batch: Optional[int] = None  # the shape's global batch unless given
-    clients: int = N_CLIENTS  # Mode A's clients a round
+    clients: int = N_CLIENTS  # Mode A's clients a round (at least one a device of the data axes)
     local_steps: Optional[int] = None  # Mode A's local steps, the arch's unless given
+    # None: one card; False: the 16 x 16 production mesh; True: 2 x 16 x 16
+    multi_pod: Optional[bool] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None  # another mesh over (data, model), e.g. (1, 1)
+    rules_t: Optional[Dict] = None  # overrides of the arch's train rules (the hillclimb's variants)
+    rules_s: Optional[Dict] = None  # and of its serve rules
+    fl_over: Optional[Dict] = None  # and of its FL run fields
+    cfg_over: Optional[Dict] = None  # and of its model config's fields (after the reduction)
+    mesh_device: str = "cpu"  # the device type of a sharded case's (fake) tensors
+
+    @property
+    def sharded(self) -> bool:
+        return self.multi_pod is not None or self.mesh_shape is not None
+
+    @property
+    def mesh_dims(self) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+        """The mesh's shape and axis names (of a sharded case)."""
+        if self.mesh_shape is not None:
+            shape = tuple(self.mesh_shape)
+        else:
+            shape = (2, 16, 16) if self.multi_pod else (16, 16)
+        return shape, (("pod",) if len(shape) == 3 else ()) + ("data", "model")
+
+    @property
+    def mesh_name(self) -> str:
+        return "x".join(str(n) for n in self.mesh_dims[0]) if self.sharded else "1"
+
+    @property
+    def data_devices(self) -> int:
+        """Devices along the batch (client) axes: all but ``model``."""
+        return math.prod(self.mesh_dims[0][:-1]) if self.sharded else 1
 
 
 def case_config(case: DryRunCase) -> Tuple[ArchSpec, ModelConfig, Dict]:
     spec = get_arch(case.arch)
+    if case.rules_t:
+        spec = dataclasses.replace(spec, train_rules=dict(spec.train_rules, **case.rules_t))
+    if case.rules_s:
+        spec = dataclasses.replace(spec, serve_rules=dict(spec.serve_rules, **case.rules_s))
+    if case.fl_over:
+        spec = dataclasses.replace(spec, fl=dataclasses.replace(spec.fl, **case.fl_over))
     ishape = INPUT_SHAPES[case.shape]
     cfg = spec.long_context_model() if case.shape == "long_500k" else spec.model
     dims = dict(seq=ishape.seq_len, batch=ishape.global_batch, kind=ishape.kind)
     if case.reduced:
         cfg = cfg.reduced(param_dtype="bfloat16", dtype="bfloat16")
+        # a batch of more than one divides over the clients and the data axes
+        min_b = max(N_CLIENTS, case.data_devices)
         dims.update(
             seq=min(dims["seq"], 128),
-            batch=max(min(dims["batch"], 8), N_CLIENTS) if ishape.global_batch > 1 else 1,
+            batch=max(min(dims["batch"], 8), min_b) if ishape.global_batch > 1 else 1,
         )
+        if case.sharded:
+            # the reduced heads no longer divide the 16-way model axis (JAX's relaxation)
+            relax = dict(rwkv_heads=None)
+            spec = dataclasses.replace(
+                spec, serve_rules=dict(spec.serve_rules, **relax), train_rules=dict(spec.train_rules, **relax)
+            )
+    if case.cfg_over:
+        cfg = dataclasses.replace(cfg, **case.cfg_over)
     if case.batch is not None:
         dims["batch"] = case.batch
     return spec, cfg, dims
@@ -122,11 +182,14 @@ def _micro(requested: int, batch: int) -> int:
 
 def build_step(
     case: DryRunCase, device="cpu", cfg: Optional[ModelConfig] = None, wrap_loss: Callable = lambda f: f,
+    micro_rows: Optional[int] = None,
 ) -> Tuple[Callable, tuple, Dict]:
     """``(step, args, info)`` of ``case``: ``step(*args)`` is the port's step
     on tensors made on ``device`` (random, from seed 0; fake ones under
     ``FakeTensorMode``).  ``cfg`` replaces the case's model config (the
-    dry run's unit-cut copies); ``wrap_loss`` wraps the training loss."""
+    dry run's unit-cut copies); ``wrap_loss`` wraps the training loss;
+    Mode B's micro-batches split ``micro_rows`` rows (a device's, on a
+    mesh; the whole batch by default)."""
     spec, case_cfg, dims = case_config(case)
     cfg = cfg or case_cfg
     b, s = dims["batch"], dims["seq"]
@@ -157,6 +220,7 @@ def build_step(
             local_b = max(1, b // m)
             micro = _micro(spec.fl.micro_batches, local_b)
             round_step = rounds_lib.build_client_parallel_round(loss, spec.fl.lr, steps, micro_batches=micro)
+            info["round_step"] = round_step
             rounds = case.scan_rounds
             batches = inputs(((rounds,) if rounds > 1 else ()) + (m, steps, local_b))
             weights = torch.ones(m, dtype=torch.float32, device=device)
@@ -174,7 +238,8 @@ def build_step(
 
             return scanned, (params, batches, weights), info
         opt = pretrain_optimizer(cfg, spec.optimizer, spec.fl.lr)
-        micro = _micro(spec.fl.micro_batches, b)
+        # micro-batches split the rows a device holds (micro_rows; all b on one card)
+        micro = _micro(spec.fl.micro_batches, micro_rows or b)
         info.update(fl_mode=spec.fl.mode, optimizer=spec.optimizer, micro_batches=micro, scan_rounds=1)
         step = rounds_lib.build_fedsgd_step(loss, opt, micro_batches=micro)
         return step, (params, opt.init(params), inputs((b,))), info
@@ -184,7 +249,7 @@ def build_step(
     if dims["kind"] == "prefill":
 
         def prefill(params, batch, caches):
-            positions = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+            positions = shard_like(torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s), batch[0])
             tokens, embeds = (None, batch[0]) if vlm else (batch[0], None)
             with torch.no_grad():
                 hidden, new_caches, _ = T.forward(
@@ -202,6 +267,174 @@ def build_step(
     return decode, (params, inputs((b,))[0], caches), info
 
 
+# ------------------------------------------------------------ sharded steps
+
+
+def case_mesh(case: DryRunCase):
+    """The ``DeviceMesh`` of a sharded case (rank 0 of a ``fake`` group:
+    ``launch/mesh.make_fake_mesh``), or None for one card."""
+    if not case.sharded:
+        return None
+    from repro_torch.launch.mesh import make_fake_mesh
+
+    return make_fake_mesh(*case.mesh_dims, device=case.mesh_device)
+
+
+def _to_local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if sh.is_dtensor(x) else x
+
+
+def _lead_spec(x: torch.Tensor, axis, skip: int = 0) -> sh.Spec:
+    """Dim ``skip`` of ``x`` on ``axis``, the others replicated."""
+    return sh.Spec((None,) * skip + (axis,) + (None,) * (x.ndim - skip - 1))
+
+
+def _client_round(round_step: Callable, like: Dict, train_s, serve_s, mesh, clients: int) -> Callable:
+    """Mode A on the mesh, the JAX dry run's layout: the round's params
+    (train rules) laid out per client by the serve rules, each device
+    running its own clients (the client axis over the data axes) through
+    ``local_map`` (JAX's ``shard_map``) on DTensors of the ``model`` axis,
+    and eq. (6) as each device's share of the weighted sum (its clients'
+    average times their share of Σw), summed over the data axes as the
+    round's params are laid back out by the train rules."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    model_mesh = mesh["model"]
+    shapes = [tuple(x.shape) for x in tree_leaves(like)]
+    serve_pl = [sh.placements(x, mesh) for x in sh.spec_leaves(serve_s)]
+    train_pl = [sh.placements(x, mesh) for x in sh.spec_leaves(train_s)]
+    model_pl = [sh.placements(x, model_mesh) for x in sh.spec_leaves(serve_s)]
+    summed = tuple(Partial() if name != "model" else Replicate() for name in names)
+    rep = (Replicate(),) * mesh.ndim
+
+    def step(params, batches, weights):
+        leaves = [x.redistribute(mesh, pl) for x, pl in zip(tree_leaves(params), serve_pl)]
+        if all(mesh.size(i) == 1 for i, name in enumerate(names) if name != "model"):
+            # one device along the client axes holds every client: the round itself
+            agg, loss = round_step(tree_unflatten(params, leaves), batches, weights)
+            return tree_unflatten(params, [x.redistribute(mesh, pl) for x, pl in zip(tree_leaves(agg), train_pl)]), loss
+        total = weights.sum().redistribute(mesh, rep)
+        n, nb = len(leaves), len(batches)
+
+        def body(*flat):
+            local_w, tot = flat[n + nb], flat[n + nb + 1]
+            mparams = [sh.from_local_like(t, model_mesh, pl, shp) for t, pl, shp in zip(flat[:n], model_pl, shapes)]
+            agg, loss = round_step(tree_unflatten(params, mparams), flat[n : n + nb], local_w)
+            share = local_w.sum() / tot
+            out = [_to_local((a.float() * share).to(a.dtype)) for a in tree_leaves(agg)]
+            return tuple(out) + (_to_local(loss * (local_w.shape[0] / clients)),)
+
+        out_pl = tuple(
+            tuple(Partial() if name != "model" else p for name, p in zip(names, pl)) for pl in serve_pl
+        ) + (summed,)
+        in_pl = tuple(serve_pl) + tuple(tuple(b.placements) for b in batches) + (tuple(weights.placements), rep)
+        outs = local_map(body, out_placements=out_pl, in_placements=in_pl, device_mesh=mesh)(
+            *leaves, *batches, weights, total
+        )
+        # local_map takes each output's global shape from even shards: set the true one
+        outs = [sh.from_local_like(o.to_local(), mesh, o.placements, shp) for o, shp in zip(outs[:n], shapes)] + [outs[n]]
+        new = [x.redistribute(mesh, pl) for x, pl in zip(outs[:n], train_pl)]
+        return tree_unflatten(params, new), outs[n].redistribute(mesh, rep)
+
+    return step
+
+
+def build_sharded_step(
+    case: DryRunCase, mesh, device="cpu", cfg: Optional[ModelConfig] = None, wrap_loss: Callable = lambda f: f,
+) -> Tuple[Callable, tuple, Dict]:
+    """``(step, args, info)`` of a sharded case on ``mesh``: ``build_step``'s
+    tensors laid out as DTensors holding this rank's shards, by the JAX dry
+    run's layout (``src/repro/launch/dryrun.py``): Mode A as
+    :func:`_client_round` with the train rules' params and the clients
+    over the data axes; Mode B's params and optimizer state by the train
+    rules (``sharding.optimizer_state_specs``) and its batch over the data
+    axes; serving by the serve rules, the caches by
+    ``sharding.cache_logical_specs`` (batch replicated when it is one).
+    ``step`` runs under the rules' activation constraints (Mode A's with
+    ``act_batch`` free: the client axis has the data axes) and DTensor's
+    implicit replication of plain tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    spec, case_cfg, dims = case_config(case)
+    cfg = cfg or case_cfg
+    mp = "pod" in mesh.mesh_dim_names
+    data_axes = tuple(n for n in mesh.mesh_dim_names if n != "model")
+    batch_ax = data_axes if len(data_axes) > 1 else data_axes[0]
+    data_devices = math.prod(mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names) if n != "model")
+    case = dataclasses.replace(case, clients=max(case.clients, data_devices))
+    step, args, info = build_step(case, device, cfg, wrap_loss, micro_rows=max(1, dims["batch"] // data_devices))
+    round_step = info.pop("round_step", None)
+    logical = sh.param_logical_specs(cfg)
+    info.update(mesh=case.mesh_name, devices=math.prod(mesh.shape))
+
+    def lay(x, spec_):
+        return sh.distribute(x, spec_, mesh)
+
+    if dims["kind"] == "train" and spec.fl.mode == "client_parallel":
+        params, batches, weights = args
+        train_s = sh.specs_from_logical(logical, spec.train_rules, mp)
+        serve_s = sh.specs_from_logical(logical, spec.serve_rules, mp)
+        skip = 1 if info["scan_rounds"] > 1 else 0
+        args = (lay(params, train_s), tuple(lay(x, _lead_spec(x, batch_ax, skip)) for x in batches),
+                lay(weights, _lead_spec(weights, batch_ax)))
+        one_round = _client_round(round_step, params, train_s, serve_s, mesh, info["clients"])
+        rounds = info["scan_rounds"]
+
+        def inner(params, batches, weights):
+            if rounds == 1:
+                return one_round(params, batches, weights)
+            losses = []
+            for i in range(rounds):  # the engine's host loop over rounds
+                params, l = one_round(params, tuple(x[i] for x in batches), weights)
+                losses.append(l)
+            return params, torch.stack(losses)
+
+        rules = dict(spec.train_rules, act_batch=None)
+    elif dims["kind"] == "train":
+        params, opt_state, batch = args
+        train_s = sh.specs_from_logical(logical, spec.train_rules, mp)
+        args = (lay(params, train_s), lay(opt_state, sh.optimizer_state_specs(spec.optimizer, train_s, cfg)),
+                tuple(lay(x, _lead_spec(x, batch_ax)) for x in batch))
+        inner, rules = step, spec.train_rules
+    else:
+        params, batch, caches = args
+        b_ax = batch_ax if dims["batch"] > 1 else None
+        crules = dict(spec.serve_rules, **({} if b_ax else {"act_batch": None}))
+        cspecs = sh.specs_from_logical(sh.cache_logical_specs(cfg), crules, mp)
+        lay_b = (lambda x: lay(x, _lead_spec(x, b_ax)))
+        batch = tuple(lay_b(x) for x in batch) if isinstance(batch, tuple) else lay_b(batch)
+        args = (lay(params, sh.specs_from_logical(logical, spec.serve_rules, mp)), batch, lay(caches, cspecs))
+        inner, rules = step, spec.serve_rules
+
+    def sharded(*a):
+        with sh.use_rules(rules, mp), implicit_replication():
+            return inner(*a)
+
+    return sharded, args, info
+
+
+def materialize(args, device, seed: int = 0):
+    """A sharded case's fake DTensor arguments (``build_sharded_step`` under
+    ``FakeTensorMode``) -> real ones on ``device``, laid out the same: each
+    leaf's local shard made at its local shape, floats N(0, 0.02²) from
+    ``seed``, integers (tokens, positions) zero.  No global tensor is
+    formed, so a card runs rank 0's program of a full-width step whose
+    whole caches it could not hold."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def one(x):
+        local = x.to_local()
+        if local.dtype.is_floating_point:
+            real = (torch.randn(tuple(local.shape), generator=gen, device=device) * 0.02).to(local.dtype)
+        else:
+            real = torch.zeros(tuple(local.shape), dtype=local.dtype, device=device)
+        return sh.from_local_like(real, x.device_mesh, x.placements, x.shape)
+
+    return tree_map(one, args)
+
+
 # ------------------------------------------------------------ counting
 
 
@@ -210,7 +443,7 @@ def _kernel_state() -> Dict[str, Dict[str, float]]:
 
 
 def _signature(tensors) -> tuple:
-    return tuple((tuple(x.shape), x.dtype) for x in tensors)
+    return tuple((tuple(x.shape), x.dtype, tuple(getattr(x, "placements", ()))) for x in tensors)
 
 
 class _GradMemo:
@@ -251,6 +484,7 @@ class _GradMemo:
     def _record(self, loss_fn, params, batch, live):
         c = self.counter
         ops0, flops0, bytes0, kernels0 = collections.Counter(c.ops), c.flops, c.bytes_moved, _kernel_state()
+        coll0 = len(c.collectives)
         live0 = c.window()
         c.muted = True
         inner = [x.detach().requires_grad_(True) for x in live]
@@ -262,6 +496,7 @@ class _GradMemo:
             ops=c.ops - ops0, flops=c.flops - flops0, bytes=c.bytes_moved - bytes0,
             kernels={f: {n: k1[f][n] - kernels0[f][n] for n in k1[f]} for f in k1},
             peak=c.window_peak - live0, unused=tuple(g is None for g in grads), loss_dtype=loss.dtype,
+            collectives=c.collectives[coll0:],
         )
         self.real += 1
         return entry, grads, loss
@@ -272,6 +507,7 @@ class _GradMemo:
         c.ops.update(entry["ops"])
         c.bytes_moved += entry["bytes"]
         c.flops += entry["flops"]
+        c.collectives.extend(entry["collectives"])
         for field, store in (("calls", _build.FAKE_CALLS), ("flops", _build.FAKE_FLOPS), ("bytes", _build.FAKE_BYTES)):
             for name, n in entry["kernels"][field].items():
                 store[name] += n
@@ -288,7 +524,7 @@ class _Replay(torch.autograd.Function):
             memo.replay(entry)
             loss = torch.zeros((), dtype=entry["loss_dtype"], device=live[0].device)
         ctx.memo, ctx.entry, ctx.grads = memo, entry, grads
-        ctx.metas = [(x.shape, x.dtype, x.device) for x in live]
+        ctx.metas = [_meta(x) for x in live]
         return loss.detach()
 
     @staticmethod
@@ -296,31 +532,57 @@ class _Replay(torch.autograd.Function):
         grads = ctx.grads
         if grads is None:
             grads = tuple(
-                None if unused else torch.empty(shape, dtype=dtype, device=device)
-                for (shape, dtype, device), unused in zip(ctx.metas, ctx.entry["unused"])
+                None if unused else _fresh(meta) for meta, unused in zip(ctx.metas, ctx.entry["unused"])
             )
         ctx.grads = None
         ctx.memo.counter.muted = False
         return (None, None, None, None) + tuple(grads)
 
 
+def _meta(x: torch.Tensor) -> tuple:
+    """What a replayed gradient of ``x`` is made from."""
+    if sh.is_dtensor(x):
+        local = x.to_local()
+        return tuple(x.shape), x.dtype, local.device, (x.device_mesh, tuple(x.placements), tuple(local.shape))
+    return tuple(x.shape), x.dtype, x.device, None
+
+
+def _fresh(meta: tuple) -> torch.Tensor:
+    """An uninitialised gradient of ``_meta``'s tensor: a DTensor laid out
+    as the parameter where it is one."""
+    shape, dtype, device, layout = meta
+    if layout is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    mesh, place, local_shape = layout
+    return sh.from_local_like(torch.empty(local_shape, dtype=dtype, device=device), mesh, place, shape)
+
+
 def _count(case: DryRunCase, cfg: ModelConfig, memoize: bool = True) -> Dict:
-    """One step of ``case`` at ``cfg`` on fake tensors, counted."""
+    """One step of ``case`` at ``cfg`` on fake tensors, counted (one
+    device's share on a mesh)."""
+    mesh = case_mesh(case)
     with FakeTensorMode():
-        counter = StepCounter()
+        counter = StepCounter(mesh)
         memo = _GradMemo(counter)
-        step, args, _ = build_step(case, "cpu", cfg, memo.wrap if memoize else (lambda f: f))
+        wrap = memo.wrap if memoize else (lambda f: f)
+        if mesh is None:
+            step, args, _ = build_step(case, "cpu", cfg, wrap)
+        else:
+            step, args, _ = build_sharded_step(case, mesh, case.mesh_device, cfg, wrap)
         _build.reset_fake_calls()
         counter.hold(args)
         with counter:
             out = step(*args)
         kernels = _kernel_state()
-        return dict(
+        rec = dict(
             flops=counter.flops, bytes_moved=counter.bytes_moved,
             step_peak=counter.peak, output_bytes=sum(tensor_bytes(x) for x in tree_leaves(out)),
             ops=dict(counter.ops), kernel_calls=kernels["calls"], kernel_flops=kernels["flops"],
             kernel_bytes=kernels["bytes"], grads_counted=memo.real, grads_replayed=memo.replayed,
         )
+        if mesh is not None:
+            rec["collectives"] = collective_bytes(counter.collectives)
+        return rec
 
 
 def _with_units(cfg: ModelConfig, reps: int) -> ModelConfig:
@@ -371,9 +633,15 @@ def count_step(case: DryRunCase, extrapolate: bool = True, memoize: bool = True)
 
 def arguments(case: DryRunCase) -> Dict:
     """The step's setting (``build_step``'s info), its parameter count and
-    the bytes of its arguments, at full depth on fake tensors."""
+    the bytes of its arguments (one device's shards on a mesh), at full
+    depth on fake tensors."""
+    mesh = case_mesh(case)
     with FakeTensorMode():
-        _, args, info = build_step(case, "cpu")
+        if mesh is None:
+            _, args, info = build_step(case, "cpu")
+        else:
+            _, args, info = build_sharded_step(case, mesh, case.mesh_device)
+        info.pop("round_step", None)
         return dict(info, params=T.param_count(args[0]),
                     argument_bytes=sum(tensor_bytes(x) for x in tree_leaves(args)))
 
@@ -381,7 +649,7 @@ def arguments(case: DryRunCase) -> Dict:
 def run_case(case: DryRunCase, extrapolate: bool = True, memoize: bool = True) -> Dict:
     t0 = time.perf_counter()
     rec: Dict = {"case": "arch", "arch": case.arch, "shape": case.shape, "reduced": case.reduced,
-                 "card": HW.NAME}
+                 "card": HW.NAME, "mesh": case.mesh_name}
     try:
         rec.update(arguments(case))
         counts = count_step(case, extrapolate, memoize)
@@ -397,6 +665,12 @@ def run_case(case: DryRunCase, extrapolate: bool = True, memoize: bool = True) -
         rec["card_bytes"] = HW.HBM_BYTES
         rec["fits_one_card"] = rec["peak_bytes"] <= HW.HBM_BYTES
         rec["cards_needed"] = math.ceil(rec["peak_bytes"] / HW.HBM_BYTES)
+        if rec["kind"] == "decode" and case.use_flash:
+            # K5 is skipped where the caches' sequence is sharded (launch/sharding.py)
+            attn = any(b.split("+")[0] in ("attn", "swa", "local") for b in case_config(case)[1].layer_types())
+            rec["decode_attention"] = ("flash_decode" if counts["kernel_calls"].get("flash_decode") else "plain") \
+                if attn else None
+        rec.update(roofline.step_terms(rec, case.mesh_dims if case.sharded else None))
         rec["ok"] = True
     except Exception as e:
         rec["ok"] = False
@@ -404,6 +678,117 @@ def run_case(case: DryRunCase, extrapolate: bool = True, memoize: bool = True) -
         rec["traceback"] = traceback.format_exc()[-2000:]
     rec["total_s"] = round(time.perf_counter() - t0, 2)
     return rec
+
+
+# ----------------------------------------------------- sharded FL engine
+
+
+def run_fl_sharded_case(num_devices: int = 64, clients: int = 256, clients_per_round: int = 32, rounds: int = 4,
+                        cohort_cap: Optional[int] = None, staleness_bound: Optional[int] = None,
+                        scenario: Optional[str] = None, candidate_frac: Optional[float] = None,
+                        faults: Optional[str] = None, aggregator: str = "mean", local_algo: str = "fedavg",
+                        prox_mu: Optional[float] = None, feddyn_alpha: Optional[float] = None) -> Dict:
+    """The federation engine's sharded round on a client mesh of
+    ``num_devices`` gloo ranks (threads of this process,
+    ``launch/mesh.run_ranks``): the JAX dry run's ``run_fl_sharded_case``
+    (its federation, a linear model over 256 clients, and its variants:
+    resident, capacity slots, bounded staleness, the funnel, faults with a
+    robust aggregator, FedDyn), run for ``rounds`` rounds on the port's
+    engine (``engine.init_server_state(mesh=)``, ``make_round_fn(mesh=)``).
+    The record holds the all-reduces a round and their bytes, rank 0's."""
+    from repro_torch.core import selection as selection_lib
+    from repro_torch.fl import engine as engine_lib
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    case = "fl_sharded_engine"
+    if cohort_cap is not None:
+        case += "_slotted"
+    elif staleness_bound is not None:
+        case += "_stale"
+    elif candidate_frac is not None:
+        case += "_funnel"
+    elif faults is not None or aggregator != "mean":
+        case += "_faulty"
+    elif local_algo != "fedavg":
+        case += f"_{local_algo}"
+    rec: Dict = {"case": case, "mesh": f"{num_devices}x1(clients)", "backend": "gloo", "ranks": "threads",
+                 "clients": clients, "clients_per_round": clients_per_round, "cohort_cap": cohort_cap,
+                 "staleness_bound": staleness_bound, "scenario": scenario, "candidate_frac": candidate_frac,
+                 "faults": faults, "aggregator": aggregator, "local_algo": local_algo, "scan_rounds": rounds}
+    try:
+        feat, n_c, ncls = 32, 8, 10
+        rng = np.random.default_rng(0)
+        xs = torch.tensor(rng.normal(size=(clients, n_c, feat)).astype("float32"))
+        ys = torch.tensor(rng.integers(0, ncls, size=(clients, n_c)))
+        params = {"w": torch.tensor(0.01 * rng.normal(size=(feat, ncls)).astype("float32")),
+                  "b": torch.zeros(ncls)}
+
+        def loss_fn(p, x, y):
+            logp = torch.log_softmax(x @ p["w"] + p["b"], dim=-1)
+            return -torch.mean(logp.gather(-1, y[..., None].long()))
+
+        cfg = engine_lib.FLConfig(
+            num_clients=clients, clients_per_round=clients_per_round, local_epochs=2, lr=0.1, rounds=rounds,
+            eval_every=rounds, num_classes=ncls, seed=0, cohort_cap=cohort_cap, staleness_bound=staleness_bound,
+            scenario=scenario, candidate_frac=candidate_frac, faults=faults, aggregator=aggregator,
+            local_algo=local_algo, prox_mu=prox_mu, feddyn_alpha=feddyn_alpha,
+        )
+
+        def rank(mesh):
+            strat = selection_lib.DPPSelection()
+            with torch.no_grad():
+                l0 = torch.stack([loss_fn(params, x, y) for x, y in zip(xs, ys)])
+            state = engine_lib.init_server_state(cfg, params, xs, ys, xs.mean(dim=1), l0, strat, device="cpu",
+                                                 loss_fn=loss_fn, mesh=mesh)
+            fn = engine_lib.make_round_fn(cfg, loss_fn, (strat,), mesh=mesh)
+            mesh.reset_counts()
+            final, outs = engine_lib.run_scanned(fn, state, rounds)
+            return dict(all_reduces=mesh.all_reduce_calls, bytes=mesh.all_reduce_bytes,
+                        candidates=None if state.candidates is None else int(state.candidates.shape[0]),
+                        finite=bool(torch.isfinite(outs["loss"]).any()))
+
+        res = run_ranks(num_devices, rank, "cpu")
+        r0 = res[0]
+        rec.update(all_reduces_per_round=r0["all_reduces"] / rounds, all_reduce_bytes_per_round=r0["bytes"] / rounds,
+                   candidates=r0["candidates"], ranks_agree=all(r["all_reduces"] == r0["all_reduces"] for r in res))
+        rec["ok"] = rec["ranks_agree"] and r0["finite"]
+        if not rec["ok"]:
+            rec["error"] = "ranks disagree on their all-reduces, or no finite loss"
+    except Exception as e:
+        rec["ok"] = False
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    rec["total_s"] = round(time.perf_counter() - t0, 2)
+    return rec
+
+
+def run_fl_sharded_cases(devices: int = 64, cohort_cap: int = 2, staleness_bound: int = 2,
+                         candidate_frac: float = 0.25, clients: int = 256, rounds: int = 4) -> List[Dict]:
+    """JAX's six ``--fl-sharded`` cases, with its defaults."""
+    common = dict(num_devices=devices, clients=clients, rounds=rounds, clients_per_round=min(32, clients // 2))
+    return [
+        run_fl_sharded_case(**common),
+        run_fl_sharded_case(**dict(common, clients_per_round=cohort_cap), cohort_cap=cohort_cap),
+        run_fl_sharded_case(**common, staleness_bound=staleness_bound, scenario="heavy_tail"),
+        run_fl_sharded_case(**common, candidate_frac=candidate_frac),
+        run_fl_sharded_case(**common, faults="chaos", aggregator="trimmed_mean"),
+        run_fl_sharded_case(**common, local_algo="feddyn", feddyn_alpha=0.01),
+    ]
+
+
+def _fl_line(rec: Dict) -> str:
+    extra = "".join((
+        f" cap={rec['cohort_cap']}" if rec["cohort_cap"] is not None else "",
+        f" stale<={rec['staleness_bound']}({rec['scenario']})" if rec["staleness_bound"] is not None else "",
+        f" Q={rec.get('candidates')}({rec['candidate_frac']})" if rec["candidate_frac"] is not None else "",
+        f" faults={rec['faults']}/{rec['aggregator']}" if rec["faults"] is not None else "",
+        f" algo={rec['local_algo']}" if rec["local_algo"] != "fedavg" else "",
+    ))
+    tail = (f"  all-reduces/round {rec['all_reduces_per_round']:g} ({rec['all_reduce_bytes_per_round']:g} B)"
+            if rec["ok"] else f"  {rec['error'][:160]}")
+    return (f"[{'OK ' if rec['ok'] else 'FAIL'}] {rec['case']} {rec['mesh']:14s} {rec['backend']} "
+            f"C={rec['clients']} k={rec['clients_per_round']}{extra} {rec['total_s']:7.1f}s{tail}")
 
 
 # ----------------------------------------------------- serving engine
@@ -446,15 +831,6 @@ def run_serve_engine_case(arch: str, batch: int = 4, prompt: int = 8, gen: int =
 # ------------------------------------------------------------------ CLI
 
 
-def _refuse_unported(args) -> None:
-    """Flags that need a mesh or ``shard_map``, with their ROADMAP Queue-1 item."""
-    used = [f"{flag} (ROADMAP Queue 1 item 15)" for flag, on in (
-        ("--multi-pod", args.multi_pod), ("--both-meshes", args.both_meshes), ("--fl-sharded", args.fl_sharded),
-    ) if on]
-    if used:
-        raise NotImplementedError(f"not ported yet: {', '.join(used)}")
-
-
 def _append(path: Optional[str], rec: Dict) -> None:
     if path:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -473,11 +849,36 @@ def main(argv=None) -> None:
     ap.add_argument("--serve-engine", action="store_true",
                     help="run ServeEngine's scan decode and continuous admission on reduced archs (CPU)")
     ap.add_argument("--out", default=None, help="append JSONL records here")
-    ap.add_argument("--multi-pod", action="store_true", help="not ported (a mesh: ROADMAP Queue 1 item 15)")
-    ap.add_argument("--both-meshes", action="store_true", help="not ported (a mesh: ROADMAP Queue 1 item 15)")
-    ap.add_argument("--fl-sharded", action="store_true", help="not ported (shard_map: ROADMAP Queue 1 item 15)")
+    ap.add_argument("--jobs", type=int, default=None,
+                    help="worker processes, one case each (default: half the host's cores)")
+    ap.add_argument("--mesh", action="store_true", help="one device's share on the 16 x 16 production mesh")
+    ap.add_argument("--multi-pod", action="store_true", help="one device's share on the 2 x 16 x 16 mesh")
+    ap.add_argument("--both-meshes", action="store_true", help="each case on the 16 x 16 and the 2 x 16 x 16 mesh")
+    ap.add_argument("--mesh-device", default="cpu", choices=("cpu", "cuda"),
+                    help="the device type of the mesh's fake tensors (cuda: the collectives the card issues)")
+    ap.add_argument("--fl-sharded", action="store_true",
+                    help="the federation engine's six sharded rounds on a client mesh instead of an arch case")
+    ap.add_argument("--fl-devices", type=int, default=64, help="client-mesh ranks for --fl-sharded")
+    ap.add_argument("--fl-cohort-cap", type=int, default=2,
+                    help="slots a rank (and the cohort's size) of the --fl-sharded capacity-slot case")
+    ap.add_argument("--fl-staleness-bound", type=int, default=2,
+                    help="staleness bound of the --fl-sharded bounded-staleness case")
+    ap.add_argument("--fl-candidate-frac", type=float, default=0.25,
+                    help="candidate fraction of the --fl-sharded funnel case")
     args = ap.parse_args(argv)
-    _refuse_unported(args)
+
+    if args.fl_sharded:
+        failed = False
+        for rec in run_fl_sharded_cases(args.fl_devices, args.fl_cohort_cap, args.fl_staleness_bound,
+                                        args.fl_candidate_frac):
+            print(_fl_line(rec), flush=True)
+            if not rec["ok"]:
+                failed = True
+                print(rec.get("traceback", "")[-800:])
+            _append(args.out, rec)
+        if failed:
+            raise SystemExit(1)
+        return
 
     if args.serve_engine:
         # one cache family each: dense GQA KV, the RWKV state, SWA ring + MoE
@@ -509,13 +910,15 @@ def main(argv=None) -> None:
                 except json.JSONDecodeError:
                     continue
                 if r.get("ok") and r.get("case") == "arch":
-                    done.add((r["arch"], r["shape"], r.get("reduced", False)))
-    cases = [DryRunCase(arch, shape, reduced=args.reduced, scan_rounds=args.scan_rounds)
-             for arch, shape in pairs if (arch, shape, args.reduced) not in done]
-    for arch, shape in pairs:
-        if (arch, shape, args.reduced) in done:
-            print(f"[skip] {arch} {shape} (in {args.out})")
-    jobs = min(len(cases), max(1, (os.cpu_count() or 1) // 2))  # one process a case, on half the host's cores
+                    done.add((r["arch"], r["shape"], r.get("mesh", "1"), r.get("reduced", False)))
+    meshes = (False, True) if args.both_meshes else (True,) if args.multi_pod else (False,) if args.mesh else (None,)
+    every = [DryRunCase(arch, shape, reduced=args.reduced, scan_rounds=args.scan_rounds, multi_pod=mp,
+                        mesh_device=args.mesh_device) for arch, shape in pairs for mp in meshes]
+    cases = [c for c in every if (c.arch, c.shape, c.mesh_name, c.reduced) not in done]
+    for c in every:
+        if (c.arch, c.shape, c.mesh_name, c.reduced) in done:
+            print(f"[skip] {c.arch} {c.shape} {c.mesh_name} (in {args.out})")
+    jobs = min(len(cases), args.jobs or max(1, (os.cpu_count() or 1) // 2))  # one process a case
     if jobs > 1:
         import concurrent.futures
         import multiprocessing
@@ -528,11 +931,14 @@ def main(argv=None) -> None:
     for case, rec in zip(cases, records):
         if rec["ok"]:
             fit = "fits one card" if rec["fits_one_card"] else f"needs {rec['cards_needed']} cards"
-            print(f"[OK ] {case.arch:28s} {case.shape:12s} {rec['total_s']:7.1f}s  params {rec['params']:.3e}  "
-                  f"flops {rec['flops']:.3e}  peak {rec['peak_bytes'] / 2**30:.2f} GiB  {fit}", flush=True)
+            where = f"{case.mesh_name:8s} " if case.sharded else ""
+            coll = f"  collectives {rec['collectives']['total']:.3e} B" if case.sharded else ""
+            print(f"[OK ] {case.arch:28s} {case.shape:12s} {where}{rec['total_s']:7.1f}s  params {rec['params']:.3e}  "
+                  f"flops {rec['flops']:.3e}  peak {rec['peak_bytes'] / 2**30:.2f} GiB  {fit}{coll}", flush=True)
         else:
             failed = True
-            print(f"[FAIL] {case.arch:28s} {case.shape:12s} {rec['total_s']:7.1f}s  {rec['error'][:160]}")
+            print(f"[FAIL] {case.arch:28s} {case.shape:12s} {case.mesh_name:8s} {rec['total_s']:7.1f}s  "
+                  f"{rec['error'][:160]}")
             print(rec.get("traceback", "")[-800:], flush=True)
         _append(args.out, rec)
     if pool is not None:

@@ -24,24 +24,37 @@ one rank at a time, and seconds a round on D cards is not measured.  The
 kernels' launch counts (``kernels/_build.LAUNCHES``) are the process's,
 summed over its ranks.
 
-``make_production_mesh`` and the roofline's TPU constants (``HW``) belong
-to the model-axis half of the mesh work and are not here; the port's
-roofline has its own ``HW`` (``analysis/roofline.py``).
+``make_production_mesh`` is the model axis's mesh: the JAX package's
+16 × 16 (``data``, ``model``) or 2 × 16 × 16 (``pod``, ``data``, ``model``)
+layout as a ``DeviceMesh`` over a process group of ``torch.distributed``'s
+``fake`` backend, in which this process is rank 0 of the mesh (of 512
+ranks, a 16 × 16 mesh taking the first 256).  One
+process runs one device's share of a sharded program (DTensors holding
+rank 0's shards) and no data crosses: a collective returns at once, its
+tensors as they were.  The dry run (``launch/dryrun.py``) counts that
+share; ``chip_smoke.py`` runs it on the card.  The mesh sets the
+process's default group (a ``ClientMesh`` builds its own groups and never
+reads it) until ``release_fake_meshes`` destroys it.  JAX's TPU constants
+(``HW``) are not ported: the roofline's H100 ``HW``
+(``analysis/roofline.py``) is the one definition.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import threading
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ClientMesh", "make_client_mesh", "run_ranks"]
+__all__ = [
+    "ClientMesh", "make_client_mesh", "make_fake_mesh", "make_production_mesh", "release_fake_meshes", "run_ranks",
+]
 
 # a rank that dies before a collective leaves the others waiting: both
 # backends give up after this long instead of their own defaults (gloo's
@@ -54,7 +67,8 @@ class ClientMesh:
     """One rank of the client mesh: ``(group, rank, size, device)``.
 
     ``all_reduce_calls`` counts :meth:`all_reduce` calls since the last
-    :meth:`reset_counts` (or since the mesh was made)."""
+    :meth:`reset_counts` (or since the mesh was made), and
+    ``all_reduce_bytes`` the bytes of the tensors they summed."""
 
     group: Any  # a torch.distributed ProcessGroup (gloo or NCCL)
     rank: int
@@ -62,6 +76,7 @@ class ClientMesh:
     device: torch.device
     backend: str
     all_reduce_calls: int = 0
+    all_reduce_bytes: int = 0
 
     def all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """Sum ``flat`` (a tensor on this rank's device) over the ranks, in
@@ -69,11 +84,12 @@ class ClientMesh:
         if flat.device != self.device:
             raise ValueError(f"all_reduce of a tensor on {flat.device}; this rank computes on {self.device}")
         self.all_reduce_calls += 1
+        self.all_reduce_bytes += flat.numel() * flat.element_size()
         self.group.allreduce([flat]).wait()
         return flat
 
     def reset_counts(self) -> None:
-        self.all_reduce_calls = 0
+        self.all_reduce_calls = self.all_reduce_bytes = 0
 
     def close(self) -> None:
         """Shut the process group down (its NCCL communicator or gloo
@@ -188,3 +204,75 @@ def run_ranks(
         if e is not None:
             raise e
     return results
+
+
+# ranks a fake mesh may span: the multi-pod mesh's; a smaller mesh takes the first ones
+FAKE_WORLD = 512
+# the fake group's blocks of FAKE_WORLD ranks: the meshes made between two
+# releases span one block, whose first rank this process is
+FAKE_BLOCKS = 1024
+_BLOCK = [0]
+# one mesh for each (shape, axes, device type): DTensor caches its plans by
+# mesh equality, so a second equal mesh would run on the first one's groups
+_FAKE_MESHES: dict = {}
+# process-group name -> the mesh axis it spans, for every fake mesh made
+GROUP_AXES: dict = {}
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str], device: Union[str, torch.device] = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the first
+    ``prod(shape)`` ranks (row-major) of a block of :data:`FAKE_WORLD` ranks
+    of a ``fake`` process group, in which this process is the block's first
+    rank (mesh coordinate 0 on every axis).  The group is made the default
+    one on the first call and kept until :func:`release_fake_meshes`: every
+    mesh shares it, and a mesh asked for again is the same object.
+    ``device`` is the device type its tensors live on (``cpu`` or
+    ``cuda``; ``cuda`` makes the first card the current one)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    n = math.prod(shape)
+    if n > FAKE_WORLD:
+        raise ValueError(f"a mesh of {n} devices is larger than the fake world's {FAKE_WORLD}")
+    base = _BLOCK[0] * FAKE_WORLD
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=base, world_size=FAKE_WORLD * FAKE_BLOCKS)
+    elif dist.get_backend() != "fake" or dist.get_world_size() != FAKE_WORLD * FAKE_BLOCKS:
+        raise RuntimeError(
+            f"the default process group is {dist.get_backend()!r} of {dist.get_world_size()} ranks; "
+            "a fake mesh needs a process of its own"
+        )
+    kind = torch.device(device).type
+    key = (tuple(shape), tuple(axes), kind)
+    if key not in _FAKE_MESHES:
+        if kind == "cuda":
+            torch.cuda.set_device(0)
+        mesh = DeviceMesh(kind, torch.arange(base, base + n).view(tuple(shape)), mesh_dim_names=tuple(axes))
+        for i, name in enumerate(axes):
+            GROUP_AXES[mesh.get_group(i).group_name] = name
+        _FAKE_MESHES[key] = mesh
+    return _FAKE_MESHES[key]
+
+
+def release_fake_meshes() -> None:
+    """Forget every fake mesh and destroy the ``fake`` default group, if
+    one was made: the process is free to hold other groups (a test's
+    teardown; a dry-run worker keeps its group to its end).  Meshes made
+    afterwards span the next block of ranks, so none equals an earlier one
+    whose plans DTensor still caches: those name groups that are gone."""
+    _FAKE_MESHES.clear()
+    GROUP_AXES.clear()
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
+        if _BLOCK[0] + 1 == FAKE_BLOCKS:
+            raise RuntimeError(f"the fake group was released {FAKE_BLOCKS} times; a process has no more blocks")
+        _BLOCK[0] += 1
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: Union[str, torch.device] = "cpu"):
+    """The production mesh (module docstring): (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) over ``("pod", "data", "model")`` with
+    ``multi_pod``; rank 0's view, over the ``fake`` backend."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return make_fake_mesh((16, 16), ("data", "model"), device)

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import matmul, replicate_dims
 
 __all__ = [
     "rms_norm",
@@ -54,7 +55,7 @@ def init_dense(
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    return matmul(x, p["w"])
 
 
 # ----------------------------------------------------------------- norms
@@ -87,6 +88,9 @@ def layer_norm(
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm over the last dim (of a DTensor, gathered first:
+    the statistics need whole rows)."""
+    x = replicate_dims(x, x.ndim - 1)
     if cfg.norm_type == "layernorm":
         return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])

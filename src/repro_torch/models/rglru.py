@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import is_dtensor, local_map, matmul
 from repro_torch.models import layers as L
 
 __all__ = ["init_rglru", "init_rglru_state", "apply_rglru"]
@@ -96,8 +97,8 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _gates(p: Dict, xi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (a, b) of h_t = a_t h_{t−1} + b_t, fp32."""
-    r = L.sigmoid((xi @ p["w_r"]["w"] + p["b_r"]).float())
-    i = L.sigmoid((xi @ p["w_i"]["w"] + p["b_i"]).float())
+    r = L.sigmoid((matmul(xi, p["w_r"]["w"]) + p["b_r"]).float())
+    i = L.sigmoid((matmul(xi, p["w_i"]["w"]) + p["b_i"]).float())
     log_a = -_C * _softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * xi.float())
@@ -140,6 +141,21 @@ def _associative_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, t
     return _interleave(ev_a, odd_a), _interleave(ev_b, odd_b)
 
 
+def _scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_associative_scan`; on DTensors, on each device's rows and
+    channels through ``local_map`` (the channels are independent), the
+    sequence gathered first where it is sharded."""
+    if not is_dtensor(a):
+        return _associative_scan(a, b)
+    from torch.distributed.tensor import Replicate
+
+    mesh = a.device_mesh
+    place = tuple(Replicate() if p.is_shard(1) or p.is_partial() else p for p in a.placements)
+    a, b = a.redistribute(mesh, place), b.redistribute(mesh, place)
+    return local_map(_associative_scan, out_placements=(place, place), in_placements=(place, place),
+                     device_mesh=mesh)(a, b)
+
+
 def apply_rglru(
     cfg: ModelConfig, p: Dict, x: torch.Tensor, state: Optional[Dict] = None
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -152,7 +168,7 @@ def apply_rglru(
     if state is None:
         xi, _ = _causal_conv(p, xi, None)
         a, b = _gates(p, xi)  # (B, S, d_rnn) fp32
-        _, h = _associative_scan(a, b)
+        _, h = _scan(a, b)
         new_state = None
     else:
         xi, new_buf = _causal_conv(p, xi, state["conv"])

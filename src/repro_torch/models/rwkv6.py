@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import constrain, is_dtensor, lay_out, local_map, matmul, reshape, split_last
 from repro_torch.models import layers as L
 from repro_torch.models.layers import sigmoid as _sigmoid
 from repro_torch.models.layers import silu as _silu
@@ -136,11 +137,49 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, h: int) -> torch.Tensor:
     """Per-head LayerNorm over hd (RWKV's GroupNorm(heads)): population
     variance, eps 1e-5, in fp32, cast back to x's dtype."""
     b, t, d = x.shape
-    xh = x.reshape(b, t, h, d // h).float()
+    xh = split_last(x, h, d // h).float()
     mu = xh.mean(-1, keepdim=True)
     var = torch.square(xh - mu).mean(-1, keepdim=True)
     xh = (xh - mu) * torch.rsqrt(var + 1e-5)
-    return (xh.reshape(b, t, d) * scale.float()).to(x.dtype)
+    return (reshape(xh, b, t, d) * scale.float()).to(x.dtype)
+
+
+def _state_like(s0: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """A fresh (B, H, hd, hd) state laid out as the DTensor ``r``'s rows and
+    heads (each rank cutting its own); on plain tensors ``s0`` itself."""
+    if not is_dtensor(r):
+        return s0
+    from torch.distributed.tensor import Replicate, Shard
+
+    place = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate() for p in r.placements)
+    return lay_out(s0, r.device_mesh, place)
+
+
+def _wkv6_kernel(wkv6, r, k, v, w, u, s0):
+    """K7 (or its plain scan) on plain tensors; on DTensors on each
+    device's heads and rows through ``local_map`` (JAX's ``shard_map``; the
+    heads are independent, and the scan's einsums would flatten a sharded
+    head dim), laid out as the state ``s0``: its batch dim's shards give
+    r/k/v/w's batch, its heads' shards their heads and the bonus
+    ``u``'s."""
+    if not is_dtensor(s0):
+        return wkv6(r, k, v, w, u, s0)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, sp = s0.device_mesh, tuple(s0.placements)
+    if any(p.is_shard() and p.dim > 1 for p in sp):
+        raise ValueError(f"K7 on a state laid out as {sp}: only its batch and heads may be sharded")
+    xp = tuple(Shard(2) if p.is_shard(1) else p for p in sp)
+    up = tuple(Shard(0) if p.is_shard(1) else Replicate() for p in sp)
+    r, k, v, w = (x.redistribute(mesh, xp) for x in (r, k, v, w))
+    u = u.redistribute(mesh, up)
+
+    def local(*args):
+        return wkv6(*(a.contiguous() for a in args))
+
+    return local_map(local, out_placements=(xp, sp), in_placements=(xp,) * 4 + (up, sp), device_mesh=mesh)(
+        r, k, v, w, u, s0
+    )
 
 
 def apply_rwkv_tmix(
@@ -158,27 +197,29 @@ def apply_rwkv_tmix(
     delta = _shift(x, last) - x
 
     xw, xk, xv, xr, xg = (x + delta * p[f"mu_{n}"] for n in ("w", "k", "v", "r", "g"))
-    r = L.dense(p["wr"], xr).reshape(b, t, h, hd)
-    k = L.dense(p["wk"], xk).reshape(b, t, h, hd)
-    v = L.dense(p["wv"], xv).reshape(b, t, h, hd)
+    r = split_last(L.dense(p["wr"], xr), h, hd)
+    k = split_last(L.dense(p["wk"], xk), h, hd)
+    v = split_last(L.dense(p["wv"], xv), h, hd)
     g = _silu(L.dense(p["wg"], xg))
     # data-dependent decay (Finch): w = exp(−exp(w0 + tanh(x̃ A) B)), fp32
-    dd = torch.tanh(xw @ p["a_w"]) @ p["b_w"]
+    dd = matmul(torch.tanh(matmul(xw, p["a_w"])), p["b_w"])
     logw = -torch.exp(torch.clamp(p["w0"].float() + dd.float(), -20.0, 8.0))
-    w = torch.exp(logw).reshape(b, t, h, hd)
+    w = split_last(torch.exp(logw), h, hd)
+    # one head layout for the wkv inputs (replicated under the default rules)
+    r, k, v, w = (constrain(a, "act_inner_b", "act_seq", "act_rwkv_h", None) for a in (r, k, v, w))
 
     if state is not None:
         s0 = state["wkv"]
     else:
-        s0 = torch.zeros(b, h, hd, hd, dtype=torch.float32, device=x.device)
+        s0 = _state_like(torch.zeros(b, h, hd, hd, dtype=torch.float32, device=x.device), r)
     if use_kernel:
         from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
-        y, s_new = wkv_ops.wkv6(r, k, v, w, p["u"], s0)
+        y, s_new = _wkv6_kernel(wkv_ops.wkv6, r, k, v, w, p["u"], s0)
     else:
-        y, s_new = wkv6_scan_ref(r, k, v, w, p["u"], s0)
+        y, s_new = _wkv6_kernel(wkv6_scan_ref, r, k, v, w, p["u"], s0)
 
-    y = _group_norm(y.reshape(b, t, d).to(x.dtype), p["ln_scale"], h)
+    y = _group_norm(reshape(y, b, t, d).to(x.dtype), p["ln_scale"], h)
     out = L.dense(p["wo"], y * g)
     new_state = None
     if state is not None:

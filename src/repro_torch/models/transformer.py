@@ -37,6 +37,13 @@ attention layers (``swa``, ``local``).  The JAX package's model
 path never sets ``use_kernel`` (its transformer calls the time mix
 without it); the port routes it from the same switch, and with
 ``use_flash=False`` computes exactly what JAX's path computes.
+
+On DTensors (the sharded dry run, ``launch/sharding.py``) the residual
+stream is constrained where JAX constrains it (after the embedding and
+each repeat unit's layers), and the model code's DTensor branches say
+what each device computes where DTensor has no strategy of its own
+(``src/repro_torch/DESIGN.md``, "The model axis"); on plain tensors those
+branches dispatch nothing.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import (
+    constrain, is_dtensor, lay_out, local_map, local_offset, matmul, shard_like, shards_dim,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -259,7 +269,7 @@ def _embed_in(
     if embeds is not None:
         x = embeds.to(dtype)
     else:
-        x = params["embed"]["w"][tokens].to(dtype)
+        x = _embed_rows(params["embed"]["w"], tokens).to(dtype)
     if cfg.embed_scale:
         # the factor is rounded to the activation dtype first, as in JAX
         x = x * float(torch.tensor(cfg.d_model**0.5, dtype=dtype))
@@ -267,6 +277,37 @@ def _embed_in(
         pos = positions if positions.ndim == 2 else positions[0]
         x = x + L.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
     return x
+
+
+def _embed_rows(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the table ``w``.  On a DTensor table sharded on
+    the vocabulary (``vocab_w``), each device reads the tokens in its own
+    slice (zeros elsewhere) and the slices are summed (vocabulary-parallel,
+    through ``local_map``); the table's other dims are gathered first."""
+    if not shards_dim(w, 0):
+        return w[tokens]
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = w.device_mesh
+    w = w.redistribute(mesh, tuple(p if p.is_shard(0) else Replicate() for p in w.placements))
+    vocab = [i for i, p in enumerate(w.placements) if p.is_shard(0)]
+    t_place = tuple(
+        Replicate() if i in vocab else (tokens.placements[i] if is_dtensor(tokens) else Replicate())
+        for i in range(mesh.ndim)
+    )
+    tokens = lay_out(tokens, mesh, t_place)
+    out_place = [Partial() if i in vocab else t_place[i] for i in range(mesh.ndim)]
+    lo = local_offset(w, 0)
+
+    def local(table, t):
+        idx = t.long() - lo
+        mine = (idx >= 0) & (idx < table.shape[0])
+        rows = table[torch.where(mine, idx, 0)]
+        return rows * mine[..., None].to(rows.dtype)
+
+    return local_map(local, out_placements=out_place, in_placements=(tuple(w.placements), t_place), device_mesh=mesh)(
+        w, tokens
+    )
 
 
 def _layer_cache(caches: Dict, cfg: ModelConfig, layer: int) -> Dict:
@@ -280,11 +321,15 @@ def _layer_cache(caches: Dict, cfg: ModelConfig, layer: int) -> Dict:
 
 def _run_layers(
     cfg: ModelConfig, blocks: List[Dict], layer_types: Tuple[str, ...], x: torch.Tensor, aux: torch.Tensor,
-    positions: torch.Tensor, use_flash: bool,
+    positions: torch.Tensor, use_flash: bool, unit: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Layers without caches, their aux losses added to ``aux`` in order."""
+    """Layers without caches, their aux losses added to ``aux`` in order.
+    The residual stream of a repeat ``unit``'s layers is constrained after
+    each (``launch/sharding.constrain``), as JAX's layer scan does."""
     for p, btype in zip(blocks, layer_types):
         x, _, a = _apply_block(cfg, p, btype, x, positions, None, use_flash)
+        if unit:
+            x = constrain(x, "act_batch", "act_seq", "act_embed")
         aux = aux + a
     return x, aux
 
@@ -305,7 +350,7 @@ def _forward_remat(
     blocks = params["blocks"]
     for r in range(reps):
         x, aux = checkpoint(
-            _run_layers, cfg, blocks[r * n : (r + 1) * n], cfg.block_pattern, x, aux, positions, use_flash,
+            _run_layers, cfg, blocks[r * n : (r + 1) * n], cfg.block_pattern, x, aux, positions, use_flash, True,
             use_reentrant=False, preserve_rng_state=False,  # the forward draws no random numbers
         )
     rest = cfg.layer_types()[reps * n :]
@@ -327,7 +372,7 @@ def forward(
     embeddings.  With caches, each layer's tensors are written in place
     (module docstring).  With ``cfg.remat``, a pass without caches that
     records gradients checkpoints each repeat unit (``_forward_remat``)."""
-    x = _embed_in(cfg, params, tokens, positions, embeds)
+    x = constrain(_embed_in(cfg, params, tokens, positions, embeds), "act_batch", "act_seq", "act_embed")
     layer_types = cfg.layer_types()
     new_pos: List[torch.Tensor] = []
     new_rem: List[Dict] = []
@@ -340,6 +385,8 @@ def forward(
         cache = None if caches is None else _layer_cache(caches, cfg, i)
         x, nc, a = _apply_block(cfg, p, btype, x, positions, cache, use_flash)
         if caches is None:
+            if i < reps * len(cfg.block_pattern):
+                x = constrain(x, "act_batch", "act_seq", "act_embed")
             aux = aux + a
         elif i < reps * len(cfg.block_pattern):
             new_pos.append(nc["pos"])
@@ -365,7 +412,7 @@ def _head_weight(cfg: ModelConfig, params: Dict) -> torch.Tensor:
 
 def logits_from_hidden(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
     """Logits over the padded vocabulary, in the hidden's dtype."""
-    logits = hidden @ _head_weight(cfg, params).to(hidden.dtype)
+    logits = matmul(hidden, _head_weight(cfg, params).to(hidden.dtype))
     if cfg.logits_soft_cap:
         c = cfg.logits_soft_cap
         logits = torch.tanh(logits / c) * c
@@ -421,6 +468,33 @@ def param_count(params: Dict) -> int:
     return count(params)
 
 
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The targets' logits.  On DTensor logits sharded on the vocabulary
+    (``vocab_w``), each device reads the targets in its own slice and the
+    slices' results are summed (vocabulary-parallel, through
+    ``local_map``), rather than gathering the logits."""
+    last = logits.ndim - 1
+    if not shards_dim(logits, last):
+        return logits.gather(-1, targets[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, place = logits.device_mesh, tuple(logits.placements)
+    lo = local_offset(logits, last)  # the vocabulary may be cut on more than one mesh axis
+    t_place = tuple(Replicate() if p.is_shard(last) else p for p in place)
+    targets = lay_out(targets, mesh, t_place)
+
+    def local(lg, t):
+        idx = t.long() - lo
+        mine = (idx >= 0) & (idx < lg.shape[-1])
+        picked = lg.gather(-1, torch.where(mine, idx, 0)[..., None])[..., 0]
+        return torch.where(mine, picked, 0.0)
+
+    out_place = tuple(Partial() if p.is_shard(last) else p for p in place)
+    return local_map(local, out_placements=list(out_place), in_placements=(place, t_place), device_mesh=mesh)(
+        logits, targets
+    )
+
+
 def lm_loss(
     cfg: ModelConfig,
     params: Dict,
@@ -449,7 +523,7 @@ def lm_loss(
     x = tokens if tokens is not None else embeds
     b, s = x.shape[:2]
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+        positions = shard_like(torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s), x)
     hidden, _, aux = forward(
         cfg, params, tokens, mrope_streams(cfg, positions), embeds=embeds, use_flash=use_flash
     )
@@ -463,12 +537,11 @@ def lm_loss(
     w = _head_weight(cfg, params)
 
     def ce(h_c: torch.Tensor, t_c: torch.Tensor) -> torch.Tensor:
-        logits = h_c @ w.to(h_c.dtype)
+        logits = matmul(h_c, w.to(h_c.dtype))
         if cfg.logits_soft_cap:
             logits = torch.tanh(logits / cfg.logits_soft_cap) * cfg.logits_soft_cap
         logits = logits.float()
-        gold = logits.gather(-1, t_c[..., None].long())[..., 0]
-        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+        return torch.sum(torch.logsumexp(logits, dim=-1) - _gold(logits, t_c))
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, n, chunk):  # full chunks, then the tail

@@ -1184,6 +1184,104 @@ def test_dryrun_mode_a_round_matches_the_card(card):
     assert abs(peak / want - 1) <= 0.10, (peak, want)
 
 
+@pytest.fixture
+def fake_group():
+    """A mesh test's fake default group (``launch/mesh.make_fake_mesh``)
+    lives only while the test runs: the NCCL client-mesh tests after it
+    share the process."""
+    yield
+    from repro_torch.launch.mesh import release_fake_meshes
+
+    release_fake_meshes()
+
+
+def _mesh_on_card(card, case):
+    """Rank 0's program of a sharded case on the card (``dryrun.
+    materialize``: real tensors at the device's shapes, the ``fake`` group
+    moving nothing), after the dry run's record of it -> (the counter, the
+    peak above what was allocated before the arguments were made, the
+    record); kernel launches counted from the real run's start."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.ops import StepCounter
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_case(case)
+    assert rec["ok"], rec.get("traceback")
+    mesh = dryrun.case_mesh(case)
+    with FakeTensorMode():
+        step, fake_args, _ = dryrun.build_sharded_step(case, mesh, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hold_workspaces(card)
+    m0 = torch.cuda.memory_allocated(card)
+    args = dryrun.materialize(fake_args, card)
+    counter = StepCounter(mesh)
+    counter.hold(args)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    with counter:
+        step(*args)
+    torch.cuda.synchronize()
+    return counter, torch.cuda.max_memory_allocated(card) - m0, rec
+
+
+def test_mesh_decode_launches_k7_at_the_devices_heads(card, fake_group):
+    """rwkv6-7b's decode_32k step on the 16 x 16 mesh, rank 0 on the card:
+    K7 launched once a layer at the device's (8, 1, 4, 64) through
+    ``local_map``, its first real call's outputs within the bf16 bound of
+    the plain scan on the same local inputs; FLOPs counted on the local
+    tensors equal the sharded dry run's; collectives kind by kind."""
+    from repro_torch.analysis.ops import collective_bytes
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+    from repro_torch.launch import dryrun
+
+    calls, kernel = [], wkv_ops.wkv6
+
+    def spy(*a):
+        y, s_new = kernel(*a)
+        if not _build.is_fake(a[0]):  # the real run's, not the dry run's
+            calls.append((tuple(a[0].shape), [x.clone() for x in a], y.clone(), s_new.clone()))
+        return y, s_new
+
+    wkv_ops.wkv6 = spy
+    try:
+        case = dryrun.DryRunCase("rwkv6-7b", "decode_32k", multi_pod=False, mesh_device="cuda")
+        counter, peak, rec = _mesh_on_card(card, case)
+    finally:
+        wkv_ops.wkv6 = kernel
+    assert _build.LAUNCHES["wkv6"] == rec["kernel_calls"]["wkv6"] == len(calls) == 32
+    assert {c[0] for c in calls} == {(8, 1, 4, 64)}
+    _, inputs, y, s_new = calls[0]
+    want_y, want_s = wkv6_scan_ref(*inputs)
+    want_y = want_y.to(y.dtype).float()
+    atol = 2.0**-8 * want_y.abs().amax(dim=-1, keepdim=True)
+    assert bool(((y.float() - want_y).abs() <= 2.0**-7 * want_y.abs() + atol).all())
+    assert bool(((s_new - want_s).abs() <= 1e-5 * want_s.abs().amax(dim=(2, 3), keepdim=True)).all())
+    assert counter.flops == rec["flops_counted"]
+    assert collective_bytes(counter.collectives)["calls"] == rec["collectives"]["calls"]
+    assert abs(peak / (rec["peak_bytes"] - rec["workspace_bytes"]) - 1) <= 0.10
+
+
+def test_mesh_mode_a_round_flops_on_the_card(card, fake_group):
+    """smollm-360m's Mode-A round on the 16 x 16 mesh cut to one client of
+    one sequence a device and two local steps (``chip_smoke.py`` phase
+    8b's): the FLOPs rank 0's real run counts on its local tensors equal
+    the sharded dry run's, its collectives kind by kind, its peak within
+    10% of the dry run's (without the workspaces this process holds)."""
+    from repro_torch.analysis.ops import collective_bytes
+    from repro_torch.launch import dryrun
+
+    case = dryrun.DryRunCase("smollm-360m", "train_4k", batch=16, local_steps=2, multi_pod=False,
+                             mesh_device="cuda")
+    counter, peak, rec = _mesh_on_card(card, case)
+    assert counter.flops == rec["flops_counted"] > 0
+    assert collective_bytes(counter.collectives)["calls"] == rec["collectives"]["calls"]
+    assert abs(peak / (rec["peak_bytes"] - rec["workspace_bytes"]) - 1) <= 0.10
+
+
 # ------------------------------------------------------------- client mesh
 
 

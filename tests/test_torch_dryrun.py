@@ -33,6 +33,7 @@ from repro_torch.configs.base import INPUT_SHAPES  # noqa: E402
 from repro_torch.fl import rounds as trounds  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
+from repro_torch.launch.mesh import release_fake_meshes  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -296,10 +297,34 @@ def test_cli_reduced_records_are_ok(tmp_path, capsys):
     assert "[skip]" in capsys.readouterr().out
 
 
+@pytest.fixture
+def fake_group():
+    """The mesh flags' fake default group lives only while the test runs."""
+    yield
+    release_fake_meshes()
+
+
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes", "--fl-sharded"])
-def test_cli_refuses_mesh_flags_naming_item_15(flag):
-    with pytest.raises(NotImplementedError, match=f"{flag} \\(ROADMAP Queue 1 item 15\\)"):
-        D.main(["--arch", "smollm-360m", "--shape", "train_4k", flag])
+def test_cli_refuses_mesh_flags_naming_item_15(flag, tmp_path, monkeypatch, fake_group):
+    """The mesh flags that ROADMAP Queue 1 item 15 once refused now run:
+    each writes only ``ok`` records (reduced, small; ``--fl-sharded``'s
+    federation cut to 16 clients and one round, its flags passed on)."""
+    out = tmp_path / "d.jsonl"
+    if flag == "--fl-sharded":
+        full = D.run_fl_sharded_cases
+
+        def small(devices, cohort_cap, staleness_bound, candidate_frac):
+            assert (devices, cohort_cap, staleness_bound, candidate_frac) == (2, 2, 2, 0.25)
+            return full(devices, cohort_cap, staleness_bound, candidate_frac, clients=16, rounds=1)
+
+        monkeypatch.setattr(D, "run_fl_sharded_cases", small)
+        extra = ["--fl-devices", "2"]
+    else:
+        extra = ["--arch", "smollm-360m", "--shape", "long_500k", "--reduced"]
+    D.main([flag, "--out", str(out)] + extra)
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert recs and all(r["ok"] for r in recs)
+    assert len(recs) == {"--multi-pod": 1, "--both-meshes": 2, "--fl-sharded": 6}[flag]
 
 
 def test_serve_engine_keeps_one_signature_per_entry_point(tmp_path):
